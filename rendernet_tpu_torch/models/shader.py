@@ -1,0 +1,131 @@
+"""RenderNet shader model (PyTorch, forward only): voxel grid -> image.
+
+Counterpart of ``rendernet_tpu/models/shader.py`` (the network at :87-170,
+``shader_forward`` at :173): a strided conv3d encoder (8/16/32 channels),
+a 3D residual stack + skip conv, the learned projection unit, 2D residual
+stacks at depth*32 and base*16 channels with skips, 4x4 convs, the deconv
+chain and a sigmoid.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+from torch import nn
+
+from rendernet_tpu_torch import resolve_device
+from rendernet_tpu_torch.nn.layers import Conv, ConvTranspose, ConvUnit, ProjectionUnit, ResBlock
+from rendernet_tpu_torch.ops.cuda_resample import rotate_resample_to_camera_multipass
+from rendernet_tpu_torch.ops.resample import rotate_resample_to_camera
+
+__all__ = ["ShaderConfig", "ShaderRenderNet", "shader_forward", "init_shader_params"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShaderConfig:
+    """Static hyperparameters; the defaults are the reference network for a
+    128-deep camera grid with a greyscale head (``out_channels=3`` is the
+    normal-map head of the render demo). The JAX config's training-only
+    fields (keep_prob, remat, preact_policy, scan_blocks) come with the
+    training slice."""
+
+    out_channels: int = 1
+    enc_channels: Tuple[int, int, int] = (8, 16, 32)
+    res1_blocks: int = 10
+    res2_blocks: int = 10
+    res3_blocks: int = 5
+    base: int = 32
+    new_size: int = 128
+
+
+class ShaderRenderNet(nn.Module):
+    """The shader network on a camera-aligned voxel grid ``[B, H, W, D, C]``
+    -> ``[B, 4H, 4W, out_channels]`` in [0, 1]. Runs in the dtype of its
+    input; parameters stay float32."""
+
+    def __init__(self, cfg: ShaderConfig, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        g = generator
+        c1, c2, c3 = cfg.enc_channels
+        depth = -(-cfg.new_size // 2)  # e_conv1 halves depth, e_conv2 again
+        nf = -(-depth // 2) * c3
+        b = cfg.base
+        s1 = (1, 1)
+        enc = nn.ModuleDict()
+        enc["e_conv1"] = ConvUnit("e_conv1", Conv(1, c1, (5, 5, 5), (2, 2, 2), g), c1)
+        enc["e_conv2"] = ConvUnit("e_conv2", Conv(c1, c2, (3, 3, 3), (1, 1, 2), g), c2)
+        enc["e_conv3"] = ConvUnit("e_conv3", Conv(c2, c3, (3, 3, 3), (1, 1, 1), g), c3)
+        for i in range(1, cfg.res1_blocks + 1):
+            enc[f"res1_{i}"] = ResBlock(c3, 3, g)
+        enc["res1_skip"] = nn.ModuleDict({"con1_3X3": Conv(c3, c3, (3, 3, 3), (1, 1, 1), g)})
+        enc["projection_unit"] = ProjectionUnit(nf, g)
+        for i in range(1, cfg.res2_blocks + 1):
+            enc[f"res2_{i}"] = ResBlock(nf, 2, g)
+        enc["res2_skip"] = nn.ModuleDict({"con1_3X3": Conv(nf, nf, (3, 3), s1, g)})
+        enc["e_conv5"] = ConvUnit("e_conv5", Conv(nf, b * 16, (4, 4), s1, g), b * 16)
+        for i in range(1, cfg.res3_blocks + 1):
+            enc[f"res3_{i}"] = ResBlock(b * 16, 2, g)
+        enc["res3_skip"] = nn.ModuleDict({"con1_3X3": Conv(b * 16, b * 16, (3, 3), s1, g)})
+        enc["e_conv6"] = ConvUnit("e_conv6", Conv(b * 16, b * 8, (4, 4), s1, g), b * 8)
+        chain = [("e_conv7", b * 8, b * 4, 2), ("e_conv7_1", b * 4, b * 4, 1),
+                 ("e_conv8", b * 4, b * 2, 2), ("e_conv9", b * 2, b, 2),
+                 ("e_conv10", b, 16, 1)]
+        for name, ci, co, s in chain:
+            enc[name] = ConvUnit(name, ConvTranspose(ci, co, (4, 4), (s, s), g), co)
+        # The head lives directly under "encoder" (no PReLU scope).
+        enc["e_conv11"] = ConvTranspose(16, cfg.out_channels, (4, 4), s1, g)
+        self.encoder = enc
+
+    def _stack(self, prefix: str, n: int, x: torch.Tensor) -> torch.Tensor:
+        """A residual stack, its skip conv and the fp32 shortcut add
+        (``shader.py:106-116``)."""
+        shortcut = x
+        for i in range(1, n + 1):
+            x = self.encoder[f"{prefix}_{i}"](x)
+        x = self.encoder[f"{prefix}_skip"]["con1_3X3"](x)
+        return (x.float() + shortcut.float()).to(shortcut.dtype)
+
+    def forward(self, vox: torch.Tensor) -> torch.Tensor:
+        e, cfg = self.encoder, self.cfg
+        x = e["e_conv3"](e["e_conv2"](e["e_conv1"](vox)))
+        x = self._stack("res1", cfg.res1_blocks, x)
+        x = e["projection_unit"](x)
+        x = self._stack("res2", cfg.res2_blocks, x)
+        x = e["e_conv5"](x)
+        x = self._stack("res3", cfg.res3_blocks, x)
+        for name in ("e_conv6", "e_conv7", "e_conv7_1", "e_conv8", "e_conv9", "e_conv10"):
+            x = e[name](x)
+        return torch.sigmoid(e["e_conv11"](x).float())
+
+
+@torch.no_grad()
+def shader_forward(
+    net: ShaderRenderNet,
+    voxels: torch.Tensor,
+    view_params: torch.Tensor,
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+    resample: str = "exact",
+) -> torch.Tensor:
+    """Render: rotate+resample -> axis align -> network, on the device of
+    ``voxels``. ``resample``: "exact" (direct trilinear) or "multipass"
+    (the pass plan on the K1 kernel, in ``compute_dtype``)."""
+    new_size = net.cfg.new_size
+    if resample == "multipass":
+        cam = rotate_resample_to_camera_multipass(
+            voxels, view_params, new_size=new_size, compute_dtype=compute_dtype)
+    elif resample == "exact":
+        cam = rotate_resample_to_camera(voxels, view_params, new_size=new_size)
+    else:
+        raise ValueError(f"resample must be 'exact' or 'multipass', got {resample!r}")
+    return net(cam.to(compute_dtype))
+
+
+def init_shader_params(seed, cfg: ShaderConfig, device=None) -> ShaderRenderNet:
+    """A freshly initialised network on ``device`` (CUDA unless the caller
+    asks for the CPU). ``seed`` is an int or a CPU ``torch.Generator``."""
+    dev = resolve_device(device)
+    gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(int(seed))
+    return ShaderRenderNet(cfg, gen).to(dev).eval()
