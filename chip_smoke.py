@@ -6,26 +6,43 @@
 Phases, all of them on every run:
   1. build every CUDA kernel from ``rendernet_tpu_torch/csrc`` (one nvcc per
      source, in parallel) and print the card's name and power limit;
-  2. kernels: call each kernel's wrapper (K1 resample pass, K2 conv3d, K3
-     Winograd) at the shapes the serving path gives it, in float32 and
-     bfloat16, plus one ragged shape each; hold it against its plain PyTorch
-     version in the working dtype; time kernel, plain version and (K2, K3)
-     the cuDNN conv yardstick with CUDA events;
-  3. main: run the render CLI (fp32, ``--fast --resample multipass --rotate
-     --sweep_batch 8``: 72 frames, 9 batch-8 forwards) on a procedural voxel,
-     then one bf16 ``shader_forward`` at batch 8 (the serving-bench form),
-     both at the full default width; the kernels' launch counters are zeroed
-     just before each run and read just after; compare one full forward per
-     dtype, on the logits, with the forward whose kernels are replaced by
-     their plain versions.
+  2. kernels: call each kernel's wrapper (K1 resample pass, K2 conv3d, K2w
+     its weight gradient, K3 Winograd, K6 the Winograd weight gradient) at
+     the shapes the serving path (batch 8) and the training step (bf16 at
+     batch 24; fp32 at batch 8, the gradient check's) give it, and at the
+     data-gradient shapes, plus one ragged shape each; hold it against its
+     plain PyTorch version in the working dtype; time kernel, plain version
+     and the cuDNN yardstick with CUDA events;
+  3. serving: run the render CLI (fp32, ``--fast --resample multipass
+     --rotate --sweep_batch 8``: 72 frames, 9 batch-8 forwards) on a
+     procedural voxel, then one bf16 ``shader_forward`` at batch 8, both at
+     the full default width; compare one full forward per dtype, on the
+     logits, with the forward whose kernels are replaced by their plain
+     versions;
+  4. training, at the full default width with ``preact_policy`` and the
+     Winograd convs on: (a) one step's gradients at batch 8 in fp32 and
+     bf16, at patch 128 (the full grid) and at patch 64 (at fixed crop
+     offsets, through K1's window-emitting passes), with the kernels and
+     with every kernel replaced by its plain version, compared parameter
+     by parameter; (b) ``bench.py``'s two
+     configurations (batch 24, bf16, bf16 Adam moments, patch 128 and 64):
+     a warm-up step, then 8 timed steps on one fixed batch; (c) one step
+     each with ``WGRAD=True``, ``WGRAD="fp32"`` and ``remat=True``; (d) a
+     profile of one patch-128 step.
+The kernels' launch counters are zeroed just before each run of phases 3
+and 4 and read just after; every run's counts are checked, shape by shape,
+against the counts its graph implies.
 
 Prints a ``{"kernels": [...]}`` line with one row per kernel, dtype and
-main-path shape; its ``launches`` is the launches at that shape per batch-8
-forward of that dtype's main-path run (the fp32 CLI's counts divided by its
-9 forwards, after checking they are exact multiples). The ragged shapes are
-checked on ``ragged`` lines of their own. The last line is
-``{"ok": true, "device": {...}}``. Exits non-zero, printing no result, when
-there is no CUDA card, when the port is missing, or when any check fails.
+main-path shape: a serving row's ``launches`` is per batch-8 forward of that
+dtype's serving run (the fp32 CLI's counts divided by its 9 forwards, after
+checking they are exact multiples); a training row's is per training step
+of the run named in the row (the bf16 patch-128 or patch-64 steps, the
+fp32 patch-128 gradient check, or the WGRAD steps for K6). The ragged shapes and the fp32
+batch-24 checks are printed on ``ragged`` and ``check`` lines of their own.
+The last line is ``{"ok": true, "device": {...}}``. Exits non-zero,
+printing no result, when there is no CUDA card, when the port is missing,
+or when any check fails.
 """
 from __future__ import annotations
 
@@ -45,7 +62,11 @@ PEAK_BYTES = 3.35e12
 # fp32: both sum in fp32 in different orders (~1e-6 relative per sum of
 # ~1e4 terms). bf16: both round an fp32 result once to bf16, so they may
 # differ by one bf16 ulp of a value (2^-8 relative); two ulps of the max.
+# The weight gradients (K2w, K6) return fp32 sums of exact products of the
+# stored values in either dtype, summed over up to 3e6 positions in other
+# orders (at most 3e-5 of max|plain| on an H100): 1e-4.
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+WGRAD_TOL = 1e-4
 
 # Full forward with kernels vs full forward with their plain versions: max
 # abs difference of the logits (the head's output, before the sigmoid) as a
@@ -61,14 +82,34 @@ FORWARD_TOL = {"float32": 2e-5, "bfloat16": 0.05}
 # flat image.
 MIN_SPREAD = 0.1
 
+# One training step's gradients with kernels vs with their plain versions:
+# for each parameter, max |g - g_plain| / max |g_plain|; the worst parameter
+# must stay under this. fp32 (TF32 off): the kernels sum in other orders,
+# and the step's fp32 conditioning amplifies that through the residual
+# stacks. bf16: every bf16 rounding of an activation or a gradient can land
+# on the other side between the two runs. Readings on an H100, patch 128 /
+# patch 64: fp32 7.21e-4 (res3_4's first conv weights) / 1.13e-3 (res2_7's);
+# bf16 3.14e-2 (res1_5's) / 4.08e-2 (e_conv2's alpha). Each limit is 2.7-4.2x
+# the readings.
+GRAD_TOL = {"float32": 3e-3, "bfloat16": 0.125}
+
 REPO_SOURCES = {
     "K1": ("rendernet_tpu_torch/csrc/resample.cu",
            "rendernet_tpu/ops/pallas_resample.py:320 (_fwd_kernel)"),
     "K2": ("rendernet_tpu_torch/csrc/conv3d.cu",
            "rendernet_tpu/ops/pallas_conv3d.py:165 (_fwd_kernel)"),
+    "K2w": ("rendernet_tpu_torch/csrc/conv3d_wgrad.cu",
+            "rendernet_tpu/ops/pallas_conv3d.py:186 (_wgrad_kernel)"),
     "K3": ("rendernet_tpu_torch/csrc/winograd.cu",
            "rendernet_tpu/ops/pallas_winograd.py:147 (_kernel)"),
+    "K6": ("rendernet_tpu_torch/csrc/winograd_wgrad.cu",
+           "rendernet_tpu/ops/pallas_winograd.py:342 (_wgrad_kernel)"),
 }
+
+# The launch counter of each kernel: (module, attribute prefix).
+COUNTERS = {"K1": ("cuda_resample", ""), "K2": ("cuda_conv3d", ""),
+            "K2w": ("cuda_conv3d", "wgrad_"), "K3": ("cuda_winograd", ""),
+            "K6": ("cuda_winograd", "wgrad_")}
 
 
 def log(msg: str) -> None:
@@ -76,11 +117,18 @@ def log(msg: str) -> None:
 
 
 def time_ms(torch, fn, reps: int) -> float:
-    for _ in range(3):  # warm up (first-call setup, clocks)
+    """ms per call over ``reps`` calls, or fewer for a call slower than
+    ~20 ms (at least 3), after warming up."""
+    for _ in range(2):  # warm up (first-call setup, clocks)
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    reps = max(3, min(reps, int(400 / max(start.elapsed_time(end), 1e-3))))
     start.record()
     for _ in range(reps):
         fn()
@@ -98,118 +146,268 @@ def bound(flops: float, nbytes: float, dtype: str):
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-# Per kernel: (label, case, launches at that shape per batch-8 forward, or
-# None for the ragged shape, which the main path never gives it). A K1 case
-# is (BC, R, L, out_lanes, db), a K2/K3 case (input shape, co); the first
-# three entries, or the input shape, are the wrapper's shape key.
-SHAPES = {
-    "K1": [("pass [8,16384,128]", (8, 16384, 128, 128, 128), 8),
-           ("ragged pass [3,1000,100]->37", (3, 1000, 100, 37, 40), None)],
-    "K2": [("e_conv3 [8,64,64,32,16]->32", ((8, 64, 64, 32, 16), 32), 1),
-           ("res1 [8,64,64,32,32]->32", ((8, 64, 64, 32, 32), 32), 21),
-           ("ragged [2,5,10,24,24]->64", ((2, 5, 10, 24, 24), 64), None)],
-    "K3": [("res2 [8,64,64,1024]->1024", ((8, 64, 64, 1024), 1024), 21),
-           ("res3 [8,64,64,512]->512", ((8, 64, 64, 512), 512), 11),
-           ("ragged [8,6,70,256]->128", ((8, 6, 70, 256), 128), None)],
-}
+# A case: (kernel id, label, op, spec, dtype names, run). ``op`` names the
+# wrapper (see make_case); ``run`` names the main-path run whose counts give
+# the row's launches ("serve": per batch-8 forward of phase 3; "train" and
+# "train64": per bf16 patch-128 / patch-64 step; "grad32": per fp32
+# patch-128 gradient-check step; "wgrad_bf16"
+# and "wgrad_fp32": per step with WGRAD=True or "fp32"), "check" for a
+# checked and timed shape no run launches, None for a ragged shape.
+# Specs: pass (BC, R, L, out_lanes, db), where out_lanes < L is a pass
+# that emits a crop window (the patch-64 step's last pass on each cropped
+# axis); conv3d / conv3d_wgrad / wino /
+# wino_wgrad (input shape, output channels); conv3d_dgrad / wino_dgrad
+# (cotangent shape, channels of the data gradient), which run the forward
+# kernel on the flipped, io-swapped weights of the conv, as the backward
+# does (a strided view the wrapper copies).
+F32, BF16, BOTH = ("float32",), ("bfloat16",), ("float32", "bfloat16")
+X3 = {8: (8, 64, 64, 32, 32), 24: (24, 64, 64, 32, 32)}
+X3P = (24, 32, 32, 32, 32)  # res1 at patch 64
+CASES = [
+    ("K1", "pass [8,16384,128]", "pass", (8, 16384, 128, 128, 128), BOTH, "serve"),
+    ("K1", "train pass [24,16384,128]", "pass", (24, 16384, 128, 128, 128), BF16, "train"),
+    ("K1", "train64 pass [24,16384,128]", "pass", (24, 16384, 128, 128, 128), BF16, "train64"),
+    ("K1", "train64 window pass [24,16384,128]->64", "pass", (24, 16384, 128, 64, 128), BF16,
+     "train64"),
+    ("K1", "train64 window pass [24,8192,128]->64", "pass", (24, 8192, 128, 64, 128), BF16,
+     "train64"),
+    ("K1", "ragged pass [3,1000,100]->37", "pass", (3, 1000, 100, 37, 40), BOTH, None),
+    ("K2", "e_conv3 [8,64,64,32,16]->32", "conv3d", ((8, 64, 64, 32, 16), 32), BOTH, "serve"),
+    ("K2", "res1 [8,64,64,32,32]->32", "conv3d", (X3[8], 32), BOTH, "serve"),
+    ("K2", "train e_conv3 [24,64,64,32,16]->32", "conv3d", ((24, 64, 64, 32, 16), 32), BF16,
+     "train"),
+    ("K2", "train res1 fwd+dgrad [24,64,64,32,32]->32", "conv3d", (X3[24], 32), BF16, "train"),
+    ("K2", "train dgrad e_conv3 [24,64,64,32,32]->16", "conv3d_dgrad", (X3[24], 16), BF16,
+     "train"),
+    ("K2", "train dgrad e_conv3 [8,64,64,32,32]->16", "conv3d_dgrad", (X3[8], 16), F32, "grad32"),
+    ("K2", "check dgrad e_conv3 [24,64,64,32,32]->16", "conv3d_dgrad", (X3[24], 16), F32,
+     "check"),
+    ("K2", "train64 e_conv3 [24,32,32,32,16]->32", "conv3d", ((24, 32, 32, 32, 16), 32), BF16,
+     "train64"),
+    ("K2", "train64 res1 fwd+dgrad [24,32,32,32,32]->32", "conv3d", (X3P, 32), BF16, "train64"),
+    ("K2", "train64 dgrad e_conv3 [24,32,32,32,32]->16", "conv3d_dgrad", (X3P, 16), BF16,
+     "train64"),
+    ("K2", "ragged [2,5,10,24,24]->64", "conv3d", ((2, 5, 10, 24, 24), 64), BOTH, None),
+    ("K2w", "train e_conv3 [24,64,64,32,16]->32", "conv3d_wgrad", ((24, 64, 64, 32, 16), 32),
+     BF16, "train"),
+    ("K2w", "train res1 [24,64,64,32,32]->32", "conv3d_wgrad", (X3[24], 32), BF16, "train"),
+    ("K2w", "train e_conv3 [8,64,64,32,16]->32", "conv3d_wgrad", ((8, 64, 64, 32, 16), 32), F32,
+     "grad32"),
+    ("K2w", "train res1 [8,64,64,32,32]->32", "conv3d_wgrad", (X3[8], 32), F32, "grad32"),
+    ("K2w", "check e_conv3 [24,64,64,32,16]->32", "conv3d_wgrad", ((24, 64, 64, 32, 16), 32),
+     F32, "check"),
+    ("K2w", "check res1 [24,64,64,32,32]->32", "conv3d_wgrad", (X3[24], 32), F32, "check"),
+    ("K2w", "train64 e_conv3 [24,32,32,32,16]->32", "conv3d_wgrad",
+     ((24, 32, 32, 32, 16), 32), BF16, "train64"),
+    ("K2w", "train64 res1 [24,32,32,32,32]->32", "conv3d_wgrad", (X3P, 32), BF16, "train64"),
+    ("K2w", "ragged [2,5,10,24,24]->64", "conv3d_wgrad", ((2, 5, 10, 24, 24), 64), BOTH, None),
+    ("K3", "res2 [8,64,64,1024]->1024", "wino", ((8, 64, 64, 1024), 1024), BOTH, "serve"),
+    ("K3", "res3 [8,64,64,512]->512", "wino", ((8, 64, 64, 512), 512), BOTH, "serve"),
+    ("K3", "train res2 fwd+dgrad [24,64,64,1024]->1024", "wino_dgrad",
+     ((24, 64, 64, 1024), 1024), BF16, "train"),
+    ("K3", "train res3 fwd+dgrad [24,64,64,512]->512", "wino_dgrad", ((24, 64, 64, 512), 512),
+     BF16, "train"),
+    ("K3", "train res2 fwd+dgrad [8,64,64,1024]->1024", "wino_dgrad",
+     ((8, 64, 64, 1024), 1024), F32, "grad32"),
+    ("K3", "train res3 fwd+dgrad [8,64,64,512]->512", "wino_dgrad", ((8, 64, 64, 512), 512),
+     F32, "grad32"),
+    ("K3", "check res2 dgrad [24,64,64,1024]->1024", "wino_dgrad", ((24, 64, 64, 1024), 1024),
+     F32, "check"),
+    ("K3", "train64 res2 fwd+dgrad [24,32,32,1024]->1024", "wino_dgrad",
+     ((24, 32, 32, 1024), 1024), BF16, "train64"),
+    ("K3", "train64 res3 fwd+dgrad [24,32,32,512]->512", "wino_dgrad",
+     ((24, 32, 32, 512), 512), BF16, "train64"),
+    ("K3", "ragged [8,6,70,256]->128", "wino", ((8, 6, 70, 256), 128), BOTH, None),
+    ("K6", "train res2 [24,64,64,1024]->1024 WGRAD=True", "wino_wgrad",
+     ((24, 64, 64, 1024), 1024, False), BF16, "wgrad_bf16"),
+    ("K6", "train res3 [24,64,64,512]->512 WGRAD=True", "wino_wgrad",
+     ((24, 64, 64, 512), 512, False), BF16, "wgrad_bf16"),
+    ("K6", "train res2 [24,64,64,1024]->1024 WGRAD=fp32", "wino_wgrad",
+     ((24, 64, 64, 1024), 1024, True), BF16, "wgrad_fp32"),
+    ("K6", "train res3 [24,64,64,512]->512 WGRAD=fp32", "wino_wgrad",
+     ((24, 64, 64, 512), 512, True), BF16, "wgrad_fp32"),
+    ("K6", "check res2 [24,64,64,1024]->1024 fp32 storage", "wino_wgrad",
+     ((24, 64, 64, 1024), 1024, True), F32, "check"),
+    ("K6", "check res3 [24,64,64,512]->512 fp32 storage", "wino_wgrad",
+     ((24, 64, 64, 512), 512, True), F32, "check"),
+    ("K6", "ragged [8,6,70,256]->128", "wino_wgrad", ((8, 6, 70, 256), 128, False), BOTH, None),
+    ("K6", "ragged [8,6,70,256]->128 fp32 operands", "wino_wgrad",
+     ((8, 6, 70, 256), 128, True), BF16, None),
+]
+
+# Serving launches per batch-8 forward at each serving shape (phase 3).
+SERVE_LAUNCHES = {("K1", "pass [8,16384,128]"): 8,
+                  ("K2", "e_conv3 [8,64,64,32,16]->32"): 1,
+                  ("K2", "res1 [8,64,64,32,32]->32"): 21,
+                  ("K3", "res2 [8,64,64,1024]->1024"): 21,
+                  ("K3", "res3 [8,64,64,512]->512"): 11}
 
 
-MAIN_CASES = {(kid, label) for kid, cases in SHAPES.items()
-              for label, _, n in cases if n is not None}
+def case_key(op, spec):
+    """The wrapper's launch-counter key of a case."""
+    if op == "pass":
+        return tuple(spec[:4])
+    return tuple(spec[0]), spec[1]
 
 
-def shape_key(kid, case):
-    return tuple(case[:3]) if kid == "K1" else tuple(case[0])
-
-
-def kernel_cases(torch, dtype):
-    """(kernel id, label, kernel fn, plain fn, library fn or None, flops,
-    bytes) at the serving path's shapes and one ragged shape each."""
+def make_case(torch, op, spec, dtype, gen):
+    """(kernel fn, plain fn, library fn or None, flops, bytes, output is fp32)."""
     from rendernet_tpu_torch.ops import cuda_conv3d, cuda_resample, cuda_winograd
 
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
     item = torch.tensor([], dtype=dtype).element_size()
-    cases = []
+    grad = torch.nn.grad
 
     def rnd(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
 
-    for label, (bc, r, lanes, ol, db), _ in SHAPES["K1"]:
+    def cf(t):  # channels last -> channels first (a view)
+        return t.movedim(-1, 1)
+
+    if op == "pass":
+        bc, r, lanes, ol, db = spec
         vol = rnd(bc, r, lanes)
         u = torch.rand(bc, 4, generator=gen, device=dev) * 2 - 1
         params = torch.stack([1 + 0.4 * u[:, 0], 0.4 * u[:, 1], 0.4 * u[:, 2],
                               20 * u[:, 3]], dim=-1)
-        cases.append((
-            "K1", label,
-            lambda v=vol, p=params, d=db, o=ol: cuda_resample.apply_interp_pass(v, p, d, o),
-            lambda v=vol, p=params, d=db, o=ol: cuda_resample.interp_pass_plain(v, p, d, o),
-            None, 10.0 * bc * r * ol, item * bc * (r * lanes + r * ol) + 16 * bc,
-        ))
-
-    def conv3d_lib(x, w):
-        y = torch.nn.functional.conv3d(x.permute(0, 4, 1, 2, 3), w.permute(4, 3, 0, 1, 2),
-                                       padding=1)
-        return y.permute(0, 2, 3, 4, 1)
-
-    for label, (xs, co), _ in SHAPES["K2"]:
+        return (lambda: cuda_resample.apply_interp_pass(vol, params, db, ol),
+                lambda: cuda_resample.interp_pass_plain(vol, params, db, ol),
+                None, 10.0 * bc * r * ol, item * bc * (r * lanes + r * ol) + 16 * bc, False)
+    xs, co = spec[0], spec[1]
+    m = math.prod(xs[:-1])
+    c = xs[-1]
+    if op == "conv3d":
         x = rnd(*xs)
-        w = rnd(3, 3, 3, xs[-1], co, scale=1.0 / math.sqrt(27 * xs[-1]))
-        m = math.prod(xs[:-1])
-        cases.append((
-            "K2", label,
-            lambda x=x, w=w: cuda_conv3d.nc_conv3d(x, w),
-            lambda x=x, w=w: cuda_conv3d.nc_conv3d_plain(x, w),
-            lambda x=x, w=w: conv3d_lib(x, w),
-            2.0 * m * co * 27 * xs[-1], item * (x.numel() + w.numel() + m * co),
-        ))
-
-    def conv2d_lib(x, w):
-        y = torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=1)
-        return y.permute(0, 2, 3, 1)
-
-    for label, (xs, co), _ in SHAPES["K3"]:
+        w = rnd(3, 3, 3, c, co, scale=1.0 / math.sqrt(27 * c))
+        return (lambda: cuda_conv3d.nc_conv3d_forward(x, w),
+                lambda: cuda_conv3d.nc_conv3d_plain(x, w),
+                lambda: torch.nn.functional.conv3d(cf(x), w.permute(4, 3, 0, 1, 2), padding=1),
+                2.0 * m * co * 27 * c, item * (x.numel() + w.numel() + m * co), False)
+    if op == "conv3d_dgrad":  # gy [.., c] of a conv co -> c; the data gradient has co channels
+        gy = rnd(*xs)
+        w = rnd(3, 3, 3, co, c, scale=1.0 / math.sqrt(27 * co))
+        wf = torch.flip(w, (0, 1, 2)).transpose(3, 4)
+        size = (xs[0], co) + tuple(xs[1:4])
+        return (lambda: cuda_conv3d.nc_conv3d_forward(gy, wf),
+                lambda: cuda_conv3d.nc_conv3d_plain(gy, wf),
+                lambda: grad.conv3d_input(size, w.permute(4, 3, 0, 1, 2), cf(gy), padding=1),
+                2.0 * m * co * 27 * c, item * (gy.numel() + w.numel() + m * co), False)
+    if op == "conv3d_wgrad":
         x = rnd(*xs)
-        w = rnd(3, 3, xs[-1], co, scale=1.0 / math.sqrt(9 * xs[-1]))
-        tiles = xs[0] * (xs[1] // 2) * (xs[2] // 2)
-        cases.append((
-            "K3", label,
-            lambda x=x, w=w: cuda_winograd.wino_conv2d(x, w),
-            lambda x=x, w=w: cuda_winograd.wino_conv2d_plain(x, w),
-            lambda x=x, w=w: conv2d_lib(x, w),
-            2.0 * 16 * tiles * xs[-1] * co,
-            item * (x.numel() + 16 * xs[-1] * co + math.prod(xs[:-1]) * co),
-        ))
-    return cases
+        gy = rnd(*xs[:-1], co)
+        return (lambda: cuda_conv3d.nc_conv3d_wgrad(x, gy),
+                lambda: cuda_conv3d.nc_conv3d_wgrad_plain(x, gy),
+                lambda: grad.conv3d_weight(cf(x), (co, c, 3, 3, 3), cf(gy), padding=1),
+                2.0 * m * 27 * c * co, item * (x.numel() + gy.numel()) + 4 * 27 * c * co, True)
+    tiles = xs[0] * (xs[1] // 2) * (xs[2] // 2)
+    if op == "wino":
+        x = rnd(*xs)
+        w = rnd(3, 3, c, co, scale=1.0 / math.sqrt(9 * c))
+        return (lambda: cuda_winograd.wino_conv2d_forward(x, w),
+                lambda: cuda_winograd.wino_conv2d_plain(x, w),
+                lambda: torch.nn.functional.conv2d(cf(x), w.permute(3, 2, 0, 1), padding=1),
+                2.0 * 16 * tiles * c * co, item * (x.numel() + 16 * c * co + m * co), False)
+    if op == "wino_dgrad":  # gy [.., c] of a conv co -> c; the data gradient has co channels
+        gy = rnd(*xs)
+        w = rnd(3, 3, co, c, scale=1.0 / math.sqrt(9 * co))
+        wf = torch.flip(w, (0, 1)).transpose(2, 3)
+        size = (xs[0], co) + tuple(xs[1:3])
+        return (lambda: cuda_winograd.wino_conv2d_forward(gy, wf),
+                lambda: cuda_winograd.wino_conv2d_plain(gy, wf),
+                lambda: grad.conv2d_input(size, w.permute(3, 2, 0, 1), cf(gy), padding=1),
+                2.0 * 16 * tiles * c * co, item * (gy.numel() + 16 * c * co + m * co), False)
+    if op == "wino_wgrad":
+        fp32_ops = spec[2]
+        x = rnd(*xs)
+        gy = rnd(*xs[:-1], co)
+        return (lambda: cuda_winograd.wino_wgrad(x, gy, fp32_ops),
+                lambda: cuda_winograd.wino_wgrad_plain(x, gy, fp32_ops),
+                lambda: grad.conv2d_weight(cf(x), (co, c, 3, 3), cf(gy), padding=1),
+                2.0 * 16 * tiles * c * co, item * (x.numel() + gy.numel()) + 4 * 9 * c * co, True)
+    raise ValueError(op)
 
 
 def run_kernel_checks(torch, failures):
     """Checks and times every case; returns the rows, keyed by kernel id,
     label and dtype name."""
     rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        for kid, label, kern, plain, lib, flops, nbytes in kernel_cases(torch, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for kid, label, op, spec, dnames, run in CASES:
+        for dname in dnames:
+            dtype = getattr(torch, dname)
+            kern, plain, lib, flops, nbytes, f32_out = make_case(torch, op, spec, dtype, gen)
             got = kern()
             ref = plain()
             torch.cuda.synchronize()
             scale = max(float(ref.float().abs().max()), 1e-30)
             err = float((got.float() - ref.float()).abs().max())
-            ok = bool(torch.isfinite(got.float()).all()) and err <= KERNEL_TOL[dname] * scale
+            tol = (WGRAD_TOL if f32_out else KERNEL_TOL[dname]) * scale
+            ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+            del got, ref
             kms = time_ms(torch, kern, 20)
             pms = time_ms(torch, plain, 5)
             lms = time_ms(torch, lib, 20) if lib is not None else None
-            bms, by = bound(flops, nbytes, dname)
+            bms, by = bound(flops, nbytes, "float32" if op == "wino_wgrad" and spec[2]
+                            else dname)
             row = dict(kernel=kid, shape=label, dtype=dname, max_abs_err=err,
-                       max_abs_ref=scale, tol=KERNEL_TOL[dname] * scale, ok=ok,
-                       ms=kms, plain_ms=pms, library_ms=lms, bound_ms=bms, bound_by=by)
+                       max_abs_ref=scale, tol=tol, ok=ok, ms=kms, plain_ms=pms,
+                       library_ms=lms, bound_ms=bms, bound_by=by, run=run,
+                       key=case_key(op, spec))
             rows[kid, label, dname] = row
-            log(("kernel " if (kid, label) in MAIN_CASES else "ragged ") + json.dumps(row))
+            tag = {None: "ragged", "check": "check"}.get(run, "kernel")
+            log(f"{tag} " + json.dumps(row))
             if not ok:
-                failures.append(f"{kid} {label} {dname}: err {err:.3e} > "
-                                f"{KERNEL_TOL[dname] * scale:.3e}")
-            del got, ref
+                failures.append(f"{kid} {label} {dname}: err {err:.3e} > {tol:.3e}")
+            torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# launch counters
+# ---------------------------------------------------------------------------
+def _counters():
+    from rendernet_tpu_torch.ops import cuda_conv3d, cuda_resample, cuda_winograd
+
+    mods = {"cuda_resample": cuda_resample, "cuda_conv3d": cuda_conv3d,
+            "cuda_winograd": cuda_winograd}
+    return {kid: (mods[m], p) for kid, (m, p) in COUNTERS.items()}
+
+
+def reset_counts():
+    for mod, p in _counters().values():
+        setattr(mod, p + "launches", 0)
+        getattr(mod, p + "launches_by_shape").clear()
+
+
+def read_counts():
+    """({kernel id: launches}, {kernel id: {shape key: launches}})."""
+    c = _counters()
+    return ({k: getattr(m, p + "launches") for k, (m, p) in c.items()},
+            {k: dict(getattr(m, p + "launches_by_shape")) for k, (m, p) in c.items()})
+
+
+def check_counts(failures, what, by_shape, n_fwd):
+    """Launches per batch-8 forward at each serving shape, from a run of
+    ``n_fwd`` forwards; fails on any other count or shape."""
+    per_fwd = {}
+    for kid in ("K1", "K2", "K3"):
+        seen = dict(by_shape[kid])
+        for (k, label), n in SERVE_LAUNCHES.items():
+            if k != kid:
+                continue
+            spec = next(c[3] for c in CASES if c[0] == kid and c[1] == label)
+            op = next(c[2] for c in CASES if c[0] == kid and c[1] == label)
+            got = seen.pop(case_key(op, spec), 0)
+            per_fwd[kid, label] = got // n_fwd
+            if got != n * n_fwd:
+                failures.append(f"{what}: {kid} launched {got} times at {label}, "
+                                f"expected {n} x {n_fwd} forwards")
+        if seen:
+            failures.append(f"{what}: {kid} launched at unexpected shapes {seen}")
+    for kid in ("K2w", "K6"):
+        if by_shape[kid]:
+            failures.append(f"{what}: {kid} launched in a forward: {by_shape[kid]}")
+    return per_fwd
 
 
 # ---------------------------------------------------------------------------
@@ -224,44 +422,6 @@ def procedural_voxel(n: int = 64):
     sphere = (x - 26) ** 2 + (y - 34) ** 2 + (z - 30) ** 2 <= 14.0 ** 2
     box = (np.abs(x - 40) <= 9) & (np.abs(y - 22) <= 12) & (np.abs(z - 38) <= 7)
     return sphere | box
-
-
-def _counted():
-    from rendernet_tpu_torch.ops import cuda_conv3d, cuda_resample, cuda_winograd
-
-    return {"K1": cuda_resample, "K2": cuda_conv3d, "K3": cuda_winograd}
-
-
-def reset_counts():
-    for mod in _counted().values():
-        mod.launches = 0
-        mod.launches_by_shape.clear()
-
-
-def read_counts():
-    """({kernel id: launches}, {kernel id: {shape key: launches}})."""
-    mods = _counted()
-    return ({k: m.launches for k, m in mods.items()},
-            {k: dict(m.launches_by_shape) for k, m in mods.items()})
-
-
-def check_counts(failures, what, by_shape, n_fwd):
-    """Launches per batch-8 forward at each main-path shape, from a run of
-    ``n_fwd`` forwards; fails on any other count or shape."""
-    per_fwd = {}
-    for kid, shapes in SHAPES.items():
-        seen = dict(by_shape[kid])
-        for label, case, n in shapes:
-            if n is None:
-                continue
-            got = seen.pop(shape_key(kid, case), 0)
-            per_fwd[kid, label] = got // n_fwd
-            if got != n * n_fwd:
-                failures.append(f"{what}: {kid} launched {got} times at {label}, "
-                                f"expected {n} x {n_fwd} forwards")
-        if seen:
-            failures.append(f"{what}: {kid} launched at unexpected shapes {seen}")
-    return per_fwd
 
 
 def run_main_path(torch, failures, tmp):
@@ -358,23 +518,261 @@ def run_main_path(torch, failures, tmp):
         hook.remove()
 
         # (d) where the time of one bf16 forward goes, by device kernel
-        out["bfloat16"]["profile"] = profile_forward(
+        out["bfloat16"]["profile"] = profile_run(
             torch, lambda: shader_forward(net, vox, pose, compute_dtype=torch.bfloat16,
                                           resample="multipass"))
     return out, per_fwd
 
 
-def profile_forward(torch, fwd, top: int = 12):
-    """Device time by kernel name over one forward (torch.profiler), and the
-    device's busy share of the forward's wall time."""
+# ---------------------------------------------------------------------------
+# phase 4: the shader training step
+# ---------------------------------------------------------------------------
+def step_launches(b, patch, wgrad=False, remat=False):
+    """Launches per training step, by kernel and shape key, that the graph
+    implies at full width with preact_policy: the resample's 8 K1 passes on
+    the 128^3 grid (at a patch, the last pass on each cropped axis, y then
+    z, emits the window, and the z pass runs on the y-cropped rows);
+    e_conv3 and the 21 res1 /
+    res1_skip convs run K2 forward and again for their data gradients (e_conv3's
+    at 16 output channels) and K2w once each; the 32 Winograd convs (21 at
+    res2, 11 at res3) run K3 forward and for their data gradients, and K6
+    once each with WGRAD; remat recomputes the 20 + 30 block convs."""
+    n = 128
+    if patch == n:
+        k1 = {(b, n * n, n, n): 8}
+    else:
+        k1 = {(b, n * n, n, n): 6, (b, n * n, n, patch): 1, (b, n * patch, n, patch): 1}
+    s = patch // 2
+    x16, x32 = (b, s, s, 32, 16), (b, s, s, 32, 32)
+    r2, r3 = (b, s, s, 1024), (b, s, s, 512)
+    rc = 1 if remat else 0
+    return {
+        "K1": k1,
+        "K2": {(x16, 32): 1, (x32, 32): 42 + 20 * rc, (x32, 16): 1},
+        "K2w": {(x16, 32): 1, (x32, 32): 21},
+        "K3": {(r2, 1024): 42 + 20 * rc, (r3, 512): 22 + 10 * rc},
+        "K6": {(r2, 1024): 21, (r3, 512): 11} if wgrad else {},
+    }
+
+
+def check_step_counts(failures, what, by_shape, n_steps, expected):
+    """Every kernel's launches over ``n_steps`` steps at each shape equal the
+    per-step expectation times ``n_steps``; returns the launches per step
+    by kernel and shape key."""
+    per_step = {}
+    for kid, exp in expected.items():
+        want = {k: n * n_steps for k, n in exp.items()}
+        if by_shape[kid] != want:
+            failures.append(f"{what}: {kid} launched {by_shape[kid]}, expected {want}")
+        per_step[kid] = {k: v // n_steps for k, v in by_shape[kid].items()}
+    return per_step
+
+
+def disc_images(np, b, size, seed):
+    """Targets for the gradient check: a disc per image (1 inside, 0.1
+    outside), so the loss gradient is not a cancelling sum of noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size] / size
+    cy, cx, r = rng.uniform(0.3, 0.7, (3, b, 1, 1)) * np.array([1, 1, 0.6])[:, None, None, None]
+    img = np.where((yy - cy) ** 2 + (xx - cx) ** 2 < r ** 2, 1.0, 0.1)
+    return img[..., None].astype(np.float32)
+
+
+def bench_batch(torch, np, b, seed=0):
+    """bench.py's inputs: random occupancy, random images, random poses."""
+    rng = np.random.default_rng(seed)
+    vox = (rng.random((b, 64, 64, 64, 1)) > 0.7).astype(np.float32)
+    img = rng.random((b, 512, 512, 1)).astype(np.float32)
+    pose = np.stack([rng.uniform(0, 6.28, b), rng.uniform(-1, 1, b), np.ones(b)],
+                    axis=1).astype(np.float32)
+    return tuple(torch.from_numpy(a).cuda() for a in (vox, img, pose))
+
+
+# Crop offsets (u0, v0), in grid cells, of the patch-64 gradient check:
+# the window covers the middle of the image, where the disc targets' edges
+# are.
+GRAD_OFFSETS = (32, 24)
+
+
+def gradient_check(torch, np, failures):
+    """One step's gradients at batch 8, full width, with the kernels and
+    with every kernel swapped for its plain version, in fp32 and bf16, at
+    patch 128 (the full grid) and at patch 64 (at GRAD_OFFSETS)."""
+    from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
+    from rendernet_tpu_torch.ops.crops import crop_image
+    from rendernet_tpu_torch.ops.cuda_resample import rotate_resample_camera_patch_multipass
+    from rendernet_tpu_torch.train.steps import shader_loss_from_images
+
+    net = init_shader_params(0, ShaderConfig(preact_policy=True), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():  # PReLU alphas away from 0, so the negative slope counts
+        for name, p in net.named_parameters():
+            if name.endswith("alpha"):
+                p.uniform_(0.05, 0.3, generator=gen)
+    rng = np.random.default_rng(1)
+    vox = torch.from_numpy(np.repeat(
+        procedural_voxel().astype(np.float32)[None, :, :, :, None], 8, axis=0)).cuda()
+    pose = torch.from_numpy(np.stack(
+        [rng.uniform(0, 6.28, 8), rng.uniform(-1, 1, 8), np.ones(8)], axis=1
+    ).astype(np.float32)).cuda()
+    images = torch.from_numpy(disc_images(np, 8, 512, 2)).cuda()
+    names = [n for n, _ in net.named_parameters()]
+    params = [p for _, p in net.named_parameters()]
+
+    def grads(dtype, patch):
+        if patch == 128:
+            pred = shader_forward(net, vox, pose, compute_dtype=dtype, resample="multipass")
+            target = images
+        else:
+            with torch.no_grad():
+                cam = rotate_resample_camera_patch_multipass(
+                    vox, pose, GRAD_OFFSETS, patch, new_size=128, compute_dtype=dtype)
+            pred = net(cam.to(dtype))
+            target = crop_image(images, GRAD_OFFSETS, patch, 4)
+        loss = shader_loss_from_images(pred, target, True)
+        return float(loss.detach()), torch.autograd.grad(loss, params)
+
+    out = {}
+    for patch in (128, 64):
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            what = f"{dname} patch {patch} gradient check"
+            reset_counts()
+            loss, g = grads(dtype, patch)
+            torch.cuda.synchronize()
+            totals, by_shape = read_counts()
+            per_step = check_step_counts(failures, what, by_shape, 1, step_launches(8, patch))
+            with plain_kernels():
+                reset_counts()
+                loss_p, gp = grads(dtype, patch)
+                if any(read_counts()[0].values()):
+                    failures.append(f"{what}: the plain step launched a kernel")
+            errs = {}
+            for n, a, b in zip(names, g, gp):
+                ref = float(b.float().abs().max())
+                if not (ref > 0 and math.isfinite(ref)) or not bool(torch.isfinite(a).all()):
+                    failures.append(f"{what}: gradient of {n}: plain max {ref}, or non-finite")
+                    continue
+                errs[n] = float((a.float() - b.float()).abs().max()) / ref
+            worst = max(errs, key=errs.get)
+            res = {"patch": patch, "loss": loss, "plain_loss": loss_p, "worst_param": worst,
+                   "worst_rel_err": errs[worst], "tol": GRAD_TOL[dname],
+                   "median_rel_err": sorted(errs.values())[len(errs) // 2],
+                   "params": len(names), "launches": totals}
+            out[dname, patch] = {"result": res, "per_step": per_step}
+            log(f"grad {dname} " + json.dumps(res))
+            if not errs[worst] <= GRAD_TOL[dname]:
+                failures.append(f"{what}: gradients differ from the all-plain step's: {worst} "
+                                f"{errs[worst]:.3e} > {GRAD_TOL[dname]}")
+            del g, gp
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_training(torch, failures):
+    """bench.py's two configurations, the extra modes and a profile."""
+    import numpy as np
+
+    from rendernet_tpu_torch.models.shader import ShaderConfig
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.ops import cuda_winograd
+    from rendernet_tpu_torch.train.config import TrainConfig
+    from rendernet_tpu_torch.train.steps import create_shader_state, make_shader_train_step
+
+    layers.WINOGRAD_2D = True  # bench.py's configuration: the 2D stacks on K3
+    out, per_step = {}, {}
+    g = gradient_check(torch, np, failures)
+    out["gradient_check"] = [v["result"] for v in g.values()]
+    per_step["grad32"] = g["float32", 128]["per_step"]
+
+    b = 24
+    cfg = TrainConfig(batch_size=b, img_res=512, new_size=128, compute_dtype="bfloat16",
+                      is_greyscale=True, e_eta=1e-5, moment_dtype="bfloat16")
+    mcfg = ShaderConfig(preact_policy=True)
+    vox, img, pose = bench_batch(torch, np, b)
+    state, tx = create_shader_state(0, mcfg, cfg, device="cuda")
+    train = {}
+    for patch in (128, 64):
+        step = make_shader_train_step(mcfg, cfg, tx, patch)
+        before = {n: p.detach().clone() for n, p in state.params.named_parameters()}
+        torch.cuda.reset_peak_memory_stats()
+        state, loss = step(state, vox, img, pose, 1)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(8):
+            state, loss = step(state, vox, img, pose, 1)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        totals, by_shape = read_counts()
+        ps = check_step_counts(failures, f"patch {patch} steps", by_shape, 8,
+                               step_launches(b, patch))
+        per_step["train" if patch == 128 else "train64"] = ps
+        losses = [float(x) for x in losses]
+        moved = [n for n, p in state.params.named_parameters() if not torch.equal(p, before[n])]
+        finite = all(bool(torch.isfinite(p).all()) for p in state.params.parameters())
+        res = {"patch": patch, "batch": b, "dtype": "bfloat16", "steps": 8,
+               "ms_per_step": dt / 8 * 1e3, "frames_per_s": b * 8 / dt, "losses": losses,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "params_moved": len(moved), "params": len(before), "launches_per_step": {
+                   k: v // 8 for k, v in totals.items()}}
+        train[patch] = res
+        log("train " + json.dumps(res))
+        if not all(math.isfinite(x) for x in losses):
+            failures.append(f"patch {patch}: non-finite loss {losses}")
+        if len(moved) != len(before) or not finite:
+            failures.append(f"patch {patch}: {len(before) - len(moved)} parameters did not "
+                            f"move, or a parameter is not finite")
+        del before
+    out["train"] = train
+
+    # extra modes, one step each at patch 128
+    extra = {}
+    for mode, wgrad, remat in (("wgrad_bf16", True, False), ("wgrad_fp32", "fp32", False),
+                               ("remat", False, True)):
+        cuda_winograd.WGRAD = wgrad
+        step = make_shader_train_step(ShaderConfig(preact_policy=True, remat=remat), cfg, tx, 128)
+        reset_counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, vox, img, pose, 1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        totals, by_shape = read_counts()
+        ps = check_step_counts(failures, f"{mode} step", by_shape, 1,
+                               step_launches(b, 128, wgrad=bool(wgrad), remat=remat))
+        if wgrad:
+            per_step[mode] = ps
+        extra[mode] = {"ms": dt * 1e3, "loss": float(loss), "launches": totals}
+        log(f"extra {mode} " + json.dumps(extra[mode]))
+        if not math.isfinite(float(loss)):
+            failures.append(f"{mode} step: non-finite loss")
+    cuda_winograd.WGRAD = False
+    out["extra_modes"] = extra
+
+    step = make_shader_train_step(mcfg, cfg, tx, 128)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], vox, img, pose, 1)
+
+    out["profile"] = profile_run(torch, one_step)
+    return out, per_step
+
+
+def profile_run(torch, fn, top: int = 12):
+    """Device time by kernel name over one call of ``fn`` (torch.profiler),
+    and the device's busy share of its wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    fwd()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        fwd()
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -396,15 +794,17 @@ def profile_forward(torch, fwd, top: int = 12):
 
 
 class plain_kernels:
-    """Route the three kernel wrappers to their plain versions (on the card)."""
+    """Route every kernel wrapper to its plain version (on the card)."""
 
     def __enter__(self):
         from rendernet_tpu_torch.ops import cuda_conv3d, cuda_resample, cuda_winograd
 
-        self.saved = [(cuda_resample, "apply_interp_pass", cuda_resample.interp_pass_plain),
-                      (cuda_conv3d, "nc_conv3d", cuda_conv3d.nc_conv3d_plain),
-                      (cuda_winograd, "wino_conv2d", cuda_winograd.wino_conv2d_plain)]
-        self.saved = [(m, n, getattr(m, n), p) for m, n, p in self.saved]
+        swaps = [(cuda_resample, "apply_interp_pass", cuda_resample.interp_pass_plain),
+                 (cuda_conv3d, "nc_conv3d_forward", cuda_conv3d.nc_conv3d_plain),
+                 (cuda_conv3d, "nc_conv3d_wgrad", cuda_conv3d.nc_conv3d_wgrad_plain),
+                 (cuda_winograd, "wino_conv2d_forward", cuda_winograd.wino_conv2d_plain),
+                 (cuda_winograd, "wino_wgrad", cuda_winograd.wino_wgrad_plain)]
+        self.saved = [(m, n, getattr(m, n), p) for m, n, p in swaps]
         for m, n, _, p in self.saved:
             setattr(m, n, p)
 
@@ -443,18 +843,31 @@ def main() -> int:
                 log(f"  [{name}] {line.strip()}")
 
     failures: list = []
+    t0 = time.perf_counter()
     rows = run_kernel_checks(torch, failures)
+    log(f"phase 2 (kernels) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         main_out, per_fwd = run_main_path(torch, failures, tmp)
+    log(f"phase 3 (serving) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    main_out["training"], per_step = run_training(torch, failures)
+    log(f"phase 4 (training) took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for (kid, label, dname), r in rows.items():
-        if (kid, label) not in MAIN_CASES:
+        if r["run"] in (None, "check"):
             continue
+        if r["run"] == "serve":
+            launches = per_fwd[dname][kid, label]
+        else:
+            launches = per_step[r["run"]].get(kid, {}).get(r["key"], 0)
+            if launches == 0:
+                failures.append(f"{kid} {label}: not launched in its run ({r['run']})")
         src, replaces = REPO_SOURCES[kid]
         kernels.append({
             "name": f"{kid} {label} {dname}", "route": "cuda",
-            "source": src, "replaces": replaces, "launches": per_fwd[dname][kid, label],
+            "source": src, "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

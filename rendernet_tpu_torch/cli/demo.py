@@ -118,8 +118,9 @@ def main(argv=None):
         if len(azimuths) not in vox_cache:
             vox_cache[len(azimuths)] = torch.from_numpy(
                 np.repeat(voxel, len(azimuths), axis=0)).to(device)
-        maps = shader_forward(net, vox_cache[len(azimuths)], poses,
-                              resample=args.resample).cpu().numpy()
+        with torch.no_grad():
+            maps = shader_forward(net, vox_cache[len(azimuths)], poses,
+                                  resample=args.resample).cpu().numpy()
         if maps.shape[-1] == 1:
             imgs = maps[:, :, :, 0]
         else:

@@ -1,10 +1,11 @@
-"""RenderNet shader model (PyTorch, forward only): voxel grid -> image.
+"""RenderNet shader model (PyTorch): voxel grid -> image.
 
 Counterpart of ``rendernet_tpu/models/shader.py`` (the network at :87-170,
 ``shader_forward`` at :173): a strided conv3d encoder (8/16/32 channels),
 a 3D residual stack + skip conv, the learned projection unit, 2D residual
 stacks at depth*32 and base*16 channels with skips, 4x4 convs, the deconv
-chain and a sigmoid.
+chain and a sigmoid. Differentiable in its parameters; in train mode with
+``keep_prob < 1`` every encoder unit's output goes through dropout.
 """
 from __future__ import annotations
 
@@ -15,7 +16,15 @@ import torch
 from torch import nn
 
 from rendernet_tpu_torch import resolve_device
-from rendernet_tpu_torch.nn.layers import Conv, ConvTranspose, ConvUnit, ProjectionUnit, ResBlock
+from rendernet_tpu_torch.nn.layers import (
+    Conv,
+    ConvTranspose,
+    ConvUnit,
+    ProjectionUnit,
+    ResBlock,
+    dropout,
+    res_block_stack,
+)
 from rendernet_tpu_torch.ops.cuda_resample import rotate_resample_to_camera_multipass
 from rendernet_tpu_torch.ops.resample import rotate_resample_to_camera
 
@@ -26,17 +35,38 @@ __all__ = ["ShaderConfig", "ShaderRenderNet", "shader_forward", "init_shader_par
 class ShaderConfig:
     """Static hyperparameters; the defaults are the reference network for a
     128-deep camera grid with a greyscale head (``out_channels=3`` is the
-    normal-map head of the render demo). The JAX config's training-only
-    fields (keep_prob, remat, preact_policy, scan_blocks) come with the
-    training slice."""
+    normal-map head of the render demo), with the JAX config's fields and
+    defaults. The training fields:
+
+    * ``keep_prob``: dropout keep probability of the encoder units in train
+      mode (1.0: no dropout).
+    * ``remat``: recompute every res block's forward in the backward pass
+      (``torch.utils.checkpoint``) instead of keeping its activations.
+    * ``remat_3d``: the same for the 3D stack (res1) only; subsumed by
+      ``remat``.
+    * ``preact_policy``: res blocks keep only their first conv's
+      pre-activation for the backward (``layers.act_conv``); subsumed by
+      ``remat``/``remat_3d`` where set.
+    * ``scan_blocks``: accepted and runs the same loop. In JAX it runs each
+      stack as one ``lax.scan``, whose only gain is compile time; PyTorch
+      compiles nothing, so there is nothing to gain here.
+    """
 
     out_channels: int = 1
+    keep_prob: float = 1.0
     enc_channels: Tuple[int, int, int] = (8, 16, 32)
     res1_blocks: int = 10
     res2_blocks: int = 10
     res3_blocks: int = 5
     base: int = 32
     new_size: int = 128
+    remat: bool = False
+    remat_3d: bool = False
+    preact_policy: bool = False
+    scan_blocks: bool = False
+
+
+_TRAIN_FIELDS = ("keep_prob", "remat", "remat_3d", "preact_policy", "scan_blocks")
 
 
 class ShaderRenderNet(nn.Module):
@@ -78,49 +108,74 @@ class ShaderRenderNet(nn.Module):
         enc["e_conv11"] = ConvTranspose(16, cfg.out_channels, (4, 4), s1, g)
         self.encoder = enc
 
-    def _stack(self, prefix: str, n: int, x: torch.Tensor) -> torch.Tensor:
+    def _stack(self, prefix: str, n: int, x: torch.Tensor, remat: bool,
+               preact: bool) -> torch.Tensor:
         """A residual stack, its skip conv and the fp32 shortcut add
         (``shader.py:106-116``)."""
         shortcut = x
-        for i in range(1, n + 1):
-            x = self.encoder[f"{prefix}_{i}"](x)
+        blocks = [self.encoder[f"{prefix}_{i}"] for i in range(1, n + 1)]
+        x = res_block_stack(blocks, x, remat=remat, preact=preact)
         x = self.encoder[f"{prefix}_skip"]["con1_3X3"](x)
         return (x.float() + shortcut.float()).to(shortcut.dtype)
 
-    def forward(self, vox: torch.Tensor) -> torch.Tensor:
-        e, cfg = self.encoder, self.cfg
-        x = e["e_conv3"](e["e_conv2"](e["e_conv1"](vox)))
-        x = self._stack("res1", cfg.res1_blocks, x)
+    def forward(self, vox: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None,
+                cfg: ShaderConfig | None = None) -> torch.Tensor:
+        """``train`` turns dropout on (with ``keep_prob < 1``), drawing its
+        masks from ``generator``, a generator on ``vox``'s device. ``cfg``,
+        when given, supplies the training fields (keep_prob, remat,
+        remat_3d, preact_policy, scan_blocks) in place of the network's
+        own, as a JAX step passes its model config; its other fields must
+        be the network's."""
+        e = self.encoder
+        if cfg is None:
+            cfg = self.cfg
+        elif dataclasses.replace(cfg, **{f: getattr(self.cfg, f) for f in _TRAIN_FIELDS}) \
+                != self.cfg:
+            raise ValueError(f"cfg {cfg} does not describe this network ({self.cfg})")
+
+        def unit(name, x):
+            return dropout(e[name](x), cfg.keep_prob, generator, train)
+
+        x = unit("e_conv3", unit("e_conv2", unit("e_conv1", vox)))
+        pre = cfg.preact_policy
+        x = self._stack("res1", cfg.res1_blocks, x, cfg.remat or cfg.remat_3d, pre)
         x = e["projection_unit"](x)
-        x = self._stack("res2", cfg.res2_blocks, x)
-        x = e["e_conv5"](x)
-        x = self._stack("res3", cfg.res3_blocks, x)
+        x = self._stack("res2", cfg.res2_blocks, x, cfg.remat, pre)
+        x = unit("e_conv5", x)
+        x = self._stack("res3", cfg.res3_blocks, x, cfg.remat, pre)
         for name in ("e_conv6", "e_conv7", "e_conv7_1", "e_conv8", "e_conv9", "e_conv10"):
-            x = e[name](x)
+            x = unit(name, x)
         return torch.sigmoid(e["e_conv11"](x).float())
 
 
-@torch.no_grad()
 def shader_forward(
     net: ShaderRenderNet,
     voxels: torch.Tensor,
     view_params: torch.Tensor,
     *,
+    train: bool = False,
+    dropout_generator: torch.Generator | None = None,
     compute_dtype: torch.dtype = torch.float32,
     resample: str = "exact",
 ) -> torch.Tensor:
     """Render: rotate+resample -> axis align -> network, on the device of
     ``voxels``. ``resample``: "exact" (direct trilinear) or "multipass"
-    (the pass plan on the K1 kernel, in ``compute_dtype``)."""
+    (the pass plan on the K1 kernel, in ``compute_dtype``). Gradients flow
+    to the network's parameters as PyTorch's grad mode allows (render under
+    ``torch.no_grad()``); the resample is not differentiated, since the
+    adjoint kernel (K4) is not ported yet. ``train`` and
+    ``dropout_generator``: see :meth:`ShaderRenderNet.forward`."""
     new_size = net.cfg.new_size
-    if resample == "multipass":
-        cam = rotate_resample_to_camera_multipass(
-            voxels, view_params, new_size=new_size, compute_dtype=compute_dtype)
-    elif resample == "exact":
-        cam = rotate_resample_to_camera(voxels, view_params, new_size=new_size)
-    else:
-        raise ValueError(f"resample must be 'exact' or 'multipass', got {resample!r}")
-    return net(cam.to(compute_dtype))
+    with torch.no_grad():
+        if resample == "multipass":
+            cam = rotate_resample_to_camera_multipass(
+                voxels, view_params, new_size=new_size, compute_dtype=compute_dtype)
+        elif resample == "exact":
+            cam = rotate_resample_to_camera(voxels, view_params, new_size=new_size)
+        else:
+            raise ValueError(f"resample must be 'exact' or 'multipass', got {resample!r}")
+    return net(cam.to(compute_dtype), train=train, generator=dropout_generator)
 
 
 def init_shader_params(seed, cfg: ShaderConfig, device=None) -> ShaderRenderNet:

@@ -24,12 +24,12 @@ from typing import Dict
 
 import torch
 
-__all__ = ["SOURCES", "build_all", "load", "check", "dtype_code", "stream_ptr"]
+__all__ = ["SOURCES", "build_all", "load", "check", "dtype_code", "stream_ptr", "aligned"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("resample", "conv3d", "winograd")
+SOURCES = ("resample", "conv3d", "conv3d_wgrad", "winograd", "winograd_wgrad")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -119,3 +119,10 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernels load 16-byte
+    vectors), copied only where it is not."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t

@@ -1,10 +1,12 @@
 """Narrow-channel SAME 3x3x3 stride-1 conv on the K2 CUDA kernel
-(``csrc/conv3d.cu``).
+(``csrc/conv3d.cu``), with its gradient: the data gradient on K2 itself and
+the weight gradient on the K2w kernel (``csrc/conv3d_wgrad.cu``).
 
-Counterpart of ``rendernet_tpu/ops/pallas_conv3d.py``, forward only: the
-training slice adds the data gradient (this kernel on flipped, io-swapped
-weights) and the weight-gradient kernel. ``[B,H,W,D,C] @ [3,3,3,C,co]
--> [B,H,W,D,co]`` with fp32 accumulation, for co in {16, 32, 64}.
+Counterpart of ``rendernet_tpu/ops/pallas_conv3d.py``: ``[B,H,W,D,C] @
+[3,3,3,C,co] -> [B,H,W,D,co]`` with fp32 accumulation, for co in {16, 32,
+64}. :func:`nc_conv3d` is the differentiable op (``_nc_fwd`` /
+``_nc_bwd``, :283-345); :func:`nc_conv3d_forward` and
+:func:`nc_conv3d_wgrad` are the two kernels' wrappers.
 """
 from __future__ import annotations
 
@@ -15,20 +17,31 @@ import torch
 import torch.nn.functional as F
 
 from rendernet_tpu_torch.ops import _native
+from rendernet_tpu_torch.ops.conv_grad import flip_io
 
-__all__ = ["nc_conv3d", "nc_conv3d_plain", "nc_conv3d_supported"]
+__all__ = [
+    "nc_conv3d",
+    "nc_conv3d_forward",
+    "nc_conv3d_plain",
+    "nc_conv3d_supported",
+    "nc_conv3d_wgrad",
+    "nc_conv3d_wgrad_plain",
+]
 
-# Launches of the K2 kernel since the last reset, in all and by input shape
-# (the CPU path launches none).
+# Launches since the last reset, in all and by (input shape, output
+# channels): K2 (``launches``; forward convs and data gradients alike) and
+# K2w (``wgrad_launches``). The CPU path launches none.
 launches = 0
 launches_by_shape: Counter = Counter()
+wgrad_launches = 0
+wgrad_launches_by_shape: Counter = Counter()
 
 
 def nc_conv3d_supported(x_shape, w_shape, stride) -> bool:
     """The envelope of ``pallas_conv3d.nc_conv3d_supported`` (:66-83), kept
     as it is so that the two packages route the same convs to their
     kernels. The depth clauses come from the TPU kernel's 128-lane depth
-    packing; the CUDA kernel masks its own edges and needs none of them."""
+    packing; the CUDA kernels mask their own edges and need none of them."""
     if len(x_shape) != 5 or len(w_shape) != 5:
         return False
     kh, kw, kd, ci, co = w_shape
@@ -58,25 +71,44 @@ def nc_conv3d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def nc_conv3d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """SAME stride-1 3x3x3 conv, ``[B,H,W,D,C] @ [3,3,3,C,co]``.
+def nc_conv3d_wgrad_plain(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2w: ``gw[kh,kw,kd] = xpad_tap^T @ gy`` over
+    all positions, fp32 products of the stored values summed in fp32;
+    returns fp32 ``[3, 3, 3, C, co]``."""
+    b, h, wd, d, c = x.shape
+    co = gy.shape[-1]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1)).to(torch.float32)
+    g = gy.to(torch.float32).reshape(-1, co)
+    gw = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
+    for kh in range(3):
+        for kw in range(3):
+            for kd in range(3):
+                tap = xp[:, kh:kh + h, kw:kw + wd, kd:kd + d, :].reshape(-1, c)
+                gw[kh, kw, kd] = tap.t() @ g
+    return gw
+
+
+def _check_cuda(x: torch.Tensor, other: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda" or other.device != x.device or other.dtype != x.dtype:
+        raise ValueError(f"{what}: both operands must be on one CUDA device, in one dtype")
+
+
+def nc_conv3d_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The K2 wrapper: SAME stride-1 3x3x3 conv, ``[B,H,W,D,C] @ [3,3,3,C,co]``.
 
     A CUDA tensor inside :func:`nc_conv3d_supported` runs the K2 kernel (any
     other CUDA input raises); a CPU tensor runs :func:`nc_conv3d_plain`.
     """
     if x.device.type == "cpu":
         return nc_conv3d_plain(x, w)
-    if x.device.type != "cuda" or w.device != x.device or w.dtype != x.dtype:
-        raise ValueError("nc_conv3d: x and w must be on one CUDA device, in one dtype")
+    _check_cuda(x, w, "nc_conv3d")
     if not nc_conv3d_supported(x.shape, w.shape, (1, 1, 1)):
         raise ValueError(f"nc_conv3d: {tuple(x.shape)} @ {tuple(w.shape)} is outside "
                          "the kernel's envelope; gate calls with nc_conv3d_supported")
     b, h, wd, d, c = x.shape
     co = w.shape[-1]
     cp = -(-c // 16) * 16
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # the kernel loads 16-byte vectors
-        x = x.clone()
+    x = _native.aligned(x)
     wp = torch.zeros((27, cp, co), dtype=x.dtype, device=x.device)
     wp[:, :c] = w.reshape(27, c, co)
     out = torch.empty((b, h, wd, d, co), dtype=x.dtype, device=x.device)
@@ -87,5 +119,78 @@ def nc_conv3d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _native.check(lib, rc, "K2 conv3d")
     global launches
     launches += 1
-    launches_by_shape[(b, h, wd, d, c)] += 1
+    launches_by_shape[(b, h, wd, d, c), co] += 1
     return out
+
+
+def nc_conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """The K2w wrapper: the weight gradient ``[3, 3, 3, C, co]`` (fp32) of
+    the SAME stride-1 3x3x3 conv of ``x`` ``[B,H,W,D,C]`` with output
+    cotangent ``gy`` ``[B,H,W,D,co]``.
+
+    A CUDA tensor inside :func:`nc_conv3d_supported` runs the K2w kernel
+    (any other CUDA input raises); a CPU tensor runs
+    :func:`nc_conv3d_wgrad_plain`.
+    """
+    if x.device.type == "cpu":
+        return nc_conv3d_wgrad_plain(x, gy)
+    _check_cuda(x, gy, "nc_conv3d_wgrad")
+    b, h, wd, d, c = x.shape
+    co = gy.shape[-1]
+    if (tuple(gy.shape[:-1]) != (b, h, wd, d)
+            or not nc_conv3d_supported(x.shape, (3, 3, 3, c, co), (1, 1, 1))):
+        raise ValueError(f"nc_conv3d_wgrad: x {tuple(x.shape)}, gy {tuple(gy.shape)} is "
+                         "outside the kernel's envelope; gate calls with nc_conv3d_supported")
+    x, gy = _native.aligned(x), _native.aligned(gy)
+    lib = _native.load("conv3d_wgrad")
+    dt = _native.dtype_code(x.dtype)
+    nchunks, cpad = ctypes.c_int(), ctypes.c_int()
+    lib.rn_conv3d_wgrad_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.rn_conv3d_wgrad_plan.restype = None
+    lib.rn_conv3d_wgrad_plan(dt, b, h, wd, d, c, co, ctypes.byref(nchunks), ctypes.byref(cpad))
+    part = torch.empty(nchunks.value * 27 * cpad.value * co, dtype=torch.float32,
+                       device=x.device)
+    out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
+    lib.rn_conv3d_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    rc = lib.rn_conv3d_wgrad(x.data_ptr(), gy.data_ptr(), part.data_ptr(), out.data_ptr(), dt,
+                             b, h, wd, d, c, co, _native.stream_ptr(x))
+    _native.check(lib, rc, "K2w conv3d weight gradient")
+    global wgrad_launches
+    wgrad_launches += 1
+    wgrad_launches_by_shape[(b, h, wd, d, c), co] += 1
+    return out
+
+
+def conv3d_dgrad(gy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Data gradient of the SAME stride-1 3x3x3 conv: the same conv of the
+    cotangent with the flipped, io-swapped kernel, on K2 inside its
+    envelope and as a plain conv outside it (``_nc_bwd``, :307-314)."""
+    wf = flip_io(w)
+    if nc_conv3d_supported(gy.shape, wf.shape, (1, 1, 1)):
+        return nc_conv3d_forward(gy, wf)
+    y = F.conv3d(gy.movedim(-1, 1), wf.permute(4, 3, 0, 1, 2), padding=1)
+    return y.movedim(1, -1)
+
+
+class _NcConv3d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return nc_conv3d_forward(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gy = gy.to(x.dtype)
+        gx = conv3d_dgrad(gy, w) if ctx.needs_input_grad[0] else None
+        gw = nc_conv3d_wgrad(x, gy).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def nc_conv3d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME stride-1 3x3x3 conv, ``[B,H,W,D,C] @ [3,3,3,C,co]``,
+    differentiable in both arguments: forward on K2, data gradient on K2
+    (:func:`conv3d_dgrad`), weight gradient on K2w rounded once to the
+    weights' dtype, as ``_nc_bwd`` does. Gate calls with
+    :func:`nc_conv3d_supported`; CPU tensors take the plain versions."""
+    return _NcConv3d.apply(x, w)

@@ -17,8 +17,9 @@ along one array axis whose sample position varies linearly over the grid:
 
 The plan is tensor code around the kernel and runs in float32 on the
 device of the pose (matmuls stay out of TF32, which PyTorch leaves off for
-matmuls by default). This slice ports the forward only; the adjoint
-kernel (pallas_resample._bwd_kernel) comes with texture training.
+matmuls by default). The forward only: the shader training step
+differentiates neither voxels nor pose, and the adjoint kernel
+(pallas_resample._bwd_kernel, K4) comes with texture training.
 """
 from __future__ import annotations
 
@@ -40,10 +41,12 @@ __all__ = [
     "interp_pass_plain",
     "rotate_resample_multipass",
     "rotate_resample_to_camera_multipass",
+    "rotate_resample_camera_patch_multipass",
 ]
 
-# Launches of the K1 kernel since the last reset, in all and by input shape
-# (the wrapper adds one per launch; the CPU path launches nothing).
+# Launches of the K1 kernel since the last reset, in all and by (BC, R, L,
+# out_lanes), so that a window-emitting pass is told from a full one (the
+# wrapper adds one per launch; the CPU path launches nothing).
 launches = 0
 launches_by_shape: Counter = Counter()
 
@@ -106,11 +109,19 @@ def _split_quarter(theta: torch.Tensor):
     return torch.remainder(k.to(torch.int64), 4), r
 
 
-def build_pass_plan(view_params: torch.Tensor, size: int = 64, new_size: int = 128) -> List:
+def build_pass_plan(view_params: torch.Tensor, size: int = 64, new_size: int = 128,
+                    max_scale: float | None = None) -> List:
     """Step list of the backward warp: ``("qturn", plane, k [B])`` exact
     lattice turns and ``("interp", axis, coeffs [B, 4])`` 1-D passes. The
     source is assumed embedded centred in the ``new_size`` cube; the
-    composition of all steps equals ``[grid_to_grid_matrix | +pad]``."""
+    composition of all steps equals ``[grid_to_grid_matrix | +pad]``.
+
+    ``max_scale``: the static bound on ``view_params[:, 2]`` that narrows the
+    adjoint band of the scale passes (``pallas_resample._taps_for_scale``);
+    it matters to the adjoint kernel (K4), which this package does not run
+    yet. As in JAX, a pose whose scale exceeds it resamples to NaN rather
+    than to a quietly wrong gradient; the JAX package also raises on
+    concrete poses, which here would stall the device for a host read."""
     view_params = torch.as_tensor(view_params, dtype=torch.float32)
     bsz = view_params.shape[0]
     azimuth = view_params[:, 0] - math.pi * 0.5
@@ -119,6 +130,11 @@ def build_pass_plan(view_params: torch.Tensor, size: int = 64, new_size: int = 1
         scale = view_params[:, 2]
     else:
         scale = torch.ones(bsz, dtype=torch.float32, device=view_params.device)
+    if max_scale is not None:
+        if max_scale <= 0:
+            raise ValueError(f"max_scale must be positive, got {max_scale}")
+        limit = float(max_scale) * (1.0 + 1e-6)
+        scale = torch.where(scale <= limit, scale, torch.full_like(scale, float("nan")))
     center = new_size / 2.0
     pad = (new_size - size) // 2
 
@@ -243,7 +259,7 @@ def apply_interp_pass(
     _native.check(lib, rc, "K1 resample pass")
     global launches
     launches += 1
-    launches_by_shape[(bc, r, lanes)] += 1
+    launches_by_shape[(bc, r, lanes, ol)] += 1
     return out
 
 
@@ -270,13 +286,20 @@ def rotate_resample_multipass(
     view_params: torch.Tensor,
     size: int | None = None,
     new_size: int = 128,
+    crop_windows: dict | None = None,
+    max_scale: float | None = None,
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Multipass counterpart of ``ops.resample.rotate_resample``:
     ``[B, S, S, S, C] -> [B, N, N, N, C]`` in ``compute_dtype`` (the volume
-    data's storage type through the passes; geometry stays float32). The
-    JAX function's ``crop_windows`` comes with the crop-fused patch
-    resample of a later slice.
+    data's storage type through the passes; geometry stays float32).
+
+    ``crop_windows``: optional ``{logical_axis: (start, win_size)}`` (0 = x,
+    1 = y, 2 = z) emits only ``[start, start + win_size)`` of those
+    destination axes; the window comes out of the axis's last interp pass
+    (K1's ``out_lanes``), so later passes run on the cropped rows. ``start``
+    may be a float or a 0-d float32 tensor. ``max_scale``: see
+    :func:`build_pass_plan`.
     """
     b, s1, s2, s3, c = voxels.shape
     if size is None:
@@ -288,7 +311,15 @@ def rotate_resample_multipass(
     pad = (n - size) // 2
     vol = F.pad(vol, (pad, n - size - pad) * 3)
 
-    steps = build_pass_plan(view_params, size=size, new_size=n)
+    steps = build_pass_plan(view_params, size=size, new_size=n, max_scale=max_scale)
+    crop_windows = dict(crop_windows or {})
+    last_interp = {step[1]: i for i, step in enumerate(steps) if step[0] == "interp"}
+    for ax in crop_windows:
+        for later in steps[last_interp[ax] + 1:]:
+            if later[0] != "interp" or later[1] == ax:
+                raise ValueError(f"axis {ax} cannot be window-cropped: the pass plan "
+                                 "touches it after its last interp pass")
+    started: dict = {}  # logical axis -> window start (window-local coordinates)
     # logical axis -> [BC] bool: the axis is stored reversed (deferred qturn
     # flip). A pass ON the axis absorbs the flag; passes that read it as a
     # row coordinate fold it into their coefficients and keep it.
@@ -308,7 +339,7 @@ def rotate_resample_multipass(
                 axes[arr_pos], axes[cur] = axes[cur], axes[arr_pos]
         return vol
 
-    for step in steps:
+    for i, step in enumerate(steps):
         if step[0] == "qturn":
             plane, k = step[1], per_c(step[2])
             vol = to_canonical(vol, axes)
@@ -326,15 +357,25 @@ def rotate_resample_multipass(
         da, db, lanes = vol.shape[1], vol.shape[2], vol.shape[3]
         alpha = coeffs[:, axis]
         delta = coeffs[:, 3]
+        # Row coordinates of already-cropped axes are window-local (shifted
+        # back by the start); those of flip-deferred axes are stored reversed.
         row_c = {}
         for coord, ext in ((a_coord, da), (b_coord, db)):
             cval = coeffs[:, coord]
+            if coord in started:
+                delta = delta + cval * started[coord]
             if coord in flipped:
                 f = flipped[coord]
                 delta = delta + torch.where(f, cval * (ext - 1), 0.0)
                 cval = torch.where(f, -cval, cval)
             row_c[coord] = cval
         ca, cb = row_c[a_coord], row_c[b_coord]
+        out_lanes = None
+        if axis in crop_windows and i == last_interp[axis]:
+            start, out_lanes = crop_windows[axis]
+            start = torch.as_tensor(start, dtype=torch.float32, device=dev)
+            delta = delta + alpha * start
+            started[axis] = start
         if axis in flipped:
             # The stored input is reversed along the lane axis: every sample
             # position maps pos -> lanes-1-pos; this pass's output is stored
@@ -345,8 +386,8 @@ def rotate_resample_multipass(
             cb = torch.where(f, -cb, cb)
             delta = torch.where(f, float(lanes - 1) - delta, delta)
         params = torch.stack([alpha, ca, cb, delta], dim=-1)
-        vol = apply_interp_pass(vol.reshape(b * c, da * db, lanes), params, db)
-        vol = vol.reshape(b * c, da, db, lanes)
+        vol = apply_interp_pass(vol.reshape(b * c, da * db, lanes), params, db, out_lanes)
+        vol = vol.reshape(b * c, da, db, -1)
 
     if flipped:
         raise AssertionError("internal: a deferred quarter-turn flip survived the plan")
@@ -360,10 +401,37 @@ def rotate_resample_to_camera_multipass(
     view_params: torch.Tensor,
     size: int | None = None,
     new_size: int = 128,
+    max_scale: float | None = None,
     compute_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Multipass counterpart of ``rotate_resample_to_camera``."""
     return voxel_to_image_axes(
         rotate_resample_multipass(voxels, view_params, size, new_size,
-                                  compute_dtype=compute_dtype)
+                                  max_scale=max_scale, compute_dtype=compute_dtype)
+    )
+
+
+def rotate_resample_camera_patch_multipass(
+    voxels: torch.Tensor,
+    view_params: torch.Tensor,
+    offsets,
+    patch_size: int,
+    size: int | None = None,
+    new_size: int = 128,
+    max_scale: float | None = None,
+    compute_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Crop-fused multipass resample (``pallas_resample.py:681-712``): equals
+    ``rotate_resample_to_camera_multipass(...)[:, u0:u0+P, v0:v0+P]``, with
+    the last pass of each cropped axis emitting only the window.
+    ``offsets`` = (u0, v0), the crop starts in the image-aligned (row, col)
+    axes; depth is never cropped."""
+    # Image rows u map to logical y as j = N-1-u (voxel_to_image_axes), so
+    # the u-window [u0, u0+P) is the y-window starting at N-P-u0; image
+    # columns v map to logical z directly.
+    u0, v0 = (float(o) for o in offsets)
+    windows = {1: (float(new_size - patch_size) - u0, patch_size), 2: (v0, patch_size)}
+    return voxel_to_image_axes(
+        rotate_resample_multipass(voxels, view_params, size, new_size, crop_windows=windows,
+                                  max_scale=max_scale, compute_dtype=compute_dtype)
     )

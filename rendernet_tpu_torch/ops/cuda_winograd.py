@@ -1,10 +1,13 @@
 """Fused Winograd F(2x2,3x3) conv for the wide 2D res stacks on the K3 CUDA
-kernel (``csrc/winograd.cu``).
+kernel (``csrc/winograd.cu``), with its gradient: the data gradient on K3
+itself and, when :data:`WGRAD` is set, the transform-domain weight gradient
+on the K6 kernel (``csrc/winograd_wgrad.cu``).
 
-Counterpart of ``rendernet_tpu/ops/pallas_winograd.py``, forward only: the
-training slice adds the data gradient (this kernel on flipped, io-swapped
-weights) and the weight gradient. The plain version is
-``ops.winograd.winograd3x3``.
+Counterpart of ``rendernet_tpu/ops/pallas_winograd.py``. :func:`wino_conv2d`
+is the differentiable op (``_fwd`` / ``_bwd``, :455-500);
+:func:`wino_conv2d_forward` and :func:`wino_wgrad` are the two kernels'
+wrappers. The plain versions are ``ops.winograd.winograd3x3`` and
+``ops.winograd.wino_wgrad_plain``.
 """
 from __future__ import annotations
 
@@ -14,14 +17,33 @@ from collections import Counter
 import torch
 
 from rendernet_tpu_torch.ops import _native
-from rendernet_tpu_torch.ops.winograd import winograd3x3
+from rendernet_tpu_torch.ops.conv_grad import flip_io, plain_conv_wgrad
+from rendernet_tpu_torch.ops.winograd import fold_weight_grad, winograd3x3, wino_wgrad_plain
 
-__all__ = ["wino_conv2d", "wino_conv2d_plain", "wino_conv2d_supported"]
+__all__ = [
+    "WGRAD",
+    "wino_conv2d",
+    "wino_conv2d_forward",
+    "wino_conv2d_plain",
+    "wino_conv2d_supported",
+    "wino_wgrad",
+    "wino_wgrad_plain",
+]
 
-# Launches of the K3 kernel since the last reset, in all and by input shape
-# (the CPU path launches none).
+# The backward's weight gradient, as ``pallas_winograd.WGRAD`` (:316):
+#   False  - the direct conv weight gradient (torch.nn.grad.conv2d_weight,
+#            cuDNN on the card; JAX leaves it to XLA the same way);
+#   True   - K6 with GEMM operands in the activations' dtype;
+#   "fp32" - K6 with fp32 GEMM operands (CUDA-core FMAs on the card).
+WGRAD = False
+
+# Launches since the last reset, in all and by (input shape, output
+# channels): K3 (``launches``; forward convs and data gradients alike) and
+# K6 (``wgrad_launches``). The CPU path launches none.
 launches = 0
 launches_by_shape: Counter = Counter()
+wgrad_launches = 0
+wgrad_launches_by_shape: Counter = Counter()
 
 wino_conv2d_plain = winograd3x3
 
@@ -33,10 +55,10 @@ def wino_conv2d_supported(x_shape, w_shape, stride) -> bool:
     conv, so single frames keep the conv path).
 
     Its VMEM clause (``_tiles`` must find a (bn, bb, th) tiling that fits the
-    TPU's scoped VMEM) is left out: the CUDA kernel's tile is fixed (32
-    tiles x 64 channels x 16 input channels per step) and fits an SM's
-    shared memory for every shape, and ci, co multiples of 128 cover its
-    16- and 64-channel steps."""
+    TPU's scoped VMEM, in both orientations) is left out: the CUDA kernels'
+    tiles are fixed (K3: 32 tiles x 64 channels x 16 input channels per
+    step; K6: 32 tiles x 32 x 32 channels) and fit an SM's shared memory for
+    every shape, and ci, co multiples of 128 cover their channel steps."""
     if len(x_shape) != 4 or len(w_shape) != 4:
         return False
     kh, kw, ci, co = w_shape
@@ -48,28 +70,37 @@ def wino_conv2d_supported(x_shape, w_shape, stride) -> bool:
     return h % 2 == 0 and w % 2 == 0 and b >= 8
 
 
-def wino_conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """SAME stride-1 3x3 conv ``[B,H,W,C] @ [3,3,C,K]`` via Winograd.
+def _check(x: torch.Tensor, other: torch.Tensor, what: str) -> None:
+    if x.device.type != "cuda" or other.device != x.device:
+        raise ValueError(f"{what}: both operands must be on one CUDA device")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: float32 or bfloat16 storage, got {x.dtype}")
 
-    A CUDA tensor inside :func:`wino_conv2d_supported` runs the K3 kernel
-    (any other CUDA input raises); a CPU tensor runs the plain version. The
-    C entry first forms U = G w G^T (fp32, cast to ``x.dtype``) into a
-    scratch buffer, then runs the fused convolution.
-    """
+
+def _kernel_fits(x_shape, k: int) -> bool:
+    """What K3 itself needs: NHWC, even H and W, C % 16 and K % 64. The
+    data gradient runs K3 on the io-swapped weights, whose channel counts
+    the envelope's multiples of 128 keep in range."""
+    return (len(x_shape) == 4 and x_shape[1] % 2 == 0 and x_shape[2] % 2 == 0
+            and x_shape[3] % 16 == 0 and k % 64 == 0)
+
+
+def wino_conv2d_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The K3 wrapper: SAME stride-1 3x3 conv ``[B,H,W,C] @ [3,3,C,K]`` via
+    Winograd. A CUDA tensor runs the K3 kernel (raising on a shape the
+    kernel cannot take); a CPU tensor runs the plain version. The C entry
+    first forms U = G w G^T (fp32, cast to ``x.dtype``) into a scratch
+    buffer, then runs the fused convolution."""
     if x.device.type == "cpu":
         return wino_conv2d_plain(x, w)
-    if x.device.type != "cuda" or w.device != x.device:
-        raise ValueError("wino_conv2d: x and w must be on one CUDA device")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"wino_conv2d: float32 or bfloat16 storage, got {x.dtype}")
-    if not wino_conv2d_supported(x.shape, w.shape, (1, 1)):
+    _check(x, w, "wino_conv2d")
+    if tuple(w.shape[:2]) != (3, 3) or w.shape[2] != x.shape[-1] or not _kernel_fits(
+            x.shape, w.shape[-1]):
         raise ValueError(f"wino_conv2d: {tuple(x.shape)} @ {tuple(w.shape)} is outside "
                          "the kernel's envelope; gate calls with wino_conv2d_supported")
     b, h, wd, c = x.shape
     k = w.shape[-1]
-    x = x.contiguous()
-    if x.data_ptr() % 16:  # the kernel loads 16-byte vectors
-        x = x.clone()
+    x = _native.aligned(x)
     w = w.to(x.dtype).contiguous()
     u = torch.empty((16, c, k), dtype=x.dtype, device=x.device)
     out = torch.empty((b, h, wd, k), dtype=x.dtype, device=x.device)
@@ -80,5 +111,79 @@ def wino_conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _native.check(lib, rc, "K3 winograd")
     global launches
     launches += 1
-    launches_by_shape[(b, h, wd, c)] += 1
+    launches_by_shape[(b, h, wd, c), k] += 1
     return out
+
+
+def wino_wgrad(x: torch.Tensor, gy: torch.Tensor, fp32_operands: bool | None = None
+               ) -> torch.Tensor:
+    """The K6 wrapper: the weight gradient ``[3, 3, C, K]`` (fp32) of the
+    SAME stride-1 3x3 conv of ``x`` ``[B,H,W,C]`` with output cotangent
+    ``gy`` ``[B,H,W,K]``, contracted in the Winograd domain (gU on the K6
+    kernel, the fold through G in PyTorch). ``fp32_operands`` defaults to
+    ``WGRAD == "fp32"``; with fp32 activations the operands are fp32 either
+    way. A CUDA tensor inside :func:`wino_conv2d_supported` runs K6 (any
+    other CUDA input raises); a CPU tensor runs ``wino_wgrad_plain``."""
+    if fp32_operands is None:
+        fp32_operands = WGRAD == "fp32"
+    if x.device.type == "cpu":
+        return wino_wgrad_plain(x, gy, fp32_operands)
+    _check(x, gy, "wino_wgrad")
+    b, h, wd, c = x.shape
+    k = gy.shape[-1]
+    if (gy.dtype != x.dtype or tuple(gy.shape[:-1]) != (b, h, wd)
+            or not wino_conv2d_supported(x.shape, (3, 3, c, k), (1, 1))):
+        raise ValueError(f"wino_wgrad: x {tuple(x.shape)}, gy {tuple(gy.shape)} is outside "
+                         "the kernel's envelope; gate calls with wino_conv2d_supported")
+    x, gy = _native.aligned(x), _native.aligned(gy)
+    lib = _native.load("winograd_wgrad")
+    lib.rn_wino_wgrad_slices.argtypes = [ctypes.c_int] * 5
+    nslices = lib.rn_wino_wgrad_slices(b, h, wd, c, k)
+    part = torch.empty(nslices * 16 * c * k if nslices > 1 else 0, dtype=torch.float32,
+                       device=x.device)
+    gu = torch.empty((16, c, k), dtype=torch.float32, device=x.device)
+    lib.rn_wino_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    rc = lib.rn_wino_wgrad(x.data_ptr(), gy.data_ptr(), part.data_ptr(), gu.data_ptr(),
+                           _native.dtype_code(x.dtype), int(bool(fp32_operands)),
+                           b, h, wd, c, k, _native.stream_ptr(x))
+    _native.check(lib, rc, "K6 winograd weight gradient")
+    global wgrad_launches
+    wgrad_launches += 1
+    wgrad_launches_by_shape[(b, h, wd, c), k] += 1
+    return fold_weight_grad(gu)
+
+
+def weight_grad(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """The backward's weight gradient ``[3, 3, C, K]`` as :data:`WGRAD`
+    selects it: K6 (fp32), or the direct one in ``x.dtype``."""
+    if WGRAD:
+        return wino_wgrad(x, gy)
+    return plain_conv_wgrad(x, gy, (3, 3, x.shape[-1], gy.shape[-1]))
+
+
+class _WinoConv2d(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return wino_conv2d_forward(x, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gy = gy.to(x.dtype)
+        gx = wino_conv2d_forward(gy, flip_io(w)) if ctx.needs_input_grad[0] else None
+        gw = weight_grad(x, gy).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def wino_conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME stride-1 3x3 conv ``[B,H,W,C] @ [3,3,C,K]`` via Winograd,
+    differentiable in both arguments: forward and data gradient on K3 (the
+    latter on the flipped, io-swapped weights), weight gradient as
+    :data:`WGRAD` selects. A CUDA tensor outside
+    :func:`wino_conv2d_supported` raises; CPU tensors take the plain
+    versions."""
+    if x.device.type != "cpu" and not wino_conv2d_supported(x.shape, w.shape, (1, 1)):
+        raise ValueError(f"wino_conv2d: {tuple(x.shape)} @ {tuple(w.shape)} is outside "
+                         "the kernel's envelope; gate calls with wino_conv2d_supported")
+    return _WinoConv2d.apply(x, w)

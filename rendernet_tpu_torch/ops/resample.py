@@ -1,5 +1,5 @@
 """Exact trilinear affine voxel resampling (PyTorch), the CLI's default
-``--resample exact`` path.
+``--resample exact`` path and the training step's path on the CPU.
 
 Counterpart of ``rendernet_tpu/ops/resample.py:47-190``: backward-warp a
 destination grid through a per-sample affine matrix and trilinearly
@@ -19,6 +19,7 @@ __all__ = [
     "affine_resample",
     "rotate_resample",
     "rotate_resample_to_camera",
+    "rotate_resample_camera_patch",
 ]
 
 
@@ -112,3 +113,35 @@ def rotate_resample_to_camera(
 ) -> torch.Tensor:
     """Rotate+resample, then align axes to image row/column order."""
     return voxel_to_image_axes(rotate_resample(voxels, view_params, size, new_size))
+
+
+def rotate_resample_camera_patch(
+    voxels: torch.Tensor,
+    view_params: torch.Tensor,
+    offsets: Sequence[int],
+    patch_size: int,
+    size: int | None = None,
+    new_size: int = 128,
+) -> torch.Tensor:
+    """Crop-fused resample (``resample.py:190``): equals
+    ``rotate_resample_to_camera(...)[:, u0:u0+P, v0:v0+P]`` but gathers only
+    the window. ``offsets`` = (u0, v0), the crop starts in the image-aligned
+    (row, col) axes; depth is never cropped."""
+    if size is None:
+        size = voxels.shape[1]
+    matrix = grid_to_grid_matrix(view_params, size=size, new_size=new_size)
+    # The image-aligned grid G[b, u, v, d] is the raw resample out[b, i, j, k]
+    # at (i = v, j = new_size - 1 - u, k = d) (voxel_to_image_axes), so the
+    # window's destination points are generated in G's index order.
+    dev = matrix.device
+    u = int(offsets[0]) + torch.arange(patch_size, device=dev)
+    v = int(offsets[1]) + torch.arange(patch_size, device=dev)
+    xk = torch.arange(new_size, dtype=torch.float32, device=dev)[None, None, None, :]
+    yj = (float(new_size - 1) - u.to(torch.float32))[None, :, None, None]
+    zi = v.to(torch.float32)[None, None, :, None]
+
+    def row(r: int) -> torch.Tensor:
+        m = matrix[:, r, :, None, None, None]
+        return m[:, 0] * xk + m[:, 1] * yj + m[:, 2] * zi + m[:, 3]
+
+    return trilinear_gather(voxels, row(0), row(1), row(2))

@@ -11,6 +11,17 @@ Counterpart of ``rendernet_tpu/ops/winograd.py:48-63,77``. A SAME stride-1
 
 with 16 multiplies per channel pair instead of 36. These are the rounding
 points of the JAX kernel, which the CUDA kernel keeps.
+
+The weight gradient in the transform domain (``pallas_winograd.py:284-453``,
+the plain version of the K6 kernel) contracts the same V with the output
+cotangent spread over the 16 frequencies through A,
+
+    dM = A gy-tile A^T  (fp32, then cast to the operand type)  [16, tiles, K]
+    gU = V^T @ dM        (16 GEMMs, fp32 accumulation)         [16, C, K]
+    gw = G^T gU G        (fp32)                                 [3, 3, C, K]
+
+with 16 multiplies per channel pair and tile instead of the direct weight
+gradient's 36.
 """
 from __future__ import annotations
 
@@ -18,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["transform_weights", "winograd3x3"]
+__all__ = ["transform_weights", "winograd3x3", "wino_wgrad_plain", "fold_weight_grad"]
 
 # F(2x2, 3x3) transform matrices (Lavin & Gray, arXiv:1509.09308).
 _BT = np.array([
@@ -58,11 +69,11 @@ def transform_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.stack([_lincomb(t[a], _G[b]) for a in range(4) for b in range(4)]).to(dtype)
 
 
-def winograd3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """SAME stride-1 3x3 conv ``[B,H,W,C] @ [3,3,C,K] -> [B,H,W,K]`` via
-    F(2x2,3x3); GEMM operands in ``x.dtype``, everything else fp32."""
+def _input_transform(x: torch.Tensor):
+    """V = B^T d B of every 4x4 input tile of the SAME-padded ``x`` (an odd
+    H or W padded up by one) in fp32: ``[16, B * nh * nw, C]``, frequency
+    ``4 * k1 + k2``."""
     b, h, ww, c = x.shape
-    k = w.shape[-1]
     ph, pw = -h % 2, -ww % 2
     nh, nw = (h + ph) // 2, (ww + pw) // 2
     xp = F.pad(x, (0, 0, 1, 1 + pw, 1, 1 + ph)).to(torch.float32)
@@ -70,9 +81,17 @@ def winograd3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     rowt = [[_lincomb([d[r][s] for r in range(4)], _BT[k1]) for s in range(4)]
             for k1 in range(4)]
     v = [[_lincomb(rowt[k1], _BT[k2]) for k2 in range(4)] for k1 in range(4)]
-    vmat = torch.stack(
-        [v[k1][k2].reshape(b * nh * nw, c) for k1 in range(4) for k2 in range(4)]
-    ).to(x.dtype)
+    return torch.stack([v[k1][k2].reshape(b * nh * nw, c)
+                        for k1 in range(4) for k2 in range(4)])
+
+
+def winograd3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME stride-1 3x3 conv ``[B,H,W,C] @ [3,3,C,K] -> [B,H,W,K]`` via
+    F(2x2,3x3); GEMM operands in ``x.dtype``, everything else fp32."""
+    b, h, ww, _ = x.shape
+    k = w.shape[-1]
+    nh, nw = -(-h // 2), -(-ww // 2)
+    vmat = _input_transform(x).to(x.dtype)
     umat = transform_weights(w, x.dtype)
     m = torch.bmm(vmat.to(torch.float32), umat.to(torch.float32))
     m = m.reshape(4, 4, b, nh, nw, k)
@@ -82,3 +101,28 @@ def winograd3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     yt = torch.stack([torch.stack(rw, 0) for rw in y], 0)  # [2,2,B,nh,nw,K]
     out = yt.permute(2, 3, 0, 4, 1, 5).reshape(b, 2 * nh, 2 * nw, k)
     return out[:, :h, :ww, :].to(x.dtype)
+
+
+def wino_wgrad_plain(x: torch.Tensor, gy: torch.Tensor, fp32_operands: bool = False) -> torch.Tensor:
+    """Plain version of K6: the weight gradient ``[3, 3, C, K]`` (fp32) of the
+    SAME stride-1 3x3 conv of ``x`` ``[B,H,W,C]`` (H, W even) with output
+    cotangent ``gy`` ``[B,H,W,K]``, through the transform domain. GEMM
+    operands in ``x.dtype``, or fp32 with ``fp32_operands``; everything else
+    fp32 (``pallas_winograd._wgrad_kernel``'s rounding points)."""
+    k = gy.shape[-1]
+    opdt = torch.float32 if fp32_operands else x.dtype
+    vmat = _input_transform(x).to(opdt)
+    g = gy.to(torch.float32)
+    gp = [g[:, p1::2, p2::2, :].reshape(-1, k) for p1 in range(2) for p2 in range(2)]
+    dm = torch.stack([
+        _lincomb(gp, [_AT[p1, k1] * _AT[p2, k2] for p1 in range(2) for p2 in range(2)])
+        for k1 in range(4) for k2 in range(4)]).to(opdt)
+    gu = torch.bmm(vmat.to(torch.float32).transpose(1, 2), dm.to(torch.float32))
+    return fold_weight_grad(gu)
+
+
+def fold_weight_grad(gu: torch.Tensor) -> torch.Tensor:
+    """gw[r, s] = sum_ab G[a, r] G[b, s] gU[4a + b]: the adjoint of
+    U = G w G^T, ``[16, C, K] -> [3, 3, C, K]`` in fp32."""
+    g = torch.from_numpy(_G).to(gu.device)
+    return torch.einsum("ar,abck,bs->rsck", g, gu.reshape(4, 4, *gu.shape[1:]), g)

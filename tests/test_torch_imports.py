@@ -35,10 +35,21 @@ def test_importing_every_module_pulls_in_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("cli.demo", "cli.__main__", "compat.jax_params", "io.binvox",
-                "models.shader", "nn.init", "nn.layers", "ops._native", "ops.cuda_conv3d",
-                "ops.cuda_resample", "ops.cuda_winograd", "ops.phong", "ops.resample",
-                "ops.transforms", "ops.winograd", "utils.image"):
+                "models.shader", "nn.init", "nn.layers", "ops._native", "ops.conv_grad", "ops.crops",
+                "ops.cuda_conv3d", "ops.cuda_resample", "ops.cuda_winograd", "ops.phong",
+                "ops.resample", "ops.transforms", "ops.winograd", "train.config",
+                "train.optim", "train.steps", "utils.image"):
         assert f"rendernet_tpu_torch.{mod}" in res["modules"]
+
+
+def test_every_kernel_source_is_built():
+    """Each CUDA source of the port is one of the libraries the build starts
+    (so chip_smoke.py's build covers every kernel), and nothing more."""
+    from rendernet_tpu_torch.ops import _native
+
+    sources = sorted(n[:-3] for n in os.listdir(os.path.join(PKG, "csrc")) if n.endswith(".cu"))
+    assert sources == sorted(_native.SOURCES)
+    assert {"conv3d_wgrad", "winograd_wgrad"} <= set(sources)
 
 
 def test_no_file_names_jax_or_the_jax_package():

@@ -95,7 +95,7 @@ def test_whole_slice_matches_jax_multipass(tmp_path, monkeypatch):
     monkeypatch.setattr(cuda_winograd, "wino_conv2d", counted("k3", cuda_winograd.wino_conv2d))
     net = _carry(jparams, tmp_path, tcfg)
     got = tshader.shader_forward(net, torch.from_numpy(vox), torch.from_numpy(pose),
-                                 resample="multipass").numpy()
+                                 resample="multipass").detach().numpy()
     # e_conv3 + 2 res1 convs + skip; 3 res2 + 3 res3 convs; 8 passes
     assert calls == {"k1": 8, "k2": 4, "k3": 6}
     assert got.shape == want.shape == (8, 128, 128, 1)
@@ -115,7 +115,7 @@ def test_trained_asset_exact_path_matches_jax(tmp_path):
         jnp.asarray(pose), jshader.ShaderConfig(**arch), resample="exact"))
     net = _carry(jparams, tmp_path, tshader.ShaderConfig(**arch))
     got = tshader.shader_forward(net, torch.from_numpy(vox), torch.from_numpy(pose),
-                                 resample="exact").numpy()
+                                 resample="exact").detach().numpy()
     assert got.shape == want.shape == (2, 256, 256, 1)
     assert want.max() - want.min() > 0.5  # the trained net draws a silhouette
     np.testing.assert_allclose(got, want, atol=2e-4, rtol=0)
