@@ -6,13 +6,14 @@
 Phases, all of them on every run:
   1. build every CUDA kernel from ``rendernet_tpu_torch/csrc`` (one nvcc per
      source, in parallel) and print the card's name and power limit;
-  2. kernels: call each kernel's wrapper (K1 resample pass, K2 conv3d, K2w
-     its weight gradient, K3 Winograd, K6 the Winograd weight gradient) at
-     the shapes the serving path (batch 8) and the training step (bf16 at
-     batch 24; fp32 at batch 8, the gradient check's) give it, and at the
-     data-gradient shapes, plus one ragged shape each; hold it against its
-     plain PyTorch version in the working dtype; time kernel, plain version
-     and the cuDNN yardstick with CUDA events;
+  2. kernels: call each kernel's wrapper (K1 resample pass, K4 its adjoint,
+     K2 conv3d, K2w its weight gradient, K3 Winograd, K6 the Winograd weight
+     gradient) at the shapes the serving path (batch 8), the training step
+     (bf16 at batch 24; fp32 at batch 8, the gradient check's) and the
+     inverse-rendering step (5 hypotheses; fp32 and bf16) give it, and at
+     the data-gradient shapes, plus one ragged shape each; hold it against
+     its plain PyTorch version in the working dtype; time kernel, plain
+     version and the cuDNN yardstick with CUDA events;
   3. serving: run the render CLI (fp32, ``--fast --resample multipass
      --rotate --sweep_batch 8``: 72 frames, 9 batch-8 forwards) on a
      procedural voxel, then one bf16 ``shader_forward`` at batch 8, both at
@@ -28,17 +29,31 @@ Phases, all of them on every run:
      configurations (batch 24, bf16, bf16 Adam moments, patch 128 and 64):
      a warm-up step, then 8 timed steps on one fixed batch; (c) one step
      each with ``WGRAD=True``, ``WGRAD="fp32"`` and ``remat=True``; (d) a
-     profile of one patch-128 step.
-The kernels' launch counters are zeroed just before each run of phases 3
-and 4 and read just after; every run's counts are checked, shape by shape,
-against the counts its graph implies.
+     profile of one patch-128 step;
+  5. inverse rendering at ``ReconConfig()`` (5 pose hypotheses, 64^3
+     shape and texture grids, a 128^3 camera grid, the 512^2 two-head
+     renderer, Phong composite, per-sample MSE), random weights from seeds:
+     (a) one step's latent gradients in fp32 (TF32 off) and bf16 on a
+     target the port renders at a known pose, with the kernels and with
+     every kernel (K4 included) replaced by its plain version, compared
+     group by group (RECON_GRAD_TOL), with three planted faults that the
+     comparison must reject; (b)
+     ``make_recon_step`` in fp32 and bf16 on a fixed random 512^2 target:
+     a warm-up step, then 5 timed steps; (c) the ``reconstruct`` CLI with
+     ``--random-weights --dump-every 2`` (2 epochs of 4 steps) on albedo
+     and normal targets that the port renders at a known pose; (d) a
+     profile of one bf16 step.
+The kernels' launch counters are zeroed just before each run of phases 3,
+4 and 5 and read just after; every run's counts are checked, shape by
+shape, against the counts its graph implies.
 
 Prints a ``{"kernels": [...]}`` line with one row per kernel, dtype and
 main-path shape: a serving row's ``launches`` is per batch-8 forward of that
 dtype's serving run (the fp32 CLI's counts divided by its 9 forwards, after
 checking they are exact multiples); a training row's is per training step
 of the run named in the row (the bf16 patch-128 or patch-64 steps, the
-fp32 patch-128 gradient check, or the WGRAD steps for K6). The ragged shapes and the fp32
+fp32 patch-128 gradient check, or the WGRAD steps for K6); a recon row's is
+per inverse-rendering step of its dtype. The ragged shapes and the fp32
 batch-24 checks are printed on ``ragged`` and ``check`` lines of their own.
 The last line is ``{"ok": true, "device": {...}}``. Exits non-zero,
 printing no result, when there is no CUDA card, when the port is missing,
@@ -46,6 +61,7 @@ or when any check fails.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -96,6 +112,8 @@ GRAD_TOL = {"float32": 3e-3, "bfloat16": 0.125}
 REPO_SOURCES = {
     "K1": ("rendernet_tpu_torch/csrc/resample.cu",
            "rendernet_tpu/ops/pallas_resample.py:320 (_fwd_kernel)"),
+    "K4": ("rendernet_tpu_torch/csrc/resample_bwd.cu",
+           "rendernet_tpu/ops/pallas_resample.py:347 (_bwd_kernel)"),
     "K2": ("rendernet_tpu_torch/csrc/conv3d.cu",
            "rendernet_tpu/ops/pallas_conv3d.py:165 (_fwd_kernel)"),
     "K2w": ("rendernet_tpu_torch/csrc/conv3d_wgrad.cu",
@@ -107,7 +125,8 @@ REPO_SOURCES = {
 }
 
 # The launch counter of each kernel: (module, attribute prefix).
-COUNTERS = {"K1": ("cuda_resample", ""), "K2": ("cuda_conv3d", ""),
+COUNTERS = {"K1": ("cuda_resample", ""), "K4": ("cuda_resample", "bwd_"),
+            "K2": ("cuda_conv3d", ""),
             "K2w": ("cuda_conv3d", "wgrad_"), "K3": ("cuda_winograd", ""),
             "K6": ("cuda_winograd", "wgrad_")}
 
@@ -151,11 +170,13 @@ def bound(flops: float, nbytes: float, dtype: str):
 # the row's launches ("serve": per batch-8 forward of phase 3; "train" and
 # "train64": per bf16 patch-128 / patch-64 step; "grad32": per fp32
 # patch-128 gradient-check step; "wgrad_bf16"
-# and "wgrad_fp32": per step with WGRAD=True or "fp32"), "check" for a
-# checked and timed shape no run launches, None for a ragged shape.
+# and "wgrad_fp32": per step with WGRAD=True or "fp32"; "recon32" and
+# "recon16": per fp32 / bf16 inverse-rendering step of phase 5), "check"
+# for a checked and timed shape no run launches, None for a ragged shape.
 # Specs: pass (BC, R, L, out_lanes, db), where out_lanes < L is a pass
 # that emits a crop window (the patch-64 step's last pass on each cropped
-# axis); conv3d / conv3d_wgrad / wino /
+# axis); pass_bwd (BC, R, L, out_lanes, db, taps, alpha sign), K4 on the
+# pass's cotangent; conv3d / conv3d_wgrad / wino /
 # wino_wgrad (input shape, output channels); conv3d_dgrad / wino_dgrad
 # (cotangent shape, channels of the data gradient), which run the forward
 # kernel on the flipped, io-swapped weights of the conv, as the backward
@@ -163,6 +184,7 @@ def bound(flops: float, nbytes: float, dtype: str):
 F32, BF16, BOTH = ("float32",), ("bfloat16",), ("float32", "bfloat16")
 X3 = {8: (8, 64, 64, 32, 32), 24: (24, 64, 64, 32, 32)}
 X3P = (24, 32, 32, 32, 32)  # res1 at patch 64
+XR = (5, 64, 64, 32, 16)  # the inverse renderer's e_conv3 and res1 input
 CASES = [
     ("K1", "pass [8,16384,128]", "pass", (8, 16384, 128, 128, 128), BOTH, "serve"),
     ("K1", "train pass [24,16384,128]", "pass", (24, 16384, 128, 128, 128), BF16, "train"),
@@ -172,6 +194,18 @@ CASES = [
     ("K1", "train64 window pass [24,8192,128]->64", "pass", (24, 8192, 128, 64, 128), BF16,
      "train64"),
     ("K1", "ragged pass [3,1000,100]->37", "pass", (3, 1000, 100, 37, 40), BOTH, None),
+    ("K1", "recon shape pass [5,16384,128]", "pass", (5, 16384, 128, 128, 128), F32, "recon32"),
+    ("K1", "recon shape pass [5,16384,128]", "pass", (5, 16384, 128, 128, 128), BF16, "recon16"),
+    ("K1", "recon texture pass [20,16384,128]", "pass", (20, 16384, 128, 128, 128), F32,
+     "recon32"),
+    ("K1", "recon texture pass [20,16384,128]", "pass", (20, 16384, 128, 128, 128), BF16,
+     "recon16"),
+    *[("K4", f"recon {what} adjoint [{bc},16384,128] taps {taps}", "pass_bwd",
+       (bc, 16384, 128, 128, 128, taps, 1), (dn,), run)
+      for what, bc in (("shape", 5), ("texture", 20)) for taps in (3, 6)
+      for dn, run in (("float32", "recon32"), ("bfloat16", "recon16"))],
+    ("K4", "ragged adjoint [3,1000,100]->37 taps 4 alpha<0", "pass_bwd",
+     (3, 1000, 100, 37, 40, 4, -1), BOTH, None),
     ("K2", "e_conv3 [8,64,64,32,16]->32", "conv3d", ((8, 64, 64, 32, 16), 32), BOTH, "serve"),
     ("K2", "res1 [8,64,64,32,32]->32", "conv3d", (X3[8], 32), BOTH, "serve"),
     ("K2", "train e_conv3 [24,64,64,32,16]->32", "conv3d", ((24, 64, 64, 32, 16), 32), BF16,
@@ -188,6 +222,10 @@ CASES = [
     ("K2", "train64 dgrad e_conv3 [24,32,32,32,32]->16", "conv3d_dgrad", (X3P, 16), BF16,
      "train64"),
     ("K2", "ragged [2,5,10,24,24]->64", "conv3d", ((2, 5, 10, 24, 24), 64), BOTH, None),
+    ("K2", "recon e_conv3/res1 fwd+dgrad [5,64,64,32,16]->16", "conv3d", (XR, 16), F32,
+     "recon32"),
+    ("K2", "recon e_conv3/res1 fwd+dgrad [5,64,64,32,16]->16", "conv3d", (XR, 16), BF16,
+     "recon16"),
     ("K2w", "train e_conv3 [24,64,64,32,16]->32", "conv3d_wgrad", ((24, 64, 64, 32, 16), 32),
      BF16, "train"),
     ("K2w", "train res1 [24,64,64,32,32]->32", "conv3d_wgrad", (X3[24], 32), BF16, "train"),
@@ -247,11 +285,14 @@ def case_key(op, spec):
     """The wrapper's launch-counter key of a case."""
     if op == "pass":
         return tuple(spec[:4])
+    if op == "pass_bwd":
+        return tuple(spec[:4]) + (spec[5],)
     return tuple(spec[0]), spec[1]
 
 
 def make_case(torch, op, spec, dtype, gen):
-    """(kernel fn, plain fn, library fn or None, flops, bytes, output is fp32)."""
+    """(kernel fn, plain fn, library fn or None, flops, bytes, output is fp32).
+    K4's functions return (gv, gp), held part by part."""
     from rendernet_tpu_torch.ops import cuda_conv3d, cuda_resample, cuda_winograd
 
     dev = torch.device("cuda")
@@ -270,9 +311,21 @@ def make_case(torch, op, spec, dtype, gen):
         u = torch.rand(bc, 4, generator=gen, device=dev) * 2 - 1
         params = torch.stack([1 + 0.4 * u[:, 0], 0.4 * u[:, 1], 0.4 * u[:, 2],
                               20 * u[:, 3]], dim=-1)
-        return (lambda: cuda_resample.apply_interp_pass(vol, params, db, ol),
+        return (lambda: cuda_resample.interp_pass_fwd(vol, params, db, ol),
                 lambda: cuda_resample.interp_pass_plain(vol, params, db, ol),
                 None, 10.0 * bc * r * ol, item * bc * (r * lanes + r * ol) + 16 * bc, False)
+    if op == "pass_bwd":  # reads v and g, writes gv (vol's dtype) and gp (fp32)
+        bc, r, lanes, ol, db, taps, sign = spec
+        vol = rnd(bc, r, lanes)
+        u = torch.rand(bc, 4, generator=gen, device=dev) * 2 - 1
+        alpha = sign * (1 + 0.4 * u[:, 0])
+        delta = 20 * u[:, 3] if sign > 0 else lanes - 1 - 20 * u[:, 3]
+        params = torch.stack([alpha, 0.4 * u[:, 1], 0.4 * u[:, 2], delta], dim=-1)
+        g = rnd(bc, r, ol)
+        return (lambda: cuda_resample.interp_pass_bwd(vol, params, g, db, taps, ol),
+                lambda: cuda_resample.interp_pass_bwd_plain(vol, params, g, db, taps, ol),
+                None, bc * r * (10.0 * taps * lanes + 8.0 * ol),
+                item * bc * r * (2 * lanes + ol) + 4 * bc * r * ol + 16 * bc, False)
     xs, co = spec[0], spec[1]
     m = math.prod(xs[:-1])
     c = xs[-1]
@@ -339,16 +392,20 @@ def run_kernel_checks(torch, failures):
             got = kern()
             ref = plain()
             torch.cuda.synchronize()
-            scale = max(float(ref.float().abs().max()), 1e-30)
-            err = float((got.float() - ref.float()).abs().max())
-            tol = (WGRAD_TOL if f32_out else KERNEL_TOL[dname]) * scale
-            ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+            got, ref = (x if isinstance(x, tuple) else (x,) for x in (got, ref))
+            ok, err, scale, tol = True, 0.0, 0.0, 0.0
+            for a, b in zip(got, ref):  # each part within its own tolerance
+                part_scale = max(float(b.float().abs().max()), 1e-30)
+                part_err = float((a.float() - b.float()).abs().max())
+                part_tol = (WGRAD_TOL if f32_out else KERNEL_TOL[dname]) * part_scale
+                ok = ok and bool(torch.isfinite(a.float()).all()) and part_err <= part_tol
+                err, scale, tol = max(err, part_err), max(scale, part_scale), max(tol, part_tol)
             del got, ref
             kms = time_ms(torch, kern, 20)
             pms = time_ms(torch, plain, 5)
             lms = time_ms(torch, lib, 20) if lib is not None else None
-            bms, by = bound(flops, nbytes, "float32" if op == "wino_wgrad" and spec[2]
-                            else dname)
+            fp32_math = (op == "wino_wgrad" and spec[2]) or op == "pass_bwd"
+            bms, by = bound(flops, nbytes, "float32" if fp32_math else dname)
             row = dict(kernel=kid, shape=label, dtype=dname, max_abs_err=err,
                        max_abs_ref=scale, tol=tol, ok=ok, ms=kms, plain_ms=pms,
                        library_ms=lms, bound_ms=bms, bound_by=by, run=run,
@@ -404,7 +461,7 @@ def check_counts(failures, what, by_shape, n_fwd):
                                 f"expected {n} x {n_fwd} forwards")
         if seen:
             failures.append(f"{what}: {kid} launched at unexpected shapes {seen}")
-    for kid in ("K2w", "K6"):
+    for kid in ("K4", "K2w", "K6"):
         if by_shape[kid]:
             failures.append(f"{what}: {kid} launched in a forward: {by_shape[kid]}")
     return per_fwd
@@ -548,6 +605,7 @@ def step_launches(b, patch, wgrad=False, remat=False):
     rc = 1 if remat else 0
     return {
         "K1": k1,
+        "K4": {},  # the warp runs under no_grad: voxels and pose are data here
         "K2": {(x16, 32): 1, (x32, 32): 42 + 20 * rc, (x32, 16): 1},
         "K2w": {(x16, 32): 1, (x32, 32): 21},
         "K3": {(r2, 1024): 42 + 20 * rc, (r3, 512): 22 + 10 * rc},
@@ -762,6 +820,335 @@ def run_training(torch, failures):
     return out, per_step
 
 
+# ---------------------------------------------------------------------------
+# phase 5: inverse rendering
+# ---------------------------------------------------------------------------
+# One recon step's latent gradients with kernels vs with their plain
+# versions, per latent group: ||g - g_plain|| / ||g_plain||, under cuDNN's
+# deterministic algorithms (its default fp32 ones are not, and these
+# gradients magnify that from run to run). K1 and K4 are bit-identical
+# to their plain versions, so the difference is K2's summation order (in
+# bf16 also the roundings that follow), carried back through the frozen
+# renderer. With the seeded weights the deep relu stacks make the vector
+# and texture gradients chaotic: the seeded readings (printed, not gated)
+# are ~5e-3 (fp32) and ~0.5 (bf16), in bf16 about as far as a planted K4
+# fault. So the gated check runs on the seeded model with each res block's
+# second conv scaled by RECON_RES_SCALE (half the residual branch's gain,
+# which damps the relu-mask flips) and the normal head's output bias set to
+# RECON_NORMAL_BIAS, which keeps Phong's normalisation away from normals
+# near 0 (the head's output - 0.5).
+# Pose and light are held to the training check's limits (GRAD_TOL). The
+# vector and texture gradients are the decoders' residues of sums that
+# cancel over the 64^3 grids; their limits sit between the readings on an
+# H100 (3.7e-3 / 2.6e-3 fp32, 0.22 / 0.14 bf16) and the controls'. Controls
+# (each must fail the gate): K4's gp zeroed (pose 1.0), K4's gv halved on
+# each warp's last pass (vector and texture 0.5, pose 0.36), and the
+# all-plain bf16 step's gradients held as fp32 ones (vector 0.23, pose
+# 1.5e-2).
+RECON_GRAD_TOL = {
+    "float32": {"vector": 1e-2, "pose": GRAD_TOL["float32"], "texture": 1e-2,
+                "light": GRAD_TOL["float32"]},
+    "bfloat16": {"vector": 0.35, "pose": GRAD_TOL["bfloat16"], "texture": 0.35,
+                 "light": GRAD_TOL["bfloat16"]},
+}
+RECON_RES_SCALE = 0.5
+RECON_NORMAL_BIAS = (1.5, -1.0, 2.0)
+RECON_STEPS = 5
+# The light's elevation as the reconstruct CLI derives it from the
+# reference config's target_elevation_light = 105 degrees: at
+# ReconConfig()'s default 0 the light sits at the zenith and its azimuth
+# has no gradient. Every other ReconConfig field keeps its default.
+RECON_LIGHT_ELEVATION = (90 - 105) * math.pi / 180.0
+
+
+def recon_launches(forward_only: bool = False):
+    """Launches per inverse-rendering step (or per forward) that the graph
+    implies at ``ReconConfig()``: each warp is 8 K1 passes at [BC, 16384,
+    128] (the shape at BC = 5, the 4-channel texture at BC = 20) and their
+    8 K4 adjoints (five 3-tap shear passes, three 6-tap scale passes, the
+    first merged with a shear); e_conv3, the 20 res1 convs and res1_skip
+    run K2 at 16 -> 16 channels forward and again for their data gradients;
+    the networks are frozen, so no weight gradient runs (K2w 0), and batch 5
+    is outside K3's envelope (K3, K6 0)."""
+    n = 128
+    k4 = {}
+    for bc in (5, 20):
+        k4[(bc, n * n, n, n, 3)] = 5
+        k4[(bc, n * n, n, n, 6)] = 3
+    return {
+        "K1": {(5, n * n, n, n): 8, (20, n * n, n, n): 8},
+        "K4": {} if forward_only else k4,
+        "K2": {(XR, 16): 22 if forward_only else 44},
+        "K2w": {}, "K3": {}, "K6": {},
+    }
+
+
+def recon_model(torch):
+    from rendernet_tpu_torch.models.decoders import (
+        init_recon_rendernet_params,
+        init_recon_texture_decoder_params,
+        init_shape_decoder_params,
+    )
+    from rendernet_tpu_torch.recon.inverse import ReconModel
+
+    model = ReconModel(init_shape_decoder_params(0, device="cuda"),
+                       init_recon_texture_decoder_params(1, device="cuda"),
+                       init_recon_rendernet_params(2, device="cuda"))
+    for net in model:  # frozen, as make_recon_step leaves them
+        net.requires_grad_(False)
+    return model
+
+
+def conditioned_recon_model(torch):
+    """The seeded model with each res block's second conv scaled by
+    RECON_RES_SCALE and the normal head's output bias set to
+    RECON_NORMAL_BIAS (the gradient check's model)."""
+    model = recon_model(torch)
+    with torch.no_grad():
+        for name, p in model.renderer.named_parameters():
+            if name.endswith("conv2_3x3.weight"):
+                p.mul_(RECON_RES_SCALE)
+        head = model.renderer.encoder["Normal"]["e_conv11"]["e_conv11_2"]
+        head.bias.copy_(torch.tensor(RECON_NORMAL_BIAS))
+    return model
+
+
+class k4_fault:
+    """A fault planted in K4's results, which the gradient check must
+    reject: "gp0" zeroes every pass's position cotangent; "gv_half" halves
+    the voxel cotangent of each warp's last pass (the first adjoint of
+    each batch-channel count)."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    def __enter__(self):
+        from rendernet_tpu_torch.ops import cuda_resample
+
+        self.orig = orig = cuda_resample.interp_pass_bwd
+        seen = set()
+
+        def faulty(vol, params, g, db, taps, out_lanes=None):
+            gv, gp = orig(vol, params, g, db, taps, out_lanes)
+            if self.kind == "gp0":
+                gp = gp * 0.0
+            elif vol.shape[0] not in seen:
+                seen.add(vol.shape[0])
+                gv = gv * 0.5
+            return gv, gp
+
+        cuda_resample.interp_pass_bwd = faulty
+
+    def __exit__(self, *exc):
+        from rendernet_tpu_torch.ops import cuda_resample
+
+        cuda_resample.interp_pass_bwd = self.orig
+
+
+def recon_gradient_check(torch, failures, seeded, seeded_target):
+    """One step's latent gradients at ReconConfig(), kernels vs all plain,
+    fp32 (TF32 off) and bf16, under cuDNN's deterministic algorithms: on
+    the conditioned model, gated by RECON_GRAD_TOL with three controls
+    that must fail it; on the seeded model, printed only."""
+    from rendernet_tpu_torch.recon.inverse import (
+        Latents,
+        ReconConfig,
+        initial_latents,
+        recon_per_sample_loss,
+    )
+
+    def errors(g, ref):
+        return {n: float((a.float() - b.float()).norm() / b.float().norm())
+                for n, a, b in zip(Latents._fields, g, ref)}
+
+    def over(errs, dname):
+        return [n for n, e in errs.items() if not e <= RECON_GRAD_TOL[dname][n]]
+
+    model = conditioned_recon_model(torch)
+    target = render_target(torch, model)[0].expand(5, -1, -1, -1).contiguous()
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out, plain = {}, {}
+    for dname in ("float32", "bfloat16"):
+        cfg = ReconConfig(compute_dtype=dname, light_elevation=RECON_LIGHT_ELEVATION)
+        lat = initial_latents(cfg, device="cuda")
+
+        def grads(net=model, tgt=target):
+            leaves = [t.clone().requires_grad_() for t in lat]
+            loss = recon_per_sample_loss(net, Latents(*leaves), tgt, cfg)
+            return loss.detach(), torch.autograd.grad(loss.sum(), leaves)
+
+        what = f"recon {dname} gradient check"
+        reset_counts()
+        loss, g = grads()
+        torch.cuda.synchronize()
+        check_step_counts(failures, what, read_counts()[1], 1, recon_launches())
+        with plain_kernels():
+            reset_counts()
+            loss_p, gp = grads()
+            if any(read_counts()[0].values()):
+                failures.append(f"{what}: the plain step launched a kernel")
+            _, g_seeded_plain = grads(seeded, seeded_target)
+        _, g_seeded = grads(seeded, seeded_target)
+        plain[dname] = gp
+        for name, a, b in zip(Latents._fields, g, gp):
+            ref = float(b.norm())
+            if not (ref > 0 and math.isfinite(ref)) or not bool(torch.isfinite(a).all()):
+                failures.append(f"{what}: gradient of {name}: plain norm {ref}, or non-finite")
+        errs = errors(g, gp)
+        bad = over(errs, dname)
+        if bad:
+            failures.append(f"{what}: {bad} differ from the all-plain step's by "
+                            f"{errs} (limits {RECON_GRAD_TOL[dname]})")
+        controls = {}
+        for kind in ("gp0", "gv_half"):
+            with k4_fault(kind):
+                controls[f"k4_{kind}"] = errors(grads()[1], gp)
+        for name, c in controls.items():
+            if not over(c, dname):
+                failures.append(f"{what}: the control {name} passed the gate ({c})")
+        res = {"dtype": dname, "rel_err": errs, "tol": RECON_GRAD_TOL[dname],
+               "controls": controls, "seeded_rel_err": errors(g_seeded, g_seeded_plain),
+               "loss": loss.tolist(), "plain_loss": loss_p.tolist(),
+               "grad_norm": {n: float(b.norm()) for n, b in zip(Latents._fields, gp)}}
+        out[dname] = res
+        log("recon_grad " + json.dumps(res))
+    cross = errors(plain["bfloat16"], plain["float32"])
+    out["control_bf16_as_fp32"] = cross
+    log("recon_grad_control " + json.dumps({"bf16_plain_vs_fp32_plain": cross}))
+    if not over(cross, "float32"):
+        failures.append(f"recon gradient check: the bf16 step passed the fp32 gate ({cross})")
+    torch.backends.cudnn.deterministic = cudnn_det
+    return out
+
+
+def render_target(torch, model):
+    """(composite, albedo, normal) of one render by ``model`` at a known
+    pose (azimuth 250, elevation 10 degrees) from seed-1 latents."""
+    from rendernet_tpu_torch.recon.inverse import ReconConfig, initial_latents, recon_forward
+
+    cfg = ReconConfig(batch_size=1, light_elevation=RECON_LIGHT_ELEVATION)
+    lat = initial_latents(cfg, seed=1, device="cuda")
+    lat = lat._replace(pose=torch.tensor([[250 * math.pi / 180, 10 * math.pi / 180, 1.0]],
+                                         device="cuda"))
+    with torch.no_grad():
+        compos, albedo, normal, _ = recon_forward(model, lat, cfg)
+    return compos, albedo, normal
+
+
+def write_recon_targets(torch, model, tmp):
+    """Albedo and normal PNGs of :func:`render_target` (the CLI's
+    targets), and its composite for 5 hypotheses."""
+    from rendernet_tpu_torch.utils.image import save_image, to_uint8
+
+    compos, albedo, normal = render_target(torch, model)
+    paths = []
+    for name, img in (("albedo", albedo), ("normal", normal)):
+        paths.append(os.path.join(tmp, f"target_{name}.png"))
+        save_image(to_uint8(img[0].float().cpu().numpy(), 255.0), paths[-1])
+    return paths, compos.expand(5, -1, -1, -1).contiguous()
+
+
+def run_recon(torch, failures, tmp):
+    """Phase 5: the gradient check, the timed steps, the CLI, a profile."""
+    import numpy as np
+
+    from rendernet_tpu_torch.cli.__main__ import main as cli_main
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.recon.inverse import ReconConfig, initial_latents, make_recon_step
+
+    layers.WINOGRAD_2D = False  # as JAX's recon (batch 5 is outside K3's envelope anyway)
+    gc.collect()  # the earlier phases' objects: the host dispatches every op of a step
+    torch.cuda.empty_cache()
+    out, per_step = {}, {}
+    model = recon_model(torch)
+    (albedo, normal), rendered = write_recon_targets(torch, model, tmp)
+    out["gradient_check"] = recon_gradient_check(torch, failures, model, rendered)
+    del rendered
+    # the timed steps' target: a fixed random image, as benchmarks/recon_bench.py's
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    target = torch.rand(5, 512, 512, 3, generator=gen, device="cuda")
+
+    steps = {}
+    for dname, run in (("float32", "recon32"), ("bfloat16", "recon16")):
+        cfg = ReconConfig(compute_dtype=dname, light_elevation=RECON_LIGHT_ELEVATION)
+        step = make_recon_step(model, cfg)
+        lat = initial_latents(cfg, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        lat, _ = step(lat, target)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(RECON_STEPS):
+            lat, per = step(lat, target)
+            losses.append(per)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        totals, by_shape = read_counts()
+        per_step[run] = check_step_counts(failures, f"recon {dname} steps", by_shape,
+                                          RECON_STEPS, recon_launches())
+        sums = [float(x.sum()) for x in losses]
+        res = {"dtype": dname, "batch": 5, "steps": RECON_STEPS,
+               "ms_per_step": dt / RECON_STEPS * 1e3, "loss_sums": sums,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches_per_step": {k: v // RECON_STEPS for k, v in totals.items()}}
+        steps[dname] = res
+        log("recon " + json.dumps(res))
+        if not all(math.isfinite(x) for x in sums) or not all(
+                bool(torch.isfinite(t).all()) for t in lat):
+            failures.append(f"recon {dname}: non-finite loss {sums} or latents")
+    out["steps"] = steps
+
+    # the CLI, as a user runs it: bf16 on the card, 2 epochs of 4 steps, a
+    # dump every 2 steps (one mid-epoch and one end-of-epoch forward each)
+    run_dir = os.path.join(tmp, "recon")
+    cfg_path = os.path.join(tmp, "recon.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"batch_size": 5, "inner_step": 4, "max_epochs": 2, "new_size": 128,
+                   "img_res": 512, "sample_save": run_dir, "target_albedo": albedo,
+                   "target_normal": normal}, f)
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(["reconstruct", cfg_path, "--random-weights", "--dump-every", "2"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    totals, by_shape = read_counts()
+    want = recon_launches()
+    fwd = recon_launches(forward_only=True)
+    for kid in want:  # 8 steps and 4 dump forwards
+        want[kid] = {k: 8 * want[kid].get(k, 0) + 4 * fwd[kid].get(k, 0)
+                     for k in set(want[kid]) | set(fwd[kid])}
+    check_step_counts(failures, "reconstruct CLI", by_shape, 1, want)
+    names = sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else []
+    hist = os.path.join(run_dir, "loss_history.npz")
+    finite = False
+    if os.path.exists(hist):
+        with np.load(hist) as h:
+            finite = (h["curves"].shape == (2, 4, 5) and bool(np.isfinite(h["curves"]).all())
+                      and bool(np.isfinite(h["final"]).all()))
+            final = h["final"].tolist()
+    expected = {"shaded_target.png", "metrics.jsonl", "loss_history.npz",
+                "epoch0_step2.png", "epoch0_step2.binvox", "epoch1_step2.png",
+                "epoch1_step2.binvox"}
+    ends = [n for n in names if n.startswith("epoch") and "_p" in n]
+    out["cli"] = {"rc": rc, "s": cli_s, "files": len(names), "epoch_dumps": ends,
+                  "final_losses": final if finite else None, "launches": totals}
+    log("recon_cli " + json.dumps(out["cli"]))
+    if rc != 0 or not expected <= set(names) or len(ends) != 4 or not finite:
+        failures.append(f"reconstruct CLI: rc {rc}, files {names}, finite losses {finite}")
+
+    cfg = ReconConfig(compute_dtype="bfloat16", light_elevation=RECON_LIGHT_ELEVATION)
+    step = make_recon_step(model, cfg)
+    holder = [initial_latents(cfg, device="cuda")]
+
+    def one_step():
+        holder[0], _ = step(holder[0], target)
+
+    out["profile"] = profile_run(torch, one_step, top=25)
+    return out, per_step
+
+
 def profile_run(torch, fn, top: int = 12):
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
     and the device's busy share of its wall time."""
@@ -799,7 +1186,8 @@ class plain_kernels:
     def __enter__(self):
         from rendernet_tpu_torch.ops import cuda_conv3d, cuda_resample, cuda_winograd
 
-        swaps = [(cuda_resample, "apply_interp_pass", cuda_resample.interp_pass_plain),
+        swaps = [(cuda_resample, "interp_pass_fwd", cuda_resample.interp_pass_plain),
+                 (cuda_resample, "interp_pass_bwd", cuda_resample.interp_pass_bwd_plain),
                  (cuda_conv3d, "nc_conv3d_forward", cuda_conv3d.nc_conv3d_plain),
                  (cuda_conv3d, "nc_conv3d_wgrad", cuda_conv3d.nc_conv3d_wgrad_plain),
                  (cuda_winograd, "wino_conv2d_forward", cuda_winograd.wino_conv2d_plain),
@@ -853,6 +1241,11 @@ def main() -> int:
     t0 = time.perf_counter()
     main_out["training"], per_step = run_training(torch, failures)
     log(f"phase 4 (training) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        main_out["recon"], recon_per_step = run_recon(torch, failures, tmp)
+    per_step.update(recon_per_step)
+    log(f"phase 5 (inverse rendering) took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for (kid, label, dname), r in rows.items():

@@ -6,6 +6,7 @@ import sys
 
 COMMANDS = {
     "render": "rendernet_tpu_torch.cli.demo",
+    "reconstruct": "rendernet_tpu_torch.cli.reconstruct",
 }
 
 

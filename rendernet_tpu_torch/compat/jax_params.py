@@ -8,7 +8,9 @@ conv-transpose kernels as spatial + (out, in), and saves them as one
 ``encoder.e_conv1.e_conv1.weight`` in OIHW / OIDHW layout (conv-transpose:
 (in, out) + spatial, PyTorch's ConvTranspose layout). Both kernel layouts
 map by the same permutation: the last two axes move to the front,
-reversed. Loading is strict: a missing, unexpected or misshapen key raises.
+reversed; for a fully connected weight (JAX (in, out), the port (out, in),
+PyTorch's Linear layout) that permutation is the transpose. Loading is
+strict: a missing, unexpected or misshapen key raises.
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ def load_jax_params(net: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
     with torch.no_grad():
         for name, path in given.items():
             arr = torch.from_numpy(np.array(flat[path], np.float32))
-            if arr.dim() >= 3:
+            if arr.dim() >= 2:
                 arr = to_torch_layout(arr)
             if tuple(arr.shape) != tuple(state[name].shape):
                 raise ValueError(f"{path}: shape {tuple(np.shape(flat[path]))} does not "
@@ -69,7 +71,7 @@ def jax_params_from_module(net: nn.Module) -> Dict[str, np.ndarray]:
     """The JAX flat param dict (TF paths, JAX layouts) of ``net``."""
     return {
         torch_name_to_tf(name):
-            (to_jax_layout(t) if t.dim() >= 3 else t).detach().cpu().contiguous().numpy()
+            (to_jax_layout(t) if t.dim() >= 2 else t).detach().cpu().contiguous().numpy()
         for name, t in net.state_dict().items()
     }
 

@@ -14,7 +14,7 @@ from typing import Sequence
 
 import torch
 
-__all__ = ["xavier_uniform", "constant", "zeros"]
+__all__ = ["xavier_uniform", "normal", "constant", "zeros"]
 
 
 def _fans(shape: Sequence[int]) -> tuple[float, float]:
@@ -29,6 +29,12 @@ def xavier_uniform(shape: Sequence[int], generator: torch.Generator) -> torch.Te
     fan_in, fan_out = _fans(shape)
     limit = math.sqrt(6.0 / (fan_in + fan_out))
     return (torch.rand(tuple(shape), generator=generator) * 2.0 - 1.0) * limit
+
+
+def normal(shape: Sequence[int], generator: torch.Generator, stddev: float = 0.02) -> torch.Tensor:
+    """``stddev`` times a standard normal (the layer library's default for
+    fully connected weights)."""
+    return torch.randn(tuple(shape), generator=generator) * stddev
 
 
 def constant(shape: Sequence[int], value: float) -> torch.Tensor:

@@ -15,6 +15,11 @@ The training half: :func:`dropout` in train mode, the
 save-pre-activation-only residual unit (:func:`act_conv`, the JAX
 ``_act_conv`` custom VJP, :553-586) and :func:`res_block_stack` with
 ``remat`` as ``torch.utils.checkpoint``.
+
+For the inverse renderer's pretrained-style networks: :class:`FullyConnected`
+and the ``relu`` res block (no alpha), whose ReLU is ``torch.maximum``: it
+splits the gradient 0.5/0.5 at an exact zero as ``jnp.maximum`` does
+(``torch.relu`` passes none).
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ __all__ = [
     "Conv",
     "ConvTranspose",
     "ConvUnit",
+    "FullyConnected",
     "ResBlock",
     "ProjectionUnit",
     "act_conv",
@@ -239,6 +245,20 @@ class ConvTranspose(nn.Module):
         return conv_transpose_op(x, w, self.stride, len(self.stride)) + self.bias.to(x.dtype)
 
 
+class FullyConnected(nn.Module):
+    """``x @ W + b`` (``layers.py:527``); ``weight`` is (out, in), PyTorch's
+    Linear layout (JAX keeps (in, out): the carry-over transposes it),
+    initialised normal(0.02), biases 0.001."""
+
+    def __init__(self, in_size: int, out_size: int, generator: torch.Generator):
+        super().__init__()
+        self.weight = nn.Parameter(init.normal((in_size, out_size), generator).t().contiguous())
+        self.bias = nn.Parameter(init.constant((out_size,), 0.001))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.weight.to(x.dtype).t()) + self.bias.to(x.dtype)
+
+
 class ConvUnit(nn.Module):
     """A scope holding one conv (named like the scope) and its PReLU alpha:
     ``e_convN/e_convN/{weights,biases}`` and ``e_convN/alpha``."""
@@ -255,19 +275,30 @@ class ConvUnit(nn.Module):
 
 class ResBlock(nn.Module):
     """conv -> PReLU -> conv, plus the identity skip (``layers.py:608-635``).
-    With ``preact`` the PReLU and the second conv run as :func:`act_conv`."""
+    With ``preact`` the PReLU and the second conv run as :func:`act_conv`.
+    ``activation="relu"`` is the pretrained-weights variant: a plain ReLU and
+    no alpha parameter."""
 
-    def __init__(self, ch: int, ndim: int, generator: torch.Generator):
+    def __init__(self, ch: int, ndim: int, generator: torch.Generator,
+                 activation: str = "prelu"):
         super().__init__()
+        if activation not in ("prelu", "relu"):
+            raise ValueError(f"activation must be 'prelu' or 'relu', got {activation!r}")
         self.ndim = ndim
+        self.activation = activation
         k, s = (3,) * ndim, (1,) * ndim
         self.con1_3X3 = Conv(ch, ch, k, s, generator)
-        self.alpha = nn.Parameter(init.zeros((ch,)))
+        if activation == "prelu":
+            self.alpha = nn.Parameter(init.zeros((ch,)))
         self.conv2_3x3 = Conv(ch, ch, k, s, generator)
 
     def forward(self, x: torch.Tensor, preact: bool = False) -> torch.Tensor:
         net = self.con1_3X3(x)
-        if preact:
+        if self.activation == "relu":
+            if preact:
+                raise ValueError("preact applies to PReLU blocks only")
+            net = self.conv2_3x3(torch.maximum(net, net.new_zeros(())))
+        elif preact:
             c2 = self.conv2_3x3
             net = act_conv(net, self.alpha.to(net.dtype), to_jax_layout(c2.weight).to(net.dtype),
                            c2.bias.to(net.dtype), self.ndim)

@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "build_all", "load", "check", "dtype_code", "stream_ptr", 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("resample", "conv3d", "conv3d_wgrad", "winograd", "winograd_wgrad")
+SOURCES = ("resample", "resample_bwd", "conv3d", "conv3d_wgrad", "winograd", "winograd_wgrad")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -1,5 +1,6 @@
 """Multipass affine voxel resampling: the pass plan in PyTorch, each pass
-on the K1 CUDA kernel (``csrc/resample.cu``).
+on the K1 CUDA kernel (``csrc/resample.cu``) and its adjoint on the K4
+kernel (``csrc/resample_bwd.cu``).
 
 Counterpart of ``rendernet_tpu/ops/pallas_resample.py``. The backward warp
 ``x <- M q`` of the pose is split into elementary passes, each updating one
@@ -15,15 +16,21 @@ along one array axis whose sample position varies linearly over the grid:
   * adjacent same-axis passes merge: 8 interpolation passes per warp
     (axes 0, 2, 0 | 0, 1, 0, 1, 2).
 
-The plan is tensor code around the kernel and runs in float32 on the
+The plan is tensor code around the kernels and runs in float32 on the
 device of the pose (matmuls stay out of TF32, which PyTorch leaves off for
-matmuls by default). The forward only: the shader training step
-differentiates neither voxels nor pose, and the adjoint kernel
-(pallas_resample._bwd_kernel, K4) comes with texture training.
+matmuls by default). Every pass is differentiable (:func:`apply_interp_pass`,
+the custom VJP of ``pallas_resample.py:432-492``): the backward runs K4,
+which returns the voxel cotangent over a static band of ``taps`` output
+lanes per input lane and the per-lane position cotangent, and a contraction
+of the latter against the lane and row coordinates gives the gradient of
+the pass coefficients, which flows on through the plan (tan/sin of the
+residual angles, the solve for the scale offsets, the flip and crop folds)
+into the pose. The quarter-turn counts carry no gradient, as in JAX.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from collections import Counter
 from typing import List, Sequence, Tuple
@@ -38,17 +45,42 @@ __all__ = [
     "build_pass_plan",
     "compose_plan_matrix",
     "apply_interp_pass",
+    "interp_pass_fwd",
     "interp_pass_plain",
+    "interp_pass_bwd",
+    "interp_pass_bwd_plain",
+    "pass_param_grad",
     "rotate_resample_multipass",
     "rotate_resample_to_camera_multipass",
     "rotate_resample_camera_patch_multipass",
 ]
 
-# Launches of the K1 kernel since the last reset, in all and by (BC, R, L,
-# out_lanes), so that a window-emitting pass is told from a full one (the
-# wrapper adds one per launch; the CPU path launches nothing).
+# Launches since the last reset, in all and by shape: K1 (``launches``, by
+# (BC, R, L, out_lanes), so that a window-emitting pass is told from a full
+# one) and K4 (``bwd_launches``, by (BC, R, L, out_lanes, taps)). Each
+# wrapper adds one per launch; the CPU path launches nothing.
 launches = 0
 launches_by_shape: Counter = Counter()
+bwd_launches = 0
+bwd_launches_by_shape: Counter = Counter()
+
+# Static adjoint band (``pallas_resample.py:78-104``): input lane i is
+# touched by the output lanes l with |alpha*l + o - i| < 1, an open interval
+# of length 2/|alpha|, so ceil(2/|alpha|) + 1 taps cover it. Shear passes
+# have self-slope 1 (3 taps); the scale passes have self-slope 1/s, and 6
+# taps cover s <= 2.
+_TAPS_SHEAR = 3
+_TAPS_SCALE = 6
+
+
+def _taps_for_scale(max_scale: float | None) -> int:
+    """Tap count of the scale-carrying passes for poses with scale <=
+    ``max_scale`` (None: the default bound, s <= 2)."""
+    if max_scale is None:
+        return _TAPS_SCALE
+    if max_scale <= 0:
+        raise ValueError(f"max_scale must be positive, got {max_scale}")
+    return max(_TAPS_SHEAR, int(math.ceil(2.0 * max_scale - 1e-6)) + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -67,7 +99,7 @@ def _shear_steps(plane: Tuple[int, int], theta: torch.Tensor, center: float) -> 
         coeffs = [zero, zero, zero, -slope * center]
         coeffs[axis] = one
         coeffs[other] = slope
-        return ("interp", axis, coeffs)
+        return ("interp", axis, coeffs, _TAPS_SHEAR)
 
     return [shear(u, v, t2), shear(v, u, sn), shear(u, v, t2)]
 
@@ -88,10 +120,17 @@ _QTURN_LIN = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _qturn_table(plane, device: torch.device) -> torch.Tensor:
+    """[4, 3, 3] turn table on ``device``, copied once: a copy from the host
+    waits for the device's queue."""
+    return torch.tensor(_QTURN_LIN[plane], dtype=torch.float32, device=device)
+
+
 def _qturn_matrix(plane, k: torch.Tensor, new_size: int) -> torch.Tensor:
     """Homogeneous [B,4,4] of the exact lattice quarter turn k*90 degrees,
     recentred at (new_size-1)/2."""
-    lin = torch.tensor(_QTURN_LIN[plane], dtype=torch.float32, device=k.device)[k]
+    lin = _qturn_table(plane, k.device)[k]
     c = torch.full((3,), (new_size - 1) / 2.0, dtype=torch.float32, device=k.device)
     trans = c[None] - (lin * c[None, None, :]).sum(-1)
     m = torch.eye(4, dtype=torch.float32, device=k.device).repeat(k.shape[0], 1, 1)
@@ -112,16 +151,17 @@ def _split_quarter(theta: torch.Tensor):
 def build_pass_plan(view_params: torch.Tensor, size: int = 64, new_size: int = 128,
                     max_scale: float | None = None) -> List:
     """Step list of the backward warp: ``("qturn", plane, k [B])`` exact
-    lattice turns and ``("interp", axis, coeffs [B, 4])`` 1-D passes. The
-    source is assumed embedded centred in the ``new_size`` cube; the
-    composition of all steps equals ``[grid_to_grid_matrix | +pad]``.
+    lattice turns and ``("interp", axis, coeffs [B, 4], taps)`` 1-D passes,
+    ``taps`` being the pass's static adjoint band (a merged pass takes the
+    wider of its parts'). The source is assumed embedded centred in the
+    ``new_size`` cube; the composition of all steps equals
+    ``[grid_to_grid_matrix | +pad]``.
 
     ``max_scale``: the static bound on ``view_params[:, 2]`` that narrows the
-    adjoint band of the scale passes (``pallas_resample._taps_for_scale``);
-    it matters to the adjoint kernel (K4), which this package does not run
-    yet. As in JAX, a pose whose scale exceeds it resamples to NaN rather
-    than to a quietly wrong gradient; the JAX package also raises on
-    concrete poses, which here would stall the device for a host read."""
+    adjoint band of the scale passes (:func:`_taps_for_scale`). As in JAX, a
+    pose whose scale exceeds it resamples to NaN rather than to a quietly
+    wrong gradient; the JAX package also raises on concrete poses, which
+    here would stall the device for a host read."""
     view_params = torch.as_tensor(view_params, dtype=torch.float32)
     bsz = view_params.shape[0]
     azimuth = view_params[:, 0] - math.pi * 0.5
@@ -130,9 +170,8 @@ def build_pass_plan(view_params: torch.Tensor, size: int = 64, new_size: int = 1
         scale = view_params[:, 2]
     else:
         scale = torch.ones(bsz, dtype=torch.float32, device=view_params.device)
+    taps_scale = _taps_for_scale(max_scale)
     if max_scale is not None:
-        if max_scale <= 0:
-            raise ValueError(f"max_scale must be positive, got {max_scale}")
         limit = float(max_scale) * (1.0 + 1e-6)
         scale = torch.where(scale <= limit, scale, torch.full_like(scale, float("nan")))
     center = new_size / 2.0
@@ -149,18 +188,21 @@ def build_pass_plan(view_params: torch.Tensor, size: int = 64, new_size: int = 1
     target = grid_to_grid_matrix(view_params, size=size, new_size=new_size)
     t_target = target[:, :, 3] + float(pad)
     m_pre = compose_plan_matrix(steps, new_size)
-    tau = torch.linalg.solve(
+    # solve_ex: no singularity check, which would wait for the device (the
+    # linear part is a rotation); its gradient flows into the pose
+    tau = torch.linalg.solve_ex(
         m_pre[:, :3, :3], (t_target - m_pre[:, :3, 3])[..., None]
-    )[..., 0]
+    )[0][..., 0]
     inv_s = 1.0 / scale
     zero = torch.zeros_like(inv_s)
     for axis in range(3):
         coeffs = [zero, zero, zero, tau[:, axis]]
         coeffs[axis] = inv_s
-        steps.append(("interp", axis, coeffs))
+        steps.append(("interp", axis, coeffs, taps_scale))
 
     # Merge adjacent same-axis passes: E1 (self-coef a1) then E2 compose into
-    # one pass with row = a1 * row2 + (row1 with its self coef zeroed).
+    # one pass with row = a1 * row2 + (row1 with its self coef zeroed); its
+    # self-slope a1 * a2 takes the wider band of the two.
     merged: List = []
     for step in steps:
         if (step[0] == "interp" and merged and merged[-1][0] == "interp"
@@ -170,11 +212,12 @@ def build_pass_plan(view_params: torch.Tensor, size: int = 64, new_size: int = 1
             a1 = prev[axis]
             row1_rest = list(prev)
             row1_rest[axis] = torch.zeros_like(a1)
-            merged[-1] = ("interp", axis, [a1 * c2 + c1r for c2, c1r in zip(step[2], row1_rest)])
+            merged[-1] = ("interp", axis, [a1 * c2 + c1r for c2, c1r in zip(step[2], row1_rest)],
+                          max(merged[-1][3], step[3]))
         else:
             merged.append(step)
     return [
-        ("interp", s[1], torch.stack(s[2], -1)) if s[0] == "interp" else s
+        ("interp", s[1], torch.stack(s[2], -1), s[3]) if s[0] == "interp" else s
         for s in merged
     ]
 
@@ -225,29 +268,26 @@ def interp_pass_plain(
     return ((1.0 - w) * g0 * m0 + w * g1 * m1).to(vol.dtype)
 
 
-def apply_interp_pass(
+def _check_pass(what: str, vol: torch.Tensor, params: torch.Tensor, db: int, ol: int) -> None:
+    bc, r, lanes = vol.shape
+    if vol.device.type != "cuda" or params.device != vol.device:
+        raise ValueError(f"{what}: vol and params must be on one CUDA device")
+    if params.shape != (bc, 4) or not 0 < ol <= lanes or r % db or bc > 65535:
+        raise ValueError(f"{what}: bad shapes vol {tuple(vol.shape)}, "
+                         f"params {tuple(params.shape)}, db {db}, out_lanes {ol}")
+
+
+def interp_pass_fwd(
     vol: torch.Tensor, params: torch.Tensor, db: int, out_lanes: int | None = None
 ) -> torch.Tensor:
-    """One 1-D interpolation pass along the minor axis.
-
-    ``vol`` ``[BC, R, L]`` with rows encoding the two other coordinates as
-    ``row = d_a * db + d_b``; ``params`` ``[BC, 4]`` = (alpha, c_a, c_b,
-    delta): lane l of row (d_a, d_b) samples at
-    ``alpha*l + c_a*d_a + c_b*d_b + delta``; out-of-range positions read
-    zero. ``out_lanes`` emits only lanes ``[0, out_lanes)``.
-
-    A CUDA tensor runs the K1 kernel; a CPU tensor runs
-    :func:`interp_pass_plain`.
-    """
+    """The K1 wrapper: one interpolation pass (see :func:`apply_interp_pass`)
+    with no gradient. A CUDA tensor runs the K1 kernel; a CPU tensor runs
+    :func:`interp_pass_plain`."""
     if vol.device.type == "cpu":
         return interp_pass_plain(vol, params, db, out_lanes)
     bc, r, lanes = vol.shape
     ol = lanes if out_lanes is None else int(out_lanes)
-    if vol.device.type != "cuda" or params.device != vol.device:
-        raise ValueError("apply_interp_pass: vol and params must be on one CUDA device")
-    if params.shape != (bc, 4) or not 0 < ol <= lanes or r % db or bc > 65535:
-        raise ValueError(f"apply_interp_pass: bad shapes vol {tuple(vol.shape)}, "
-                         f"params {tuple(params.shape)}, db {db}, out_lanes {ol}")
+    _check_pass("interp_pass_fwd", vol, params, db, ol)
     vol = vol.contiguous()
     params = params.to(torch.float32).contiguous()
     out = torch.empty((bc, r, ol), dtype=vol.dtype, device=vol.device)
@@ -261,6 +301,148 @@ def apply_interp_pass(
     launches += 1
     launches_by_shape[(bc, r, lanes, ol)] += 1
     return out
+
+
+# ---------------------------------------------------------------------------
+# the adjoint of one pass: K4 and its plain version
+# ---------------------------------------------------------------------------
+def interp_pass_bwd_plain(
+    vol: torch.Tensor, params: torch.Tensor, g: torch.Tensor, db: int, taps: int,
+    out_lanes: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K4 (``pallas_resample._bwd_kernel``, :347):
+    ``(gv [BC, R, L]`` in the volume's dtype, ``gp [BC, R, out_lanes]``
+    float32). An explicit enumeration of each input lane's band of ``taps``
+    output lanes, in the kernel's order and rounding, not autograd through
+    :func:`interp_pass_plain`: a band too narrow for the pose drops taps
+    here exactly as it does in JAX."""
+    bc, r, lanes = vol.shape
+    ol = lanes if out_lanes is None else out_lanes
+    dev = vol.device
+    rows = torch.arange(r, device=dev)
+    d_a = (rows // db).to(torch.float32)[None, :, None]
+    d_b = (rows % db).to(torch.float32)[None, :, None]
+    p = params.to(torch.float32)
+    al, ca, cb, de = (p[:, i, None, None] for i in range(4))
+    o_row = ca * d_a + cb * d_b + de  # [BC, R, 1]
+    v = vol.to(torch.float32)
+    gf = g.to(torch.float32)
+    if ol < lanes:  # zeros are exactly the out-of-window contribution
+        gf = F.pad(gf, (0, lanes - ol))
+    ll = torch.arange(lanes, device=dev, dtype=torch.float32)[None, None, :]
+
+    # position cotangent: dout/dpos = v1*m1 - v0*m0, per output lane
+    i0 = torch.clamp(torch.floor(al * ll[..., :ol] + o_row), -2, lanes).to(torch.int64)
+    m0 = ((i0 >= 0) & (i0 <= lanes - 1)).to(torch.float32)
+    m1 = ((i0 + 1 >= 0) & (i0 + 1 <= lanes - 1)).to(torch.float32)
+    v0 = torch.gather(v, 2, torch.clamp(i0, 0, lanes - 1))
+    v1 = torch.gather(v, 2, torch.clamp(i0 + 1, 0, lanes - 1))
+    gp = gf[..., :ol] * (v1 * m1 - v0 * m0)
+
+    # voxel cotangent: gv[i] = sum over the band of g[l] * (1 - |pos_l - i|);
+    # l0 clamped to [-taps-1, ol] as in the kernel, which changes no tap's
+    # validity and keeps the int conversion in range
+    inv_al = 1.0 / al
+    b1 = (ll - 1.0 - o_row) * inv_al
+    b2 = (ll + 1.0 - o_row) * inv_al
+    l0 = torch.clamp(torch.ceil(torch.minimum(b1, b2)), -taps - 1, ol).to(torch.int64)
+    acc = torch.zeros((bc, r, lanes), dtype=torch.float32, device=dev)
+    for t in range(taps):
+        lt = l0 + t
+        wgt = 1.0 - torch.abs(al * lt.to(torch.float32) + o_row - ll)
+        valid = (wgt > 0.0) & (lt >= 0) & (lt <= ol - 1)
+        gl = torch.gather(gf, 2, torch.clamp(lt, 0, lanes - 1))
+        acc = acc + torch.where(valid, wgt * gl, 0.0)
+    return acc.to(vol.dtype), gp
+
+
+def interp_pass_bwd(
+    vol: torch.Tensor, params: torch.Tensor, g: torch.Tensor, db: int, taps: int,
+    out_lanes: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K4 wrapper: the voxel cotangent ``gv`` (volume's dtype) and the
+    position cotangent ``gp`` (float32) of one pass, given its output
+    cotangent ``g`` ``[BC, R, out_lanes]``. A CUDA tensor runs the K4
+    kernel; a CPU tensor runs :func:`interp_pass_bwd_plain`."""
+    if vol.device.type == "cpu":
+        return interp_pass_bwd_plain(vol, params, g, db, taps, out_lanes)
+    bc, r, lanes = vol.shape
+    ol = lanes if out_lanes is None else int(out_lanes)
+    _check_pass("interp_pass_bwd", vol, params, db, ol)
+    if tuple(g.shape) != (bc, r, ol) or g.device != vol.device or lanes > 6144 or taps < 1:
+        raise ValueError(f"interp_pass_bwd: bad cotangent {tuple(g.shape)} for vol "
+                         f"{tuple(vol.shape)}, out_lanes {ol}, taps {taps} (lanes <= 6144)")
+    vol = _native.aligned(vol)
+    g = _native.aligned(g.to(vol.dtype))
+    params = params.to(torch.float32).contiguous()
+    gv = torch.empty_like(vol)
+    gp = torch.empty((bc, r, ol), dtype=torch.float32, device=vol.device)
+    lib = _native.load("resample_bwd")
+    lib.rn_resample_pass_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    rc = lib.rn_resample_pass_bwd(
+        vol.data_ptr(), g.data_ptr(), params.data_ptr(), gv.data_ptr(), gp.data_ptr(),
+        _native.dtype_code(vol.dtype), bc, r, lanes, ol, db, taps, _native.stream_ptr(vol))
+    _native.check(lib, rc, "K4 resample pass adjoint")
+    global bwd_launches
+    bwd_launches += 1
+    bwd_launches_by_shape[(bc, r, lanes, ol, taps)] += 1
+    return gv, gp
+
+
+def pass_param_grad(gp: torch.Tensor, db: int) -> torch.Tensor:
+    """``[BC, 4]`` gradient of (alpha, c_a, c_b, delta) from the position
+    cotangent ``gp`` ``[BC, R, out_lanes]``: its sums against the lane
+    index, the two row coordinates and one (``pallas_resample.py:477-489``),
+    as one contraction over lanes and one over rows."""
+    bc, r, ol = gp.shape
+    dev = gp.device
+    lane_basis = torch.stack([torch.arange(ol, device=dev, dtype=torch.float32),
+                              torch.ones(ol, device=dev)], -1)  # [OL, 2]
+    per_row = torch.matmul(gp, lane_basis)  # [BC, R, 2]: sum_l gp*l, sum_l gp
+    rows = torch.arange(r, device=dev)
+    row_basis = torch.stack([(rows // db).to(torch.float32), (rows % db).to(torch.float32),
+                             torch.ones(r, device=dev)], -1)  # [R, 3]
+    by_row = torch.matmul(per_row[..., 1], row_basis)  # [BC, 3]
+    return torch.cat([per_row[..., 0].sum(1, keepdim=True), by_row], -1)
+
+
+class _InterpPass(torch.autograd.Function):
+    """One pass with its custom VJP (``_pass_fwd`` / ``_pass_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, vol, params, db, out_lanes, taps):
+        ctx.save_for_backward(vol, params)
+        ctx.db, ctx.out_lanes, ctx.taps = db, out_lanes, taps
+        return interp_pass_fwd(vol, params, db, out_lanes)
+
+    @staticmethod
+    def backward(ctx, g):
+        vol, params = ctx.saved_tensors
+        gv, gp = interp_pass_bwd(vol, params, g, ctx.db, ctx.taps, ctx.out_lanes)
+        gparams = pass_param_grad(gp, ctx.db).to(params.dtype) if ctx.needs_input_grad[1] \
+            else None
+        return (gv if ctx.needs_input_grad[0] else None), gparams, None, None, None
+
+
+def apply_interp_pass(
+    vol: torch.Tensor, params: torch.Tensor, db: int, out_lanes: int | None = None,
+    *, taps: int = _TAPS_SCALE,
+) -> torch.Tensor:
+    """One differentiable 1-D interpolation pass along the minor axis.
+
+    ``vol`` ``[BC, R, L]`` with rows encoding the two other coordinates as
+    ``row = d_a * db + d_b``; ``params`` ``[BC, 4]`` = (alpha, c_a, c_b,
+    delta): lane l of row (d_a, d_b) samples at
+    ``alpha*l + c_a*d_a + c_b*d_b + delta``; out-of-range positions read
+    zero. ``out_lanes`` emits only lanes ``[0, out_lanes)``. ``taps``: the
+    static adjoint band, at least ``2/|alpha| + 1``.
+
+    Forward on K1 (:func:`interp_pass_fwd`), backward on K4
+    (:func:`interp_pass_bwd`) plus :func:`pass_param_grad`; CPU tensors take
+    the plain versions.
+    """
+    return _InterpPass.apply(vol, params, db, out_lanes, taps)
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +530,7 @@ def rotate_resample_multipass(
                 lg = axes[arr_ax]
                 flipped[lg] = flipped[lg] ^ f if lg in flipped else f
             continue
-        axis, coeffs = step[1], per_c(step[2])
+        axis, coeffs, taps = step[1], per_c(step[2]), step[3]
         pos = axes.index(axis)
         if pos != 2:
             vol = torch.transpose(vol, pos + 1, 3)
@@ -386,7 +568,8 @@ def rotate_resample_multipass(
             cb = torch.where(f, -cb, cb)
             delta = torch.where(f, float(lanes - 1) - delta, delta)
         params = torch.stack([alpha, ca, cb, delta], dim=-1)
-        vol = apply_interp_pass(vol.reshape(b * c, da * db, lanes), params, db, out_lanes)
+        vol = apply_interp_pass(vol.reshape(b * c, da * db, lanes), params, db, out_lanes,
+                                taps=taps)
         vol = vol.reshape(b * c, da, db, -1)
 
     if flipped:

@@ -67,6 +67,53 @@ def test_winograd_kernel(cuda, dtype):
     _close(cuda_winograd.wino_conv2d(x, w), cuda_winograd.wino_conv2d_plain(x, w), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["ragged", "recon"])
+def test_resample_pass_adjoint_kernel(cuda, dtype, case):
+    """K4 against its plain version: a ragged pass ([3,1000,100], a 37-lane
+    window, 4 taps, negative alpha: a deferred flip) and a recon-shaped one
+    ([5,16384,128], 6 taps); gv in the volume's dtype, gp in fp32."""
+    bc, r, lanes, ol, db, taps, sign = ((3, 1000, 100, 37, 40, 4, -1) if case == "ragged"
+                                        else (5, 16384, 128, 128, 128, 6, 1))
+    g = torch.Generator(device=cuda).manual_seed(6)
+    vol = torch.randn(bc, r, lanes, generator=g, device=cuda).to(dtype)
+    u = torch.rand(bc, 4, generator=g, device=cuda) * 2 - 1
+    alpha = sign * (1 + 0.4 * u[:, 0])
+    delta = 20 * u[:, 3] if sign > 0 else lanes - 1 - 20 * u[:, 3]
+    params = torch.stack([alpha, 0.4 * u[:, 1], 0.4 * u[:, 2], delta], -1)
+    cot = torch.randn(bc, r, ol, generator=g, device=cuda).to(dtype)
+    key = (bc, r, lanes, ol, taps)
+    before = cuda_resample.bwd_launches_by_shape[key]
+    gv, gp = cuda_resample.interp_pass_bwd(vol, params, cot, db, taps, ol)
+    assert cuda_resample.bwd_launches_by_shape[key] == before + 1
+    want_gv, want_gp = cuda_resample.interp_pass_bwd_plain(vol, params, cot, db, taps, ol)
+    _close(gv, want_gv, dtype)
+    _close(gp, want_gp, torch.float32)
+
+
+def test_multipass_gradients_match_plain(cuda, monkeypatch):
+    """Voxel and pose gradients of the multipass warp (K1 forward, K4
+    backward) against the same warp with both wrappers swapped for their
+    plain versions, fp32: 1e-4 of max|grad|."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    vox = torch.rand(2, 32, 32, 32, 2, generator=g, device=cuda)
+    pose = torch.tensor([[0.91731, 0.26117, 1.03291], [4.1927, 1.3371, 0.9213]], device=cuda)
+    cot = torch.randn(2, 64, 64, 64, 2, generator=g, device=cuda)
+
+    def grads():
+        v, p = vox.clone().requires_grad_(), pose.clone().requires_grad_()
+        out = cuda_resample.rotate_resample_multipass(v, p, new_size=64)
+        return torch.autograd.grad(out, (v, p), cot)
+
+    before = cuda_resample.bwd_launches
+    got = grads()
+    assert cuda_resample.bwd_launches == before + 8
+    monkeypatch.setattr(cuda_resample, "interp_pass_fwd", cuda_resample.interp_pass_plain)
+    monkeypatch.setattr(cuda_resample, "interp_pass_bwd", cuda_resample.interp_pass_bwd_plain)
+    for a, b in zip(got, grads()):
+        _close(a, b, torch.float32)
+
+
 def test_wrappers_raise_outside_the_envelope(cuda):
     x = torch.zeros(1, 4, 8, 8, 16, device=cuda)
     with pytest.raises(ValueError, match="envelope"):

@@ -34,7 +34,8 @@ def test_importing_every_module_pulls_in_no_jax():
                          capture_output=True, text=True, check=True, timeout=300)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
-    for mod in ("cli.demo", "cli.__main__", "compat.jax_params", "io.binvox",
+    for mod in ("cli.demo", "cli.__main__", "cli.reconstruct", "compat.jax_params",
+                "compat.tf_import", "io.binvox", "models.decoders", "recon", "recon.inverse",
                 "models.shader", "nn.init", "nn.layers", "ops._native", "ops.conv_grad", "ops.crops",
                 "ops.cuda_conv3d", "ops.cuda_resample", "ops.cuda_winograd", "ops.phong",
                 "ops.resample", "ops.transforms", "ops.winograd", "train.config",
@@ -49,7 +50,7 @@ def test_every_kernel_source_is_built():
 
     sources = sorted(n[:-3] for n in os.listdir(os.path.join(PKG, "csrc")) if n.endswith(".cu"))
     assert sources == sorted(_native.SOURCES)
-    assert {"conv3d_wgrad", "winograd_wgrad"} <= set(sources)
+    assert {"conv3d_wgrad", "winograd_wgrad", "resample_bwd"} <= set(sources)
 
 
 def test_no_file_names_jax_or_the_jax_package():

@@ -89,8 +89,8 @@ def test_whole_slice_matches_jax_multipass(tmp_path, monkeypatch):
             return fn(*a)
         return wrapped
 
-    monkeypatch.setattr(cuda_resample, "apply_interp_pass",
-                        counted("k1", cuda_resample.apply_interp_pass))
+    monkeypatch.setattr(cuda_resample, "interp_pass_fwd",
+                        counted("k1", cuda_resample.interp_pass_fwd))
     monkeypatch.setattr(cuda_conv3d, "nc_conv3d", counted("k2", cuda_conv3d.nc_conv3d))
     monkeypatch.setattr(cuda_winograd, "wino_conv2d", counted("k3", cuda_winograd.wino_conv2d))
     net = _carry(jparams, tmp_path, tcfg)

@@ -123,7 +123,7 @@ def test_shader_gradients_match_jax(monkeypatch, resample):
         monkeypatch.setattr(mod, name, lambda *a: calls.__setitem__(key, calls[key] + 1)
                             or fn(*a))
 
-    counted(cuda_resample, "apply_interp_pass", "k1")
+    counted(cuda_resample, "interp_pass_fwd", "k1")
     counted(cuda_conv3d, "nc_conv3d_forward", "k2")
     counted(cuda_conv3d, "nc_conv3d_wgrad", "k2w")
     counted(cuda_winograd, "wino_conv2d_forward", "k3")

@@ -92,13 +92,13 @@ def test_multipass_patch_resample_matches_jax(dtype):
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
     tol = 1e-5 if dtype == "float32" else 2.0 ** -6
     shapes = []
-    orig = cuda_resample.apply_interp_pass
+    orig = cuda_resample.interp_pass_fwd  # the K1 wrapper
 
     def rec(vol, params, db, out_lanes=None):
         shapes.append((tuple(vol.shape), out_lanes))
         return orig(vol, params, db, out_lanes)
 
-    cuda_resample.apply_interp_pass = rec
+    cuda_resample.interp_pass_fwd = rec
     try:
         for off in ((5, 11), (16, 0)):
             shapes.clear()
@@ -117,7 +117,7 @@ def test_multipass_patch_resample_matches_jax(dtype):
             crop = full[:, off[0]:off[0] + 16, off[1]:off[1] + 16].float().numpy()
             assert np.abs(got.float().numpy() - crop).max() <= tol * np.abs(crop).max()
     finally:
-        cuda_resample.apply_interp_pass = orig
+        cuda_resample.interp_pass_fwd = orig
 
 
 # ---------------------------------------------------------------------------
