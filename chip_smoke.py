@@ -8,7 +8,7 @@ Phases, all of them on every run:
      source, in parallel) and print the card's name and power limit;
   2. kernels: call each kernel's wrapper (K1 resample pass, K4 its adjoint,
      K2 conv3d, K2w its weight gradient, K3 Winograd, K6 the Winograd weight
-     gradient) at the shapes the serving path (batch 8), the training step
+     gradient, K5 the fused wide conv, K5w its weight gradient) at the shapes the serving path (batch 8), the training step
      (bf16 at batch 24; fp32 at batch 8, the gradient check's) and the
      inverse-rendering step (5 hypotheses; fp32 and bf16) give it, and at
      the data-gradient shapes, plus one ragged shape each; hold it against
@@ -43,8 +43,21 @@ Phases, all of them on every run:
      ``--random-weights --dump-every 2`` (2 epochs of 4 steps) on albedo
      and normal targets that the port renders at a known pose; (d) a
      profile of one bf16 step.
+  6. the fused wide-conv route (``layers.CUDA_CONV2D`` on, with
+     ``WINOGRAD_2D``, which it takes precedence over): (a) is part of phase
+     2: K5 (each epilogue: none, bias, bias+PReLU with and without the
+     pre-activation, bias+ReLU, bias+residual) and K5w at the serving
+     (batch 8, fp32 and bf16), training (bf16 at batch 24, patch 128 and
+     64; fp32 at batch 8) and recon shapes, the data-gradient calls and a
+     ragged shape; (b) one batch-8 forward per dtype, its logits against
+     the all-plain forward's (phase 3's limits), timed; (c) the gradient
+     check at patch 128 (phase 4's limits), bench.py's two configurations
+     (a warm-up and 8 timed steps each, peak memory), one step with
+     ``PRELU_SAVE_PRE`` off and one with remat; (d) the recon latent
+     gradients with phase 5's limits and controls, then 5 timed
+     ``make_recon_step``s per dtype; (e) a profiled bf16 patch-128 step.
 The kernels' launch counters are zeroed just before each run of phases 3,
-4 and 5 and read just after; every run's counts are checked, shape by
+4, 5 and 6 and read just after; every run's counts are checked, shape by
 shape, against the counts its graph implies.
 
 Prints a ``{"kernels": [...]}`` line with one row per kernel, dtype and
@@ -53,7 +66,9 @@ dtype's serving run (the fp32 CLI's counts divided by its 9 forwards, after
 checking they are exact multiples); a training row's is per training step
 of the run named in the row (the bf16 patch-128 or patch-64 steps, the
 fp32 patch-128 gradient check, or the WGRAD steps for K6); a recon row's is
-per inverse-rendering step of its dtype. The ragged shapes and the fp32
+per inverse-rendering step of its dtype; phase 6's K5 / K5w rows count the
+flag-on run named in the row the same way (per forward, step or recon step;
+the z-recompute row per step with PRELU_SAVE_PRE off). The ragged shapes and the fp32
 batch-24 checks are printed on ``ragged`` and ``check`` lines of their own.
 The last line is ``{"ok": true, "device": {...}}``. Exits non-zero,
 printing no result, when there is no CUDA card, when the port is missing,
@@ -122,13 +137,18 @@ REPO_SOURCES = {
            "rendernet_tpu/ops/pallas_winograd.py:147 (_kernel)"),
     "K6": ("rendernet_tpu_torch/csrc/winograd_wgrad.cu",
            "rendernet_tpu/ops/pallas_winograd.py:342 (_wgrad_kernel)"),
+    "K5": ("rendernet_tpu_torch/csrc/conv2d.cu",
+           "rendernet_tpu/ops/pallas_conv2d.py:252 (_fwd_kernel)"),
+    "K5w": ("rendernet_tpu_torch/csrc/conv2d_wgrad.cu",
+            "rendernet_tpu/ops/pallas_conv2d.py:304 (_wgrad_kernel)"),
 }
 
 # The launch counter of each kernel: (module, attribute prefix).
 COUNTERS = {"K1": ("cuda_resample", ""), "K4": ("cuda_resample", "bwd_"),
             "K2": ("cuda_conv3d", ""),
             "K2w": ("cuda_conv3d", "wgrad_"), "K3": ("cuda_winograd", ""),
-            "K6": ("cuda_winograd", "wgrad_")}
+            "K6": ("cuda_winograd", "wgrad_"), "K5": ("cuda_conv2d", ""),
+            "K5w": ("cuda_conv2d", "wgrad_")}
 
 
 def log(msg: str) -> None:
@@ -182,6 +202,64 @@ def bound(flops: float, nbytes: float, dtype: str):
 # kernel on the flipped, io-swapped weights of the conv, as the backward
 # does (a strided view the wrapper copies).
 F32, BF16, BOTH = ("float32",), ("bfloat16",), ("float32", "bfloat16")
+
+
+def _conv2d_cases():
+    """Phase 6's K5 / K5w cases, HWNC shapes: "conv2d" (input, co, epilogue)
+    keyed as the wrapper counts them; "conv2d_dgrad" (cotangent, channels of
+    the data gradient), whose key is a plain conv's (epilogue "none", shared
+    with the skip conv's forward at square shapes); "conv2d_wgrad" (input,
+    co). Runs: "serve2d16"/"serve2d32" per bf16 / fp32 batch-8 forward with
+    the flag on; "train2d"/"train2d64" per bf16 step at batch 24, patch 128
+    / 64; "grad2d32" per fp32 gradient-check step (batch 8); "nosave2d" per
+    step with PRELU_SAVE_PRE off; "recon2d32"/"recon2d16" per
+    inverse-rendering step."""
+    cases = []
+    for c, stack in ((1024, "res2"), (512, "res3")):
+        x8, x24, x24p = (64, 64, 8, c), (64, 64, 24, c), (32, 32, 24, c)
+        for dn, run in (("float32", "serve2d32"), ("bfloat16", "serve2d16")):
+            cases += [("K5", f"{stack} prelu {list(x8)}->{c}", "conv2d", (x8, c, "bias+prelu"),
+                       (dn,), run),
+                      ("K5", f"{stack} res {list(x8)}->{c}", "conv2d", (x8, c, "bias+res"),
+                       (dn,), run),
+                      ("K5", f"{stack}_skip {list(x8)}->{c}", "conv2d", (x8, c, "none"),
+                       (dn,), run)]
+        for xs, run, tag in ((x24, "train2d", "train"), (x24p, "train2d64", "train64")):
+            cases += [("K5", f"{tag} {stack} prelu+pre {list(xs)}->{c}", "conv2d",
+                       (xs, c, "bias+prelu+pre"), BF16, run),
+                      ("K5", f"{tag} {stack} res {list(xs)}->{c}", "conv2d", (xs, c, "bias+res"),
+                       BF16, run),
+                      ("K5", f"{tag} {stack}_skip fwd + dgrad {list(xs)}->{c}", "conv2d_dgrad",
+                       (xs, c), BF16, run),
+                      ("K5w", f"{tag} {stack} {list(xs)}->{c}", "conv2d_wgrad", (xs, c), BF16,
+                       run)]
+        cases += [("K5", f"train {stack} prelu+pre {list(x8)}->{c}", "conv2d",
+                   (x8, c, "bias+prelu+pre"), F32, "grad2d32"),
+                  ("K5", f"train {stack}_skip fwd + dgrad {list(x8)}->{c}", "conv2d_dgrad",
+                   (x8, c), F32, "grad2d32"),
+                  ("K5w", f"train {stack} {list(x8)}->{c}", "conv2d_wgrad", (x8, c), F32,
+                   "grad2d32"),
+                  ("K5", f"train {stack} z recompute {list(x24)}->{c}", "conv2d",
+                   (x24, c, "bias"), BF16, "nosave2d")]
+    for c, stack in ((512, "res2"), (256, "res3")):
+        xr = (64, 64, 5, c)
+        for dn, run in (("float32", "recon2d32"), ("bfloat16", "recon2d16")):
+            cases += [("K5", f"recon {stack} relu {list(xr)}->{c}", "conv2d",
+                       (xr, c, "bias+relu"), (dn,), run),
+                      ("K5", f"recon {stack} res {list(xr)}->{c}", "conv2d", (xr, c, "bias+res"),
+                       (dn,), run),
+                      ("K5", f"recon {stack}_skip fwd + dgrad {list(xr)}->{c}", "conv2d_dgrad",
+                       (xr, c), (dn,), run)]
+    xg = (7, 8, 3, 384)  # odd H, batch 3, 384 -> 256 channels: 168 pixels
+    cases += [("K5", f"ragged {list(xg)}->256 {epi}", "conv2d", (xg, 256, epi), BOTH, None)
+              for epi in ("none", "bias+prelu+pre", "bias+relu", "bias+res")]
+    cases += [("K5", "ragged dgrad [7,8,3,256]->384", "conv2d_dgrad", ((7, 8, 3, 256), 384),
+               BOTH, None),
+              ("K5w", f"ragged {list(xg)}->256", "conv2d_wgrad", (xg, 256), BOTH, None)]
+    return cases
+
+
+CONV2D_CASES = _conv2d_cases()
 X3 = {8: (8, 64, 64, 32, 32), 24: (24, 64, 64, 32, 32)}
 X3P = (24, 32, 32, 32, 32)  # res1 at patch 64
 XR = (5, 64, 64, 32, 16)  # the inverse renderer's e_conv3 and res1 input
@@ -271,6 +349,7 @@ CASES = [
     ("K6", "ragged [8,6,70,256]->128", "wino_wgrad", ((8, 6, 70, 256), 128, False), BOTH, None),
     ("K6", "ragged [8,6,70,256]->128 fp32 operands", "wino_wgrad",
      ((8, 6, 70, 256), 128, True), BF16, None),
+    *CONV2D_CASES,
 ]
 
 # Serving launches per batch-8 forward at each serving shape (phase 3).
@@ -287,6 +366,10 @@ def case_key(op, spec):
         return tuple(spec[:4])
     if op == "pass_bwd":
         return tuple(spec[:4]) + (spec[5],)
+    if op == "conv2d":
+        return tuple(spec[0]), spec[1], spec[2]
+    if op == "conv2d_dgrad":
+        return tuple(spec[0]), spec[1], "none"
     return tuple(spec[0]), spec[1]
 
 
@@ -352,6 +435,8 @@ def make_case(torch, op, spec, dtype, gen):
                 lambda: cuda_conv3d.nc_conv3d_wgrad_plain(x, gy),
                 lambda: grad.conv3d_weight(cf(x), (co, c, 3, 3, 3), cf(gy), padding=1),
                 2.0 * m * 27 * c * co, item * (x.numel() + gy.numel()) + 4 * 27 * c * co, True)
+    if op.startswith("conv2d"):
+        return conv2d_case(torch, op, spec, dtype, rnd, m, c)
     tiles = xs[0] * (xs[1] // 2) * (xs[2] // 2)
     if op == "wino":
         x = rnd(*xs)
@@ -378,6 +463,56 @@ def make_case(torch, op, spec, dtype, gen):
                 lambda: grad.conv2d_weight(cf(x), (co, c, 3, 3), cf(gy), padding=1),
                 2.0 * 16 * tiles * c * co, item * (x.numel() + gy.numel()) + 4 * 9 * c * co, True)
     raise ValueError(op)
+
+
+def conv2d_case(torch, op, spec, dtype, rnd, m, c):
+    """make_case for K5 and K5w on HWNC inputs [H, W, B, C]. The cuDNN
+    yardstick runs on channels-last (NHWC) copies, with no epilogue."""
+    from rendernet_tpu_torch.ops import cuda_conv2d
+
+    grad = torch.nn.grad
+    item = torch.tensor([], dtype=dtype).element_size()
+    xs, co = spec[0], spec[1]
+    h, wd, b = xs[:3]
+
+    def nchw(t):  # HWNC -> an NCHW view of a channels-last copy
+        return t.permute(2, 0, 1, 3).contiguous().permute(0, 3, 1, 2)
+
+    flops = 2.0 * m * 9 * c * co
+    if op == "conv2d_wgrad":
+        x, gz = rnd(*xs), rnd(h, wd, b, co)
+        xl, gl = nchw(x), nchw(gz)
+        return (lambda: cuda_conv2d.conv2d_wgrad(x, gz),
+                lambda: cuda_conv2d.conv2d_wgrad_plain(x, gz),
+                lambda: grad.conv2d_weight(xl, (co, c, 3, 3), gl, padding=1),
+                flops, item * (x.numel() + gz.numel()) + 4 * 9 * c * co, True)
+    if op == "conv2d_dgrad":  # gz [.., c] of a conv co -> c; the data gradient has co channels
+        gz = rnd(*xs)
+        w = rnd(3, 3, co, c, scale=1.0 / math.sqrt(9 * co))
+        wf = torch.flip(w, (0, 1)).transpose(2, 3)
+        gl, wl = nchw(gz), w.permute(3, 2, 0, 1).contiguous()
+        return (lambda: cuda_conv2d.conv2d_hwnc(gz, wf),
+                lambda: cuda_conv2d.conv2d_hwnc_plain(gz, wf),
+                lambda: grad.conv2d_input((b, co, h, wd), wl, gl, padding=1),
+                flops, item * (gz.numel() + w.numel() + m * co), False)
+    epi = spec[2]
+    x = rnd(*xs)
+    w = rnd(3, 3, c, co, scale=1.0 / math.sqrt(9 * c))
+    kw, extra = {}, 0
+    if "bias" in epi:
+        kw["bias"], extra = rnd(co, scale=0.1), extra + 4 * co
+    if "prelu" in epi:
+        kw.update(act="prelu", alpha=rnd(co).abs() * 0.3, emit_pre="pre" in epi)
+        extra += 4 * co + item * m * co * ("pre" in epi)
+    if "relu" in epi.split("+"):
+        kw["act"] = "relu"
+    if "res" in epi:
+        kw["res"], extra = rnd(h, wd, b, co), extra + item * m * co
+    xl, wl = nchw(x), w.permute(3, 2, 0, 1).contiguous()
+    return (lambda: cuda_conv2d.conv2d_hwnc(x, w, **kw),
+            lambda: cuda_conv2d.conv2d_hwnc_plain(x, w, **kw),
+            lambda: torch.nn.functional.conv2d(xl, wl, padding=1),
+            flops, item * (x.numel() + w.numel() + m * co) + extra, False)
 
 
 def run_kernel_checks(torch, failures):
@@ -423,10 +558,10 @@ def run_kernel_checks(torch, failures):
 # launch counters
 # ---------------------------------------------------------------------------
 def _counters():
-    from rendernet_tpu_torch.ops import cuda_conv3d, cuda_resample, cuda_winograd
+    from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_resample, cuda_winograd
 
     mods = {"cuda_resample": cuda_resample, "cuda_conv3d": cuda_conv3d,
-            "cuda_winograd": cuda_winograd}
+            "cuda_winograd": cuda_winograd, "cuda_conv2d": cuda_conv2d}
     return {kid: (mods[m], p) for kid, (m, p) in COUNTERS.items()}
 
 
@@ -461,7 +596,7 @@ def check_counts(failures, what, by_shape, n_fwd):
                                 f"expected {n} x {n_fwd} forwards")
         if seen:
             failures.append(f"{what}: {kid} launched at unexpected shapes {seen}")
-    for kid in ("K4", "K2w", "K6"):
+    for kid in ("K4", "K2w", "K6", "K5", "K5w"):
         if by_shape[kid]:
             failures.append(f"{what}: {kid} launched in a forward: {by_shape[kid]}")
     return per_fwd
@@ -584,7 +719,33 @@ def run_main_path(torch, failures, tmp):
 # ---------------------------------------------------------------------------
 # phase 4: the shader training step
 # ---------------------------------------------------------------------------
-def step_launches(b, patch, wgrad=False, remat=False):
+def k5_launches(b, s, widths, blocks, act="prelu", grad=True, wgrad=True, save_pre=True,
+                remat=False):
+    """K5 and K5w launches by key that the fused route implies for 2D res
+    stacks of ``blocks`` blocks at ``widths`` channels on [s, s, b, C] HWNC
+    inputs, each stack followed by its skip conv: per block a
+    prelu/relu op (emitting z for the backward with ``save_pre``) and a res
+    op, and the skip conv's plain K5 ("none"); with ``grad`` a data
+    gradient per op (also "none"), the z recompute per PReLU op without
+    ``save_pre``, the block ops again under ``remat``, and with ``wgrad``
+    K5w once per op."""
+    k5, k5w = {}, {}
+    for c, n in zip(widths, blocks):
+        x = (s, s, b, c)
+        first = "bias+relu" if act == "relu" else (
+            "bias+prelu+pre" if grad and save_pre else "bias+prelu")
+        reps = 2 if remat else 1
+        k5[(x, c, first)] = n * reps
+        k5[(x, c, "bias+res")] = n * reps
+        k5[(x, c, "none")] = 1 + ((2 * n + 1) if grad else 0)
+        if act == "prelu" and grad and not save_pre:
+            k5[(x, c, "bias")] = n
+        if grad and wgrad:
+            k5w[(x, c)] = 2 * n + 1
+    return k5, k5w
+
+
+def step_launches(b, patch, wgrad=False, remat=False, conv2d=False, save_pre=True):
     """Launches per training step, by kernel and shape key, that the graph
     implies at full width with preact_policy: the resample's 8 K1 passes on
     the 128^3 grid (at a patch, the last pass on each cropped axis, y then
@@ -593,7 +754,9 @@ def step_launches(b, patch, wgrad=False, remat=False):
     res1_skip convs run K2 forward and again for their data gradients (e_conv3's
     at 16 output channels) and K2w once each; the 32 Winograd convs (21 at
     res2, 11 at res3) run K3 forward and for their data gradients, and K6
-    once each with WGRAD; remat recomputes the 20 + 30 block convs."""
+    once each with WGRAD; remat recomputes the 20 + 30 block convs. With
+    ``conv2d`` (phase 6) those 32 convs run the fused route instead
+    (k5_launches) and K3 and K6 run none."""
     n = 128
     if patch == n:
         k1 = {(b, n * n, n, n): 8}
@@ -603,13 +766,18 @@ def step_launches(b, patch, wgrad=False, remat=False):
     x16, x32 = (b, s, s, 32, 16), (b, s, s, 32, 32)
     r2, r3 = (b, s, s, 1024), (b, s, s, 512)
     rc = 1 if remat else 0
+    if conv2d:
+        k5, k5w = k5_launches(b, s, (1024, 512), (10, 5), save_pre=save_pre, remat=remat)
+    else:
+        k5, k5w = {}, {}
     return {
         "K1": k1,
         "K4": {},  # the warp runs under no_grad: voxels and pose are data here
         "K2": {(x16, 32): 1, (x32, 32): 42 + 20 * rc, (x32, 16): 1},
         "K2w": {(x16, 32): 1, (x32, 32): 21},
-        "K3": {(r2, 1024): 42 + 20 * rc, (r3, 512): 22 + 10 * rc},
-        "K6": {(r2, 1024): 21, (r3, 512): 11} if wgrad else {},
+        "K3": {} if conv2d else {(r2, 1024): 42 + 20 * rc, (r3, 512): 22 + 10 * rc},
+        "K6": {(r2, 1024): 21, (r3, 512): 11} if wgrad and not conv2d else {},
+        "K5": k5, "K5w": k5w,
     }
 
 
@@ -652,10 +820,11 @@ def bench_batch(torch, np, b, seed=0):
 GRAD_OFFSETS = (32, 24)
 
 
-def gradient_check(torch, np, failures):
+def gradient_check(torch, np, failures, patches=(128, 64), conv2d=False, tag="grad"):
     """One step's gradients at batch 8, full width, with the kernels and
     with every kernel swapped for its plain version, in fp32 and bf16, at
-    patch 128 (the full grid) and at patch 64 (at GRAD_OFFSETS)."""
+    patch 128 (the full grid) and at patch 64 (at GRAD_OFFSETS); ``conv2d``
+    says the fused route is on (the launches it implies)."""
     from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
     from rendernet_tpu_torch.ops.crops import crop_image
     from rendernet_tpu_torch.ops.cuda_resample import rotate_resample_camera_patch_multipass
@@ -691,15 +860,16 @@ def gradient_check(torch, np, failures):
         return float(loss.detach()), torch.autograd.grad(loss, params)
 
     out = {}
-    for patch in (128, 64):
+    for patch in patches:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
-            what = f"{dname} patch {patch} gradient check"
+            what = f"{tag} {dname} patch {patch} gradient check"
             reset_counts()
             loss, g = grads(dtype, patch)
             torch.cuda.synchronize()
             totals, by_shape = read_counts()
-            per_step = check_step_counts(failures, what, by_shape, 1, step_launches(8, patch))
+            per_step = check_step_counts(failures, what, by_shape, 1,
+                                         step_launches(8, patch, conv2d=conv2d))
             with plain_kernels():
                 reset_counts()
                 loss_p, gp = grads(dtype, patch)
@@ -718,7 +888,7 @@ def gradient_check(torch, np, failures):
                    "median_rel_err": sorted(errs.values())[len(errs) // 2],
                    "params": len(names), "launches": totals}
             out[dname, patch] = {"result": res, "per_step": per_step}
-            log(f"grad {dname} " + json.dumps(res))
+            log(f"{tag} {dname} " + json.dumps(res))
             if not errs[worst] <= GRAD_TOL[dname]:
                 failures.append(f"{what}: gradients differ from the all-plain step's: {worst} "
                                 f"{errs[worst]:.3e} > {GRAD_TOL[dname]}")
@@ -726,6 +896,45 @@ def gradient_check(torch, np, failures):
     del net
     torch.cuda.empty_cache()
     return out
+
+
+TRAIN_STEPS = 8
+
+
+def timed_steps(torch, failures, state, step, batch, n, expected, what, tag, info):
+    """A warm-up step, then ``n`` timed steps of ``step`` on one batch
+    (synchronize to synchronize), with peak memory, launch counts checked
+    against ``expected`` per step, every loss finite and every parameter
+    finite and moved. Returns (state, result, launches per step)."""
+    before = {k: p.detach().clone() for k, p in state.params.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    state, loss = step(state, *batch, 1)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(n):
+        state, loss = step(state, *batch, 1)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    totals, by_shape = read_counts()
+    ps = check_step_counts(failures, what, by_shape, n, expected)
+    losses = [float(x) for x in losses]
+    moved = [k for k, p in state.params.named_parameters() if not torch.equal(p, before[k])]
+    finite = all(bool(torch.isfinite(p).all()) for p in state.params.parameters())
+    res = dict(info, steps=n, ms_per_step=dt / n * 1e3,
+               frames_per_s=batch[0].shape[0] * n / dt, losses=losses,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               params_moved=len(moved), params=len(before),
+               launches_per_step={k: v // n for k, v in totals.items()})
+    log(f"{tag} " + json.dumps(res))
+    if not all(math.isfinite(x) for x in losses):
+        failures.append(f"{what}: non-finite loss {losses}")
+    if len(moved) != len(before) or not finite:
+        failures.append(f"{what}: {len(before) - len(moved)} parameters did not move, or a "
+                        f"parameter is not finite")
+    return state, res, ps
 
 
 def run_training(torch, failures):
@@ -753,38 +962,11 @@ def run_training(torch, failures):
     train = {}
     for patch in (128, 64):
         step = make_shader_train_step(mcfg, cfg, tx, patch)
-        before = {n: p.detach().clone() for n, p in state.params.named_parameters()}
-        torch.cuda.reset_peak_memory_stats()
-        state, loss = step(state, vox, img, pose, 1)  # warm-up
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        losses = []
-        for _ in range(8):
-            state, loss = step(state, vox, img, pose, 1)
-            losses.append(loss)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        totals, by_shape = read_counts()
-        ps = check_step_counts(failures, f"patch {patch} steps", by_shape, 8,
-                               step_launches(b, patch))
+        state, train[patch], ps = timed_steps(torch, failures, state, step, (vox, img, pose),
+                                              TRAIN_STEPS, step_launches(b, patch),
+                                              f"patch {patch} steps", "train",
+                                              {"patch": patch, "batch": b, "dtype": "bfloat16"})
         per_step["train" if patch == 128 else "train64"] = ps
-        losses = [float(x) for x in losses]
-        moved = [n for n, p in state.params.named_parameters() if not torch.equal(p, before[n])]
-        finite = all(bool(torch.isfinite(p).all()) for p in state.params.parameters())
-        res = {"patch": patch, "batch": b, "dtype": "bfloat16", "steps": 8,
-               "ms_per_step": dt / 8 * 1e3, "frames_per_s": b * 8 / dt, "losses": losses,
-               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-               "params_moved": len(moved), "params": len(before), "launches_per_step": {
-                   k: v // 8 for k, v in totals.items()}}
-        train[patch] = res
-        log("train " + json.dumps(res))
-        if not all(math.isfinite(x) for x in losses):
-            failures.append(f"patch {patch}: non-finite loss {losses}")
-        if len(moved) != len(before) or not finite:
-            failures.append(f"patch {patch}: {len(before) - len(moved)} parameters did not "
-                            f"move, or a parameter is not finite")
-        del before
     out["train"] = train
 
     # extra modes, one step each at patch 128
@@ -861,7 +1043,7 @@ RECON_STEPS = 5
 RECON_LIGHT_ELEVATION = (90 - 105) * math.pi / 180.0
 
 
-def recon_launches(forward_only: bool = False):
+def recon_launches(forward_only: bool = False, conv2d: bool = False):
     """Launches per inverse-rendering step (or per forward) that the graph
     implies at ``ReconConfig()``: each warp is 8 K1 passes at [BC, 16384,
     128] (the shape at BC = 5, the 4-channel texture at BC = 20) and their
@@ -869,18 +1051,60 @@ def recon_launches(forward_only: bool = False):
     first merged with a shear); e_conv3, the 20 res1 convs and res1_skip
     run K2 at 16 -> 16 channels forward and again for their data gradients;
     the networks are frozen, so no weight gradient runs (K2w 0), and batch 5
-    is outside K3's envelope (K3, K6 0)."""
+    is outside K3's envelope (K3, K6 0). With ``conv2d`` (phase 6) the relu
+    stacks at [64, 64, 5, 512 / 256] take the fused route (k5_launches;
+    K5w 0)."""
     n = 128
     k4 = {}
     for bc in (5, 20):
         k4[(bc, n * n, n, n, 3)] = 5
         k4[(bc, n * n, n, n, 6)] = 3
+    k5 = k5_launches(5, 64, (512, 256), (10, 5), act="relu", grad=not forward_only,
+                     wgrad=False)[0] if conv2d else {}
     return {
         "K1": {(5, n * n, n, n): 8, (20, n * n, n, n): 8},
         "K4": {} if forward_only else k4,
         "K2": {(XR, 16): 22 if forward_only else 44},
-        "K2w": {}, "K3": {}, "K6": {},
+        "K2w": {}, "K3": {}, "K6": {}, "K5": k5, "K5w": {},
     }
+
+
+def timed_recon_steps(torch, failures, model, target, per_step, tag, conv2d=False):
+    """Per dtype, a warm-up and RECON_STEPS timed make_recon_steps on
+    ``target``, their launches checked (runs ``{tag}32`` / ``{tag}16`` in
+    ``per_step``), losses and latents finite. Returns {dtype: result}."""
+    from rendernet_tpu_torch.recon.inverse import ReconConfig, initial_latents, make_recon_step
+
+    steps = {}
+    for dname, bits in (("float32", "32"), ("bfloat16", "16")):
+        cfg = ReconConfig(compute_dtype=dname, light_elevation=RECON_LIGHT_ELEVATION)
+        step = make_recon_step(model, cfg)
+        lat = initial_latents(cfg, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        lat, _ = step(lat, target)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(RECON_STEPS):
+            lat, per = step(lat, target)
+            losses.append(per)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        totals, by_shape = read_counts()
+        per_step[tag + bits] = check_step_counts(failures, f"{tag} {dname} steps", by_shape,
+                                                 RECON_STEPS, recon_launches(conv2d=conv2d))
+        sums = [float(x.sum()) for x in losses]
+        res = {"dtype": dname, "batch": 5, "steps": RECON_STEPS,
+               "ms_per_step": dt / RECON_STEPS * 1e3, "loss_sums": sums,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches_per_step": {k: v // RECON_STEPS for k, v in totals.items()}}
+        steps[dname] = res
+        log(f"{tag} " + json.dumps(res))
+        if not all(math.isfinite(x) for x in sums) or not all(
+                bool(torch.isfinite(t).all()) for t in lat):
+            failures.append(f"{tag} {dname}: non-finite loss {sums} or latents")
+    return steps
 
 
 def recon_model(torch):
@@ -945,7 +1169,8 @@ class k4_fault:
         cuda_resample.interp_pass_bwd = self.orig
 
 
-def recon_gradient_check(torch, failures, seeded, seeded_target):
+def recon_gradient_check(torch, failures, seeded, seeded_target, conv2d=False,
+                         tag="recon_grad"):
     """One step's latent gradients at ReconConfig(), kernels vs all plain,
     fp32 (TF32 off) and bf16, under cuDNN's deterministic algorithms: on
     the conditioned model, gated by RECON_GRAD_TOL with three controls
@@ -978,11 +1203,11 @@ def recon_gradient_check(torch, failures, seeded, seeded_target):
             loss = recon_per_sample_loss(net, Latents(*leaves), tgt, cfg)
             return loss.detach(), torch.autograd.grad(loss.sum(), leaves)
 
-        what = f"recon {dname} gradient check"
+        what = f"{tag} {dname} gradient check"
         reset_counts()
         loss, g = grads()
         torch.cuda.synchronize()
-        check_step_counts(failures, what, read_counts()[1], 1, recon_launches())
+        check_step_counts(failures, what, read_counts()[1], 1, recon_launches(conv2d=conv2d))
         with plain_kernels():
             reset_counts()
             loss_p, gp = grads()
@@ -1012,12 +1237,12 @@ def recon_gradient_check(torch, failures, seeded, seeded_target):
                "loss": loss.tolist(), "plain_loss": loss_p.tolist(),
                "grad_norm": {n: float(b.norm()) for n, b in zip(Latents._fields, gp)}}
         out[dname] = res
-        log("recon_grad " + json.dumps(res))
+        log(f"{tag} " + json.dumps(res))
     cross = errors(plain["bfloat16"], plain["float32"])
     out["control_bf16_as_fp32"] = cross
-    log("recon_grad_control " + json.dumps({"bf16_plain_vs_fp32_plain": cross}))
+    log(f"{tag}_control " + json.dumps({"bf16_plain_vs_fp32_plain": cross}))
     if not over(cross, "float32"):
-        failures.append(f"recon gradient check: the bf16 step passed the fp32 gate ({cross})")
+        failures.append(f"{tag} check: the bf16 step passed the fp32 gate ({cross})")
     torch.backends.cudnn.deterministic = cudnn_det
     return out
 
@@ -1069,36 +1294,7 @@ def run_recon(torch, failures, tmp):
     gen = torch.Generator(device="cuda").manual_seed(11)
     target = torch.rand(5, 512, 512, 3, generator=gen, device="cuda")
 
-    steps = {}
-    for dname, run in (("float32", "recon32"), ("bfloat16", "recon16")):
-        cfg = ReconConfig(compute_dtype=dname, light_elevation=RECON_LIGHT_ELEVATION)
-        step = make_recon_step(model, cfg)
-        lat = initial_latents(cfg, device="cuda")
-        torch.cuda.reset_peak_memory_stats()
-        lat, _ = step(lat, target)  # warm-up
-        torch.cuda.synchronize()
-        reset_counts()
-        t0 = time.perf_counter()
-        losses = []
-        for _ in range(RECON_STEPS):
-            lat, per = step(lat, target)
-            losses.append(per)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        totals, by_shape = read_counts()
-        per_step[run] = check_step_counts(failures, f"recon {dname} steps", by_shape,
-                                          RECON_STEPS, recon_launches())
-        sums = [float(x.sum()) for x in losses]
-        res = {"dtype": dname, "batch": 5, "steps": RECON_STEPS,
-               "ms_per_step": dt / RECON_STEPS * 1e3, "loss_sums": sums,
-               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-               "launches_per_step": {k: v // RECON_STEPS for k, v in totals.items()}}
-        steps[dname] = res
-        log("recon " + json.dumps(res))
-        if not all(math.isfinite(x) for x in sums) or not all(
-                bool(torch.isfinite(t).all()) for t in lat):
-            failures.append(f"recon {dname}: non-finite loss {sums} or latents")
-    out["steps"] = steps
+    out["steps"] = timed_recon_steps(torch, failures, model, target, per_step, "recon")
 
     # the CLI, as a user runs it: bf16 on the card, 2 epochs of 4 steps, a
     # dump every 2 steps (one mid-epoch and one end-of-epoch forward each)
@@ -1149,6 +1345,180 @@ def run_recon(torch, failures, tmp):
     return out, per_step
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the fused wide-conv route (CUDA_CONV2D) on every path
+# ---------------------------------------------------------------------------
+def serve_launches2d():
+    """Launches per batch-8 forward with CUDA_CONV2D and WINOGRAD_2D on: K1
+    and K2 as phase 3's, the 32 wide convs on the fused route, no K3."""
+    k5, _ = k5_launches(8, 64, (1024, 512), (10, 5), grad=False)
+    return {"K1": {(8, 16384, 128, 128): 8},
+            "K2": {((8, 64, 64, 32, 16), 32): 1, (X3[8], 32): 21},
+            "K3": {}, "K4": {}, "K2w": {}, "K6": {}, "K5": k5, "K5w": {}}
+
+
+def conv2d_serving(torch, np, failures, per_step):
+    """(b) One forward per dtype at batch 8 (bf16 first, the serving
+    form), its launches, its logits against the all-plain forward's
+    (phase 3's limits), and its time."""
+    from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
+
+    net = init_shader_params(0, ShaderConfig(), device="cuda")
+    rng = np.random.default_rng(0)
+    vox = torch.from_numpy(np.repeat(
+        procedural_voxel().astype(np.float32)[None, :, :, :, None], 8, axis=0)).cuda()
+    pose = torch.from_numpy(np.stack(
+        [rng.uniform(0, 6.28, 8), rng.uniform(-1, 1, 8), np.ones(8)], axis=1
+    ).astype(np.float32)).cuda()
+    logits = []
+    hook = net.encoder["e_conv11"].register_forward_hook(
+        lambda mod, args, y: logits.append(y.float()))
+    out = {}
+    with torch.no_grad():
+        for dtype, run in ((torch.bfloat16, "serve2d16"), (torch.float32, "serve2d32")):
+            dname = str(dtype).split(".")[-1]
+            fwd = lambda: shader_forward(net, vox, pose, compute_dtype=dtype,  # noqa: E731
+                                         resample="multipass")
+            logits.clear()
+            reset_counts()
+            img = fwd()
+            torch.cuda.synchronize()
+            totals, by_shape = read_counts()
+            per_step[run] = check_step_counts(failures, f"serve2d {dname} forward", by_shape, 1,
+                                              serve_launches2d())
+            got = logits.pop()
+            with plain_kernels():
+                reset_counts()
+                ref_img = fwd().float()
+                ref = logits.pop()
+                if any(read_counts()[0].values()):
+                    failures.append(f"serve2d {dname}: the plain forward launched a kernel")
+            spread = float(ref_img.max() - ref_img.min())
+            logit_spread = float(ref.max() - ref.min())
+            err = float((got - ref).abs().max())
+            res = {"dtype": dname, "launches": totals, "logit_max_abs_err": err,
+                   "logit_spread": logit_spread, "rel_err": err / logit_spread,
+                   "output_spread": spread, "tol": FORWARD_TOL[dname]}
+            if tuple(img.shape) != (8, 512, 512, 1) or not bool(torch.isfinite(img).all()):
+                failures.append(f"serve2d {dname}: shape {tuple(img.shape)} or non-finite values")
+            if not err <= FORWARD_TOL[dname] * logit_spread:
+                failures.append(f"serve2d {dname} forward's logits differ from the plain "
+                                f"forward's by {err:.3e} of spread {logit_spread:.3e}")
+            if not spread >= MIN_SPREAD:
+                failures.append(f"serve2d {dname} plain forward's output spreads only {spread:.3e}")
+            logits.clear()
+            res["forward_ms"] = time_ms(torch, fwd, 3)
+            logits.clear()
+            out[dname] = res
+            log("serve2d " + json.dumps(res))
+    hook.remove()
+    return out
+
+
+def conv2d_training(torch, np, failures, per_step):
+    """(c) The gradient check at batch 8 (patch 128, fp32 and bf16),
+    bench.py's configuration at batch 24 (patch 128 and 64: a warm-up and
+    TRAIN_STEPS timed steps each), one step with PRELU_SAVE_PRE off and one
+    with remat, and (e) a profiled bf16 patch-128 step."""
+    from rendernet_tpu_torch.models.shader import ShaderConfig
+    from rendernet_tpu_torch.ops import cuda_conv2d
+    from rendernet_tpu_torch.train.config import TrainConfig
+    from rendernet_tpu_torch.train.steps import create_shader_state, make_shader_train_step
+
+    out = {}
+    g = gradient_check(torch, np, failures, patches=(128,), conv2d=True, tag="grad2d")
+    out["gradient_check"] = [v["result"] for v in g.values()]
+    per_step["grad2d32"] = g["float32", 128]["per_step"]
+    del g
+    b = 24
+    cfg = TrainConfig(batch_size=b, img_res=512, new_size=128, compute_dtype="bfloat16",
+                      is_greyscale=True, e_eta=1e-5, moment_dtype="bfloat16")
+    mcfg = ShaderConfig(preact_policy=True)
+    batch = bench_batch(torch, np, b)
+    state, tx = create_shader_state(0, mcfg, cfg, device="cuda")
+    train = {}
+    for patch, run in ((128, "train2d"), (64, "train2d64")):
+        step = make_shader_train_step(mcfg, cfg, tx, patch)
+        state, train[patch], per_step[run] = timed_steps(
+            torch, failures, state, step, batch, TRAIN_STEPS,
+            step_launches(b, patch, conv2d=True), f"train2d patch {patch} steps", "train2d",
+            {"patch": patch, "batch": b, "dtype": "bfloat16"})
+    out["train"] = train
+    extra = {}
+    for mode, save_pre, remat in (("nosave2d", False, False), ("remat2d", True, True)):
+        cuda_conv2d.PRELU_SAVE_PRE = save_pre
+        step = make_shader_train_step(ShaderConfig(preact_policy=True, remat=remat), cfg, tx, 128)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        state, loss = step(state, *batch, 1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        totals, by_shape = read_counts()
+        ps = check_step_counts(failures, f"{mode} step", by_shape, 1,
+                               step_launches(b, 128, remat=remat, conv2d=True, save_pre=save_pre))
+        if mode == "nosave2d":
+            per_step[mode] = ps
+        extra[mode] = {"ms": dt * 1e3, "loss": float(loss), "launches": totals,
+                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        log(f"extra {mode} " + json.dumps(extra[mode]))
+        if not math.isfinite(float(loss)):
+            failures.append(f"{mode} step: non-finite loss")
+    cuda_conv2d.PRELU_SAVE_PRE = True
+    out["extra_modes"] = extra
+    step = make_shader_train_step(mcfg, cfg, tx, 128)
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], *batch, 1)
+
+    out["profile"] = profile_run(torch, one_step)
+    return out
+
+
+def conv2d_recon(torch, failures, per_step):
+    """(d) The latent-gradient check (phase 5's limits and controls on the
+    conditioned model) and, per dtype, a warm-up and RECON_STEPS timed
+    make_recon_steps, their launches checked."""
+    model = recon_model(torch)
+    rendered = render_target(torch, model)[0].expand(5, -1, -1, -1).contiguous()
+    out = {"gradient_check": recon_gradient_check(torch, failures, model, rendered,
+                                                  conv2d=True, tag="recon2d_grad")}
+    del rendered
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    target = torch.rand(5, 512, 512, 3, generator=gen, device="cuda")
+    out.update(timed_recon_steps(torch, failures, model, target, per_step, "recon2d",
+                                 conv2d=True))
+    return out
+
+
+def run_conv2d(torch, failures, per_step):
+    """Phase 6: serving, training and inverse rendering with CUDA_CONV2D
+    (and WINOGRAD_2D, which it takes precedence over) on."""
+    import numpy as np
+
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.ops import cuda_conv2d
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers.CUDA_CONV2D, layers.WINOGRAD_2D = True, True
+    out = {}
+    try:
+        for name, run in (("serving", lambda: conv2d_serving(torch, np, failures, per_step)),
+                          ("training", lambda: conv2d_training(torch, np, failures, per_step)),
+                          ("recon", lambda: conv2d_recon(torch, failures, per_step))):
+            t0 = time.perf_counter()
+            out[name] = run()
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"phase 6 {name} took {time.perf_counter() - t0:.1f} s")
+    finally:
+        layers.CUDA_CONV2D, layers.WINOGRAD_2D = False, False
+        cuda_conv2d.PRELU_SAVE_PRE = True
+    return out
+
+
 def profile_run(torch, fn, top: int = 12):
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
     and the device's busy share of its wall time."""
@@ -1184,9 +1554,11 @@ class plain_kernels:
     """Route every kernel wrapper to its plain version (on the card)."""
 
     def __enter__(self):
-        from rendernet_tpu_torch.ops import cuda_conv3d, cuda_resample, cuda_winograd
+        from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_resample, cuda_winograd
 
-        swaps = [(cuda_resample, "interp_pass_fwd", cuda_resample.interp_pass_plain),
+        swaps = [(cuda_conv2d, "conv2d_hwnc", cuda_conv2d.conv2d_hwnc_plain),
+                 (cuda_conv2d, "conv2d_wgrad", cuda_conv2d.conv2d_wgrad_plain),
+                 (cuda_resample, "interp_pass_fwd", cuda_resample.interp_pass_plain),
                  (cuda_resample, "interp_pass_bwd", cuda_resample.interp_pass_bwd_plain),
                  (cuda_conv3d, "nc_conv3d_forward", cuda_conv3d.nc_conv3d_plain),
                  (cuda_conv3d, "nc_conv3d_wgrad", cuda_conv3d.nc_conv3d_wgrad_plain),
@@ -1246,6 +1618,9 @@ def main() -> int:
         main_out["recon"], recon_per_step = run_recon(torch, failures, tmp)
     per_step.update(recon_per_step)
     log(f"phase 5 (inverse rendering) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    main_out["conv2d"] = run_conv2d(torch, failures, per_step)
+    log(f"phase 6 (the fused wide-conv route) took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for (kid, label, dname), r in rows.items():

@@ -63,16 +63,9 @@ constexpr size_t smem_bytes() {
   return main > epi ? main : epi;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using rn::cp_async16;
+using rn::cp_async_commit;
+using rn::cp_async_wait;
 
 template <typename T>
 __device__ __forceinline__ void store_tile(const float m[16], T* __restrict__ y, int b,

@@ -16,6 +16,11 @@ save-pre-activation-only residual unit (:func:`act_conv`, the JAX
 ``_act_conv`` custom VJP, :553-586) and :func:`res_block_stack` with
 ``remat`` as ``torch.utils.checkpoint``.
 
+The fused wide-conv route (:data:`CUDA_CONV2D`, mirroring
+``layers.PALLAS_CONV2D``): eligible 2D res stacks run resident in HWNC with
+every block as two fused K5 calls (``ops/cuda_conv2d.py``), and other
+eligible 3x3 stride-1 2D convs (the stacks' skip convs) take the NHWC K5 op.
+
 For the inverse renderer's pretrained-style networks: :class:`FullyConnected`
 and the ``relu`` res block (no alpha), whose ReLU is ``torch.maximum``: it
 splits the gradient 0.5/0.5 at an exact zero as ``jnp.maximum`` does
@@ -32,10 +37,11 @@ import torch.utils.checkpoint
 from torch import nn
 
 from rendernet_tpu_torch.nn import init
-from rendernet_tpu_torch.ops import cuda_conv3d, cuda_winograd
+from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_winograd
 from rendernet_tpu_torch.ops.conv_grad import flip_io, plain_conv_wgrad
 
 __all__ = [
+    "CUDA_CONV2D",
     "CUDA_CONV3D",
     "WINOGRAD_2D",
     "to_jax_layout",
@@ -65,6 +71,17 @@ CUDA_CONV3D = "auto"
 # envelope, mirroring layers.WINOGRAD_2D = "pallas". Off by default; the
 # render CLI's --fast turns it on.
 WINOGRAD_2D = False
+
+# K5/K5w (ops/cuda_conv2d.py) for the wide 3x3 stride-1 2D convs inside
+# ``wc_conv2d_supported``, mirroring layers.PALLAS_CONV2D (off by default,
+# as in JAX): "auto" uses them for CUDA tensors; True also routes CPU
+# tensors through the wrappers (their plain versions); False never. Checked
+# before WINOGRAD_2D, as JAX's _conv_op checks PALLAS_CONV2D first.
+CUDA_CONV2D = False
+
+
+def _conv2d_on(x: torch.Tensor) -> bool:
+    return x.is_cuda if CUDA_CONV2D == "auto" else bool(CUDA_CONV2D)
 
 
 def to_jax_layout(w: torch.Tensor) -> torch.Tensor:
@@ -105,12 +122,16 @@ def _plain_conv(x: torch.Tensor, w: torch.Tensor, stride, ndim: int) -> torch.Te
 
 def _kernel_for(x: torch.Tensor, w_shape, stride, ndim: int):
     """Which kernel runs this conv (``layers.py:285-346``): ``"conv3d"``
-    (K2) for the 3x3x3 stride-1 convs inside its envelope, ``"wino"`` (K3)
-    for the wide 3x3 stride-1 2D ones with :data:`WINOGRAD_2D` on, else
-    None (the plain conv). The forward and both gradients route alike."""
+    (K2) for the 3x3x3 stride-1 convs inside its envelope, ``"conv2d"``
+    (K5) for the wide 3x3 stride-1 2D ones with :data:`CUDA_CONV2D` on,
+    ``"wino"`` (K3) for those with :data:`WINOGRAD_2D` on, else None (the
+    plain conv). The forward and both gradients route alike."""
     use_k2 = x.is_cuda if CUDA_CONV3D == "auto" else bool(CUDA_CONV3D)
     if ndim == 3 and use_k2 and cuda_conv3d.nc_conv3d_supported(x.shape, w_shape, stride):
         return "conv3d"
+    if ndim == 2 and _conv2d_on(x) and cuda_conv2d.wc_conv2d_supported(x.shape, w_shape,
+                                                                        stride):
+        return "conv2d"
     if ndim == 2 and WINOGRAD_2D and cuda_winograd.wino_conv2d_supported(x.shape, w_shape,
                                                                           stride):
         return "wino"
@@ -124,6 +145,8 @@ def conv_op(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int], ndim: int) 
     kernel = _kernel_for(x, w.shape, stride, ndim)
     if kernel == "conv3d":
         return cuda_conv3d.nc_conv3d(x, w)
+    if kernel == "conv2d":
+        return cuda_conv2d.wc_conv2d(x, w)
     if kernel == "wino":
         return cuda_winograd.wino_conv2d(x, w)
     return _plain_conv(x, w, stride, ndim)
@@ -151,12 +174,15 @@ def conv_transpose_op(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
 def conv_weight_grad(x: torch.Tensor, gy: torch.Tensor, w_shape, ndim: int) -> torch.Tensor:
     """Weight gradient (JAX layout) of :func:`conv_op`'s SAME stride-1
     odd-kernel conv of ``x``, on the kernel the forward's route implies:
-    K2w for K2's convs, the Winograd weight gradient (K6 or the direct one,
-    as ``cuda_winograd.WGRAD`` says) for K3's, else the plain conv's. The
-    JAX counterpart is the VJP of ``_conv_op`` in ``_act_conv_bwd``."""
+    K2w for K2's convs, K5w for K5's, the Winograd weight gradient (K6 or
+    the direct one, as ``cuda_winograd.WGRAD`` says) for K3's, else the
+    plain conv's. The JAX counterpart is the VJP of ``_conv_op`` in
+    ``_act_conv_bwd``."""
     kernel = _kernel_for(x, w_shape, (1,) * ndim, ndim)
     if kernel == "conv3d":
         return cuda_conv3d.nc_conv3d_wgrad(x, gy)
+    if kernel == "conv2d":
+        return cuda_conv2d.conv2d_wgrad(cuda_conv2d.nhwc_to_hwnc(x), cuda_conv2d.nhwc_to_hwnc(gy))
     if kernel == "wino":
         return cuda_winograd.weight_grad(x, gy)
     return plain_conv_wgrad(x, gy, w_shape)
@@ -306,6 +332,32 @@ class ResBlock(nn.Module):
             net = self.conv2_3x3(prelu(net, self.alpha))
         return net + x
 
+    def forward_hwnc(self, xh: torch.Tensor) -> torch.Tensor:
+        """The block on an HWNC input as two fused K5 ops (``_res_stack_hwnc``'s
+        body, ``layers.py:776-784``): prelu/relu(conv1 + b1), then
+        conv2 + b2 + xh. Parameters are cast to ``xh``'s dtype."""
+        dt = xh.dtype
+        c1, c2 = self.con1_3X3, self.conv2_3x3
+        w1, b1 = to_jax_layout(c1.weight).to(dt), c1.bias.to(dt)
+        if self.activation == "prelu":
+            net = cuda_conv2d.wc_conv2d_prelu_hwnc(xh, w1, b1, self.alpha.to(dt))
+        else:
+            net = cuda_conv2d.wc_conv2d_relu_hwnc(xh, w1, b1)
+        return cuda_conv2d.wc_conv2d_res_hwnc(net, to_jax_layout(c2.weight).to(dt),
+                                              c2.bias.to(dt), xh)
+
+
+def _hwnc_stack(blocks: Sequence[ResBlock], x: torch.Tensor) -> bool:
+    """Whether the stack runs HWNC-resident on K5 (``layers.py:683-697``):
+    2D 3x3 blocks whose width is the input's, :data:`CUDA_CONV2D` on, and
+    the input inside ``wc_conv2d_supported`` with two output-sized streams
+    (the fused epilogues' envelope)."""
+    if not blocks or blocks[0].ndim != 2 or not _conv2d_on(x):
+        return False
+    c = x.shape[-1]
+    return (tuple(blocks[0].con1_3X3.weight.shape) == (c, c, 3, 3)
+            and cuda_conv2d.wc_conv2d_supported(x.shape, (3, 3, c, c), (1, 1), obufs=2))
+
 
 def res_block_stack(blocks: Sequence[ResBlock], x: torch.Tensor, remat: bool = False,
                     preact: bool = False) -> torch.Tensor:
@@ -317,7 +369,20 @@ def res_block_stack(blocks: Sequence[ResBlock], x: torch.Tensor, remat: bool = F
     block's first pre-activation (:func:`act_conv`); ``remat`` subsumes it,
     as in JAX. JAX's ``use_scan`` runs the same blocks as one ``lax.scan``,
     whose gain is compile time; PyTorch compiles nothing, so there is no
-    scan here."""
+    scan here.
+
+    A stack that :func:`_hwnc_stack` admits runs as JAX's
+    ``_res_stack_hwnc`` (:755-801): one transpose to HWNC, each block as
+    :meth:`ResBlock.forward_hwnc` (under ``remat``, checkpointed), one
+    transpose back. As in JAX, that route ignores ``preact``."""
+    if _hwnc_stack(blocks, x):
+        xh = cuda_conv2d.nhwc_to_hwnc(x)
+        for blk in blocks:
+            if remat and torch.is_grad_enabled():
+                xh = torch.utils.checkpoint.checkpoint(blk.forward_hwnc, xh, use_reentrant=False)
+            else:
+                xh = blk.forward_hwnc(xh)
+        return cuda_conv2d.hwnc_to_nhwc(xh)
     for blk in blocks:
         if remat and torch.is_grad_enabled():
             x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False)

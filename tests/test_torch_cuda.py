@@ -6,15 +6,15 @@ they run with ``python -m pytest tests/test_torch_cuda.py -q``;
 ``chip_smoke.py`` covers the same kernels at the serving and training
 paths' shapes. Tolerances: fp32 results may differ by summation order (1e-4
 of max|y|); bf16 results by one output rounding (2^-7 of max|y|, two bf16
-ulps); the weight gradients (K2w, K6) are fp32 sums of exact products in
-either dtype (1e-4 of max|gw|).
+ulps); the weight gradients (K2w, K6, K5w) are fp32 sums of exact
+products in either dtype (1e-4 of max|gw|).
 """
 from __future__ import annotations
 
 import pytest
 import torch
 
-from rendernet_tpu_torch.ops import cuda_conv3d, cuda_resample, cuda_winograd
+from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_resample, cuda_winograd
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
@@ -168,3 +168,100 @@ def test_kernel_gradients_match_plain(cuda, wgrad, monkeypatch):
         want = torch.autograd.grad(plain(x, w), (x, w), cot)
         for a, b in zip(got, want):
             _close(a, b.detach(), torch.float32)
+
+
+K5_EPILOGUES = ["none", "bias", "prelu", "prelu+pre", "relu", "res"]
+
+
+def _k5_args(g, cuda, dtype, shape, co, epilogue):
+    """HWNC input, weights and the epilogue's keyword arguments."""
+    h, wd, b, c = shape
+    x = torch.randn(h, wd, b, c, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(3, 3, c, co, generator=g, device=cuda) / (3 * c ** 0.5)).to(dtype)
+    kw = {}
+    if epilogue != "none":
+        kw["bias"] = (torch.randn(co, generator=g, device=cuda) * 0.1).to(dtype)
+    if epilogue.startswith("prelu"):
+        kw.update(act="prelu", alpha=(torch.rand(co, generator=g, device=cuda) * 0.3).to(dtype),
+                  emit_pre=epilogue.endswith("pre"))
+    if epilogue == "relu":
+        kw["act"] = "relu"
+    if epilogue == "res":
+        kw["res"] = torch.randn(h, wd, b, co, generator=g, device=cuda).to(dtype)
+    return x, w, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epilogue", K5_EPILOGUES)
+@pytest.mark.parametrize("shape,co", [((7, 8, 3, 384), 256), ((16, 16, 5, 256), 256)])
+def test_conv2d_kernel(cuda, dtype, epilogue, shape, co):
+    """K5 with each epilogue against its plain version: a ragged shape (odd
+    H, batch 3, ci != co, 168 pixels) and a recon-like one (batch 5)."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x, w, kw = _k5_args(g, cuda, dtype, shape, co, epilogue)
+    before = cuda_conv2d.launches
+    got = cuda_conv2d.conv2d_hwnc(x, w, **kw)
+    assert cuda_conv2d.launches == before + 1
+    want = cuda_conv2d.conv2d_hwnc_plain(x, w, **kw)
+    for a, b in zip(*((t,) if torch.is_tensor(t) else t for t in (got, want))):
+        _close(a, b, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,co", [((7, 8, 3, 384), 256), ((64, 64, 5, 256), 256),
+                                      ((8, 8, 2, 128), 384)])
+def test_conv2d_wgrad_kernel(cuda, dtype, shape, co):
+    """K5w against its plain version, one chunk and several."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    gz = torch.randn(*shape[:3], co, generator=g, device=cuda).to(dtype)
+    before = cuda_conv2d.wgrad_launches_by_shape[tuple(shape), co]
+    got = cuda_conv2d.conv2d_wgrad(x, gz)
+    assert cuda_conv2d.wgrad_launches_by_shape[tuple(shape), co] == before + 1
+    _close(got, cuda_conv2d.conv2d_wgrad_plain(x, gz), torch.float32)
+
+
+def test_conv2d_wrappers_raise_outside_the_envelope(cuda):
+    x = torch.zeros(4, 8, 2, 256, device=cuda)
+    with pytest.raises(ValueError, match="envelope"):
+        cuda_conv2d.conv2d_hwnc(x, torch.zeros(3, 3, 256, 192, device=cuda))
+    with pytest.raises(ValueError, match="envelope"):
+        cuda_conv2d.conv2d_hwnc(torch.zeros(4, 8, 2, 200, device=cuda),
+                                torch.zeros(3, 3, 200, 256, device=cuda))
+    with pytest.raises(ValueError, match="envelope"):
+        cuda_conv2d.conv2d_wgrad(torch.zeros(4, 8, 2, 192, device=cuda),
+                                 torch.zeros(4, 8, 2, 256, device=cuda))
+    with pytest.raises(ValueError, match="envelope"):  # batch 1 at W 4: no TPU tiling
+        cuda_conv2d.wc_conv2d(torch.zeros(1, 4, 4, 256, device=cuda),
+                              torch.zeros(3, 3, 256, 256, device=cuda))
+
+
+@pytest.mark.parametrize("save_pre", [True, False])
+def test_conv2d_ops_gradients_match_plain(cuda, save_pre, monkeypatch):
+    """The fused ops' backward on the card (K5 data gradient, K5w, the
+    recomputed pre-activation) against the same ops with both wrappers
+    swapped for their plain versions, fp32 (TF32 off): 1e-4 of max|grad|."""
+    monkeypatch.setattr(cuda_conv2d, "PRELU_SAVE_PRE", save_pre)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    c = 256
+    xh = torch.randn(8, 8, 3, c, generator=g, device=cuda)
+    leaves = [xh, torch.randn(3, 3, c, c, generator=g, device=cuda) * 0.03,
+              torch.randn(c, generator=g, device=cuda) * 0.1,
+              torch.rand(c, generator=g, device=cuda) * 0.3,
+              torch.randn(3, 3, c, c, generator=g, device=cuda) * 0.03,
+              torch.randn(c, generator=g, device=cuda) * 0.1]
+    cot = torch.randn(8, 8, 3, c, generator=g, device=cuda)
+
+    def grads():
+        ts = [t.clone().requires_grad_() for t in leaves]
+        x, w1, b1, al, w2, b2 = ts
+        y = cuda_conv2d.wc_conv2d_res_hwnc(cuda_conv2d.wc_conv2d_prelu_hwnc(x, w1, b1, al),
+                                           w2, b2, x)
+        y = cuda_conv2d.wc_conv2d_relu_hwnc(y, w2, b2)
+        return torch.autograd.grad(y, ts, cot)
+
+    got = grads()
+    monkeypatch.setattr(cuda_conv2d, "conv2d_hwnc", cuda_conv2d.conv2d_hwnc_plain)
+    monkeypatch.setattr(cuda_conv2d, "conv2d_wgrad", cuda_conv2d.conv2d_wgrad_plain)
+    for a, b in zip(got, grads()):
+        _close(a, b, torch.float32)

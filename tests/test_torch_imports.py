@@ -37,7 +37,7 @@ def test_importing_every_module_pulls_in_no_jax():
     for mod in ("cli.demo", "cli.__main__", "cli.reconstruct", "compat.jax_params",
                 "compat.tf_import", "io.binvox", "models.decoders", "recon", "recon.inverse",
                 "models.shader", "nn.init", "nn.layers", "ops._native", "ops.conv_grad", "ops.crops",
-                "ops.cuda_conv3d", "ops.cuda_resample", "ops.cuda_winograd", "ops.phong",
+                "ops.cuda_conv2d", "ops.cuda_conv3d", "ops.cuda_resample", "ops.cuda_winograd", "ops.phong",
                 "ops.resample", "ops.transforms", "ops.winograd", "train.config",
                 "train.optim", "train.steps", "utils.image"):
         assert f"rendernet_tpu_torch.{mod}" in res["modules"]
@@ -50,7 +50,8 @@ def test_every_kernel_source_is_built():
 
     sources = sorted(n[:-3] for n in os.listdir(os.path.join(PKG, "csrc")) if n.endswith(".cu"))
     assert sources == sorted(_native.SOURCES)
-    assert {"conv3d_wgrad", "winograd_wgrad", "resample_bwd"} <= set(sources)
+    assert {"conv3d_wgrad", "winograd_wgrad", "resample_bwd", "conv2d",
+            "conv2d_wgrad"} <= set(sources)
 
 
 def test_no_file_names_jax_or_the_jax_package():
