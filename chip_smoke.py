@@ -5,7 +5,8 @@
 
 Phases, all of them on every run:
   1. build every CUDA kernel from ``rendernet_tpu_torch/csrc`` (one nvcc per
-     source, in parallel) and print the card's name and power limit;
+     source, in parallel), print the card's name and power limit, and count
+     K3's wgmma and TMA instructions in its SASS (none is a failure);
   2. kernels: call each kernel's wrapper (K1 resample pass, K4 its adjoint,
      K2 conv3d, K2w its weight gradient, K3 Winograd, K6 the Winograd weight
      gradient, K5 the fused wide conv, K5w its weight gradient) at the shapes the serving path (batch 8), the training step
@@ -58,7 +59,10 @@ Phases, all of them on every run:
      ``make_recon_step``s per dtype; (e) a profiled bf16 patch-128 step.
 The kernels' launch counters are zeroed just before each run of phases 3,
 4, 5 and 6 and read just after; every run's counts are checked, shape by
-shape, against the counts its graph implies.
+shape, against the counts its graph implies. K3's phase 2 rows carry the
+bytes of its bf16 V scratch; the serving and training profiles print K3's
+device time and share of busy time; a ``train_memory`` line gives the V
+scratch per training call and each training run's peak memory.
 
 Prints a ``{"kernels": [...]}`` line with one row per kernel, dtype and
 main-path shape: a serving row's ``launches`` is per batch-8 forward of that
@@ -518,6 +522,8 @@ def conv2d_case(torch, op, spec, dtype, rnd, m, c):
 def run_kernel_checks(torch, failures):
     """Checks and times every case; returns the rows, keyed by kernel id,
     label and dtype name."""
+    from rendernet_tpu_torch.ops import cuda_winograd
+
     rows = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for kid, label, op, spec, dnames, run in CASES:
@@ -545,6 +551,8 @@ def run_kernel_checks(torch, failures):
                        max_abs_ref=scale, tol=tol, ok=ok, ms=kms, plain_ms=pms,
                        library_ms=lms, bound_ms=bms, bound_by=by, run=run,
                        key=case_key(op, spec))
+            if kid == "K3":
+                row["v_scratch_bytes"] = cuda_winograd.v_scratch_bytes(spec[0], dtype)
             rows[kid, label, dname] = row
             tag = {None: "ragged", "check": "check"}.get(run, "kernel")
             log(f"{tag} " + json.dumps(row))
@@ -968,6 +976,11 @@ def run_training(torch, failures):
                                               {"patch": patch, "batch": b, "dtype": "bfloat16"})
         per_step["train" if patch == 128 else "train64"] = ps
     out["train"] = train
+    v_bytes = {str((b, s, s, c)): cuda_winograd.v_scratch_bytes((b, s, s, c), torch.bfloat16)
+               for s in (64, 32) for c in (1024, 512)}
+    log("train_memory " + json.dumps({"k3_v_scratch_bytes_per_call": v_bytes,
+                                      "peak_mem_gib": {p: train[p]["peak_mem_gib"]
+                                                       for p in train}}))
 
     # extra modes, one step each at patch 128
     extra = {}
@@ -1521,7 +1534,8 @@ def run_conv2d(torch, failures, per_step):
 
 def profile_run(torch, fn, top: int = 12):
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
-    and the device's busy share of its wall time."""
+    the device's busy share of its wall time, and K3's device time and share
+    of the busy time (its kernels' names all start with "k3_")."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1546,6 +1560,10 @@ def profile_run(torch, fn, top: int = 12):
     res = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "device_idle_share": 1.0 - busy_us / wall_us if wall_us else None,
            "top": [{"kernel": k[:90], "count": c, "ms": us / 1e3} for k, c, us in rows[:top]]}
+    k3 = [r for r in rows if "k3_" in r[0]]
+    k3_us = sum(r[2] for r in k3)
+    res["K3"] = {"ms": k3_us / 1e3, "kernels": sum(r[1] for r in k3),
+                 "busy_share": k3_us / busy_us if busy_us else None}
     log("profile " + json.dumps(res))
     return res
 
@@ -1571,6 +1589,24 @@ class plain_kernels:
     def __exit__(self, *exc):
         for m, n, orig, _ in self.saved:
             setattr(m, n, orig)
+
+
+def k3_sass(failures) -> None:
+    """Counts K3's wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
+    built library's SASS; K3's bf16 path must issue wgmma. Skipped, and
+    said so, where the toolkit has no cuobjdump."""
+    from rendernet_tpu_torch.ops import _native
+
+    tool = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("sass [winograd] not inspected: no cuobjdump beside nvcc")
+        return
+    sass = subprocess.run([tool, "-sass", str(_native._target("winograd"))],
+                          capture_output=True, text=True).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    log(f"sass [winograd] {json.dumps(counts)}")
+    if not counts["HGMMA"]:
+        failures.append("K3's library issues no wgmma (HGMMA) instruction")
 
 
 def main() -> int:
@@ -1599,10 +1635,12 @@ def main() -> int:
     log(f"built {len(logs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if ("registers" in line or "spill" in line or "Compiling entry" in line
+                    or "Performance Loss" in line):  # ptxas serializing wgmma, say
                 log(f"  [{name}] {line.strip()}")
 
     failures: list = []
+    k3_sass(failures)
     t0 = time.perf_counter()
     rows = run_kernel_checks(torch, failures)
     log(f"phase 2 (kernels) took {time.perf_counter() - t0:.1f} s")

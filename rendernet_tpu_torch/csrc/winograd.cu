@@ -1,74 +1,143 @@
-// K3: fused Winograd F(2x2, 3x3) convolution, SAME, stride 1, NHWC.
+// K3: Winograd F(2x2, 3x3) convolution, SAME, stride 1, NHWC.
 //
-// Replaces rendernet_tpu/ops/pallas_winograd.py:_kernel (reached through
-// pl.pallas_call in _wino_call_hwnc, entry wino_conv2d). For every 2x2
-// output tile: V = B^T d B over its 4x4 input tile in fp32, cast to the
-// storage type; 16 per-frequency GEMMs M[f] = V[f] @ U[f] with fp32
-// accumulation (U = G w G^T is computed in fp32 by a small kernel launched
-// first, and cast);
-// Y = A^T M A in fp32, rounded once to the storage type. Those are the
-// reference's rounding points.
+// Replaces rendernet_tpu/ops/pallas_winograd.py:147 (_kernel, reached
+// through pl.pallas_call in _wino_call_hwnc, entry wino_conv2d). For every
+// 2x2 output tile: V = B^T d B over its 4x4 input tile in fp32, cast to the
+// storage type; U = G w G^T in fp32, cast; 16 per-frequency GEMMs
+// M[f] = V[f] @ U[f] with fp32 accumulation; Y = A^T M A in fp32, rounded
+// once to the storage type. Those are the reference's rounding points; only
+// the order of the fp32 sums in M and Y differs.
 //
-// Bound: operations. The 16 GEMMs do 2 * 16 * tiles * C * K flops (res2 at
-// batch 8: 8192 tiles, C = K = 1024, 2.75e11 flops, 0.28 ms at 989 TFLOP/s
-// bf16; 4.1 ms at 67 TFLOP/s fp32). The TPU kernel holds 16 fp32
-// [tiles, bn] accumulators in megabytes of VMEM; an SM has 227 KB of shared
-// memory and 256 KB of registers, so this kernel tiles smaller: a block owns
-// one row of up to 32 Winograd tiles, 64 output channels and all 16
-// frequencies, and walks C in chunks of 16. Each chunk's 4 x 66 x 16 input
-// slab and [16, 16, 64] slice of U are copied into shared memory with
-// cp.async, double-buffered so the next chunk's copies overlap this chunk's
-// work. The slab is transformed to V in shared memory (one (tile, channel)
-// per thread), then the GEMMs run: in bf16 on the tensor cores (WMMA
-// 16x16x16, one warp per frequency, 2 x 4 fp32 accumulator fragments
-// each), in fp32 on the CUDA cores (each thread 4 tiles x 1 channel x 16
-// frequencies in registers). Row strides of V and U are padded so the
-// fragment loads are free of bank conflicts. The inverse transform reads
-// the accumulators (through shared memory for the fragments) and writes
-// the 2x2 outputs, coalesced along K. The input is read once per 64 output
-// channels and V is recomputed as often; U is read once per tile row. Both
-// are the places to start making this kernel faster.
-#include <mma.h>
+// bf16 (the main path): three kernels on one stream, one wrapper call.
+//   k3_weight_transform  w [3,3,C,K] -> U [16,K,C]: K-major, so both GEMM
+//                        operands are K-major and need no transpose mode.
+//   k3_input_transform   x [B,H,W,C] -> V [16,T,C] (T = B*H/2*W/2 tiles),
+//                        one thread per (tile, 8 channels), 16-byte loads
+//                        and stores.
+//   k3_gemm_fold         one block per 128 tiles x 64 output channels: the
+//                        16 GEMMs on wgmma fed by TMA, each folded into the
+//                        2x2 output phases as soon as it is done.
+//
+// Why this shape (design (a) of the two considered). The TPU kernel keeps
+// 16 fp32 [tiles, bn] accumulators in megabytes of VMEM and never writes V.
+// Here a fold needs five accumulator sets live at once: this frequency's M
+// and the four output phases (A holds 0 and +-1, so M[f] adds to or
+// subtracts from 1, 2 or 4 of them, and frequencies (1|2, 1|2) touch all
+// four). At 64 x 64 per warpgroup that is 160 fp32 registers a thread, and
+// ptxas compiles a 384-thread kernel at 168 even where setmaxnreg raises
+// the consumers' share at run time (so this kernel does not use it): about
+// 900 bytes of the phases spill around the folds.
+// 64 x 128 would need 320. So each consumer warpgroup runs
+// wgmma.m64n64k16, and per 128 x 64 x 64 stage an SM's shared memory takes
+// 24 KB of TMA writes and 32 KB of wgmma reads for 1 Mflop: at ~128 B/clk
+// that allows ~57% of the tensor cores' rate: shared-memory bandwidth, not
+// the tensor cores, caps this tile. Fusing the input
+// transform into the GEMM (design (b)) would recompute V once per 64
+// output channels on the CUDA cores (~8x the tensor cores' time per
+// stage), so V goes through device memory once instead.
+//
+// Pipeline (k3_gemm_fold, 384 threads, clusters of 2 CTAs along the output
+// channels). Warpgroup 2 is the producer: one thread walks (frequency,
+// 64-channel chunk) and per stage loads its CTA's half of the V tile
+// V[f][m0 + 64 r : +64, c : c+64] (8 KB) by TMA multicast into both CTAs of
+// the pair and its own U tile U[f][n0 : n0+64, c : c+64] (8 KB), all with
+// 128-byte swizzle, into a ring of STAGES = 6 stages (144 KB of shared
+// memory) guarded by full/empty mbarriers. The pair shares its V tiles, so
+// a block stage moves 16 KB, not 24 KB, from L2. Warpgroups 0 and 1 each run 4 wgmma.m64n64k16 per stage on their 64
+// rows of the V tile and the shared U tile, keep one wgmma group in flight
+// (more measured no faster), and release a stage to both CTAs once
+// the group that read it has retired: lane 0 of each consumer warp arrives
+// on both CTAs' empty barriers (16 releases per stage), by predicate and not
+// by branch, because a branch on the thread index between a wgmma and its
+// wait makes ptxas serialize every wgmma of the kernel (C7518). Six stages
+// measured as fast as four or eight. Blocks are numbered with the K/64
+// channel blocks of one tile block adjacent, so V tiles come from L2 after
+// their first read. The TMA box zero-fills the rows past T (a ragged last
+// tile block); the epilogue writes only tiles < T, two channels per store.
+//
+// Bound: operations. The 16 GEMMs do 2 * 16 * T * C * K flops (res2 at
+// batch 8: T = 8192, C = K = 1024, 2.75e11 flops, 0.278 ms at 989 TFLOP/s
+// bf16). Design (a) also writes and reads V: 2 * 16 * T * C * 2 bytes (537
+// MB at res2 batch 8, 0.16 ms at 3.35 TB/s), and the transform kernels run
+// before the GEMMs without overlap.
+//
+// fp32: the CUDA-core kernel (k3_fp32_kernel) of the first port, unchanged:
+// a block owns one row of up to 32 tiles, 64 output channels and all 16
+// frequencies, walks C in chunks of 16 (cp.async, double-buffered),
+// transforms the slab to V in shared memory, and each thread accumulates 4
+// tiles x 1 channel x 16 frequencies in registers. U is [16, C, K] there.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 
-#include <type_traits>
+#include <utility>
 
 #include "common.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
+// ---------------------------------------------------------------------------
+// fp32 storage: CUDA-core kernel
+// ---------------------------------------------------------------------------
 constexpr int TT = 32;   // Winograd tiles per block (along W)
 constexpr int BN = 64;   // output channels per block
 constexpr int CK = 16;   // input channels per chunk
 constexpr int NT = 512;  // threads per block
 constexpr int XW = 2 * TT + 2;
-// Padded shared-memory row strides: rows of V and U land on different
-// banks, so the 8-row ldmatrix loads behind WMMA (and the fp32 path's
-// float4 reads) are conflict-free.
+// Padded shared-memory row strides: the float4 reads of V are free of bank
+// conflicts.
 constexpr int VLD = TT + 8;  // V rows [16][CK][VLD]
 constexpr int ULD = BN + 8;  // U rows [16][CK][ULD]
-constexpr int MLD = BN + 4;  // accumulator rows [16][TT][MLD] (floats)
 constexpr int XS = 4 * XW * CK, US = 16 * CK * ULD, VS = 16 * CK * VLD;
 static_assert(TT * CK == NT, "one (tile, channel) of the input transform per thread");
-static_assert(16 * 32 == NT, "one warp per frequency in the tensor-core path");
-
-// Shared memory: xs[2][4][XW][CK] and us[2][16][CK][ULD] (double-buffered,
-// filled by cp.async), vs[16][CK][VLD]; the bf16 epilogue's fp32
-// accumulators ms[16][TT][MLD] reuse the same bytes after the main loop.
-template <typename T>
-constexpr size_t smem_bytes() {
-  const size_t main = sizeof(T) * (2 * XS + 2 * US + VS);
-  const size_t epi = std::is_same<T, __nv_bfloat16>::value ? sizeof(float) * 16 * TT * MLD : 0;
-  return main > epi ? main : epi;
-}
+// xs[2][4][XW][CK] and us[2][16][CK][ULD] (double-buffered, filled by
+// cp.async), vs[16][CK][VLD].
+constexpr size_t F32_SMEM = sizeof(float) * (2 * XS + 2 * US + VS);
 
 using rn::cp_async16;
 using rn::cp_async_commit;
 using rn::cp_async_wait;
 
-template <typename T>
-__device__ __forceinline__ void store_tile(const float m[16], T* __restrict__ y, int b,
+// The 4x4 input transform of one channel, in the reference's order:
+// v[4 * k1 + k2] = sum_s BT[k2, s] (sum_r BT[k1, r] d[r][s]).
+__device__ __forceinline__ void input_transform(const float d[4][4], float v[16]) {
+  float rt[4][4];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    rt[0][s] = d[0][s] - d[2][s];
+    rt[1][s] = d[1][s] + d[2][s];
+    rt[2][s] = -d[1][s] + d[2][s];
+    rt[3][s] = d[1][s] - d[3][s];
+  }
+#pragma unroll
+  for (int k1 = 0; k1 < 4; ++k1) {
+    v[4 * k1 + 0] = rt[k1][0] - rt[k1][2];
+    v[4 * k1 + 1] = rt[k1][1] + rt[k1][2];
+    v[4 * k1 + 2] = -rt[k1][1] + rt[k1][2];
+    v[4 * k1 + 3] = rt[k1][1] - rt[k1][3];
+  }
+}
+
+// U = G g G^T of one (c, k), g[r][s] = w[r, s, c, k], in fp32. The products
+// are exact (G holds 0, +-1/2, 1), so only the sums round, left to right as
+// in the plain version (ops/winograd.py:transform_weights).
+__device__ __forceinline__ void weight_transform(const float g[3][3], float u[16]) {
+  float t[4][3];
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    t[0][s] = g[0][s];
+    t[1][s] = (g[0][s] * 0.5f + g[1][s] * 0.5f) + g[2][s] * 0.5f;
+    t[2][s] = (g[0][s] * 0.5f + g[1][s] * -0.5f) + g[2][s] * 0.5f;
+    t[3][s] = g[2][s];
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    u[4 * a + 0] = t[a][0];
+    u[4 * a + 1] = (t[a][0] * 0.5f + t[a][1] * 0.5f) + t[a][2] * 0.5f;
+    u[4 * a + 2] = (t[a][0] * 0.5f + t[a][1] * -0.5f) + t[a][2] * 0.5f;
+    u[4 * a + 3] = t[a][2];
+  }
+}
+
+__device__ __forceinline__ void store_tile(const float m[16], float* __restrict__ y, int b,
                                            int th, int tw, int n, int H, int W, int K) {
   float r0[4], r1[4];
 #pragma unroll
@@ -83,22 +152,19 @@ __device__ __forceinline__ void store_tile(const float m[16], T* __restrict__ y,
 #pragma unroll
     for (int p2 = 0; p2 < 2; ++p2) {
       const long long pix = (static_cast<long long>(b) * H + 2 * th + p1) * W + 2 * tw + p2;
-      y[pix * K + n] = rn::from_f32<T>(out[p1][p2]);
+      y[pix * K + n] = out[p1][p2];
     }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT) wino_kernel(const T* __restrict__ x,
-                                                  const T* __restrict__ u,
-                                                  T* __restrict__ y, int H, int W, int C,
-                                                  int K) {
-  constexpr bool kTensorCores = std::is_same<T, __nv_bfloat16>::value;
-  constexpr int EPV = 16 / sizeof(T);  // elements per 16-byte copy
+__global__ void __launch_bounds__(NT) k3_fp32_kernel(const float* __restrict__ x,
+                                                     const float* __restrict__ u,
+                                                     float* __restrict__ y, int H, int W, int C,
+                                                     int K) {
+  constexpr int EPV = 4;  // floats per 16-byte copy
   extern __shared__ __align__(128) unsigned char smem[];
-  T* xs = reinterpret_cast<T*>(smem);
-  T* us = xs + 2 * XS;
-  T* vs = us + 2 * US;
-  float* ms = reinterpret_cast<float*>(smem);
+  float* xs = reinterpret_cast<float*>(smem);
+  float* us = xs + 2 * XS;
+  float* vs = us + 2 * US;
 
   const int nw = W / 2;
   const int ngroups = (nw + TT - 1) / TT;
@@ -106,19 +172,19 @@ __global__ void __launch_bounds__(NT) wino_kernel(const T* __restrict__ x,
   const int n0 = (blockIdx.x / ngroups) * BN;
   const int th = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
-  const T* xb = x + static_cast<long long>(b) * H * W * C;
+  const float* xb = x + static_cast<long long>(b) * H * W * C;
 
   // Stage channel chunk c0 into buffer st: the 4 x XW input slab (zeros
   // outside the image: the SAME halo) and the [16, CK, BN] slice of U.
   auto prefetch = [&](int c0, int st) {
-    T* xd = xs + st * XS;
-    T* ud = us + st * US;
+    float* xd = xs + st * XS;
+    float* ud = us + st * US;
     for (int i = tid; i < XS / EPV; i += NT) {
       const int e = i * EPV;
       const int c = e % CK, col = (e / CK) % XW, r = e / (CK * XW);
       const int hh = 2 * th - 1 + r, ww = 2 * tw0 - 1 + col;
       const bool in = hh >= 0 && hh < H && ww >= 0 && ww < W;
-      const T* src = in ? xb + (static_cast<long long>(hh) * W + ww) * C + c0 + c : xb;
+      const float* src = in ? xb + (static_cast<long long>(hh) * W + ww) * C + c0 + c : xb;
       cp_async16(xd + e, src, in ? 16 : 0);
     }
     for (int i = tid; i < 16 * CK * BN / EPV; i += NT) {
@@ -130,19 +196,11 @@ __global__ void __launch_bounds__(NT) wino_kernel(const T* __restrict__ x,
     cp_async_commit();
   };
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_tc[2][4];
-  float acc[4][16];  // fp32 path: [tile][frequency]
-  if constexpr (kTensorCores) {
+  float acc[4][16];  // [tile][frequency]
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+  for (int t = 0; t < 4; ++t)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc_tc[i][j], 0.f);
-  } else {
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int f = 0; f < 16; ++f) acc[t][f] = 0.f;
-  }
+    for (int f = 0; f < 16; ++f) acc[t][f] = 0.f;
 
   const int nchunks = C / CK;
   prefetch(0, 0);
@@ -155,145 +213,494 @@ __global__ void __launch_bounds__(NT) wino_kernel(const T* __restrict__ x,
       cp_async_wait<0>();
     }
     __syncthreads();
-    {  // V = B^T d B for tile t, channel c (fp32, the reference's order)
-      const T* xc = xs + st * XS;
+    {  // V for tile t, channel c
+      const float* xc = xs + st * XS;
       const int t = tid / CK, c = tid % CK;
-      float d[4][4], rt[4][4];
+      float d[4][4], v[16];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int s = 0; s < 4; ++s) d[r][s] = rn::to_f32(xc[(r * XW + 2 * t + s) * CK + c]);
+        for (int s = 0; s < 4; ++s) d[r][s] = xc[(r * XW + 2 * t + s) * CK + c];
+      input_transform(d, v);
 #pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        rt[0][s] = d[0][s] - d[2][s];
-        rt[1][s] = d[1][s] + d[2][s];
-        rt[2][s] = -d[1][s] + d[2][s];
-        rt[3][s] = d[1][s] - d[3][s];
-      }
-#pragma unroll
-      for (int k1 = 0; k1 < 4; ++k1) {
-        const float v[4] = {rt[k1][0] - rt[k1][2], rt[k1][1] + rt[k1][2],
-                            -rt[k1][1] + rt[k1][2], rt[k1][1] - rt[k1][3]};
-#pragma unroll
-        for (int k2 = 0; k2 < 4; ++k2)
-          vs[((k1 * 4 + k2) * CK + c) * VLD + t] = rn::from_f32<T>(v[k2]);
-      }
+      for (int f = 0; f < 16; ++f) vs[(f * CK + c) * VLD + t] = v[f];
     }
     __syncthreads();
-    const T* uc = us + st * US;
-    if constexpr (kTensorCores) {
-      const int f = tid / 32;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bm;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        wmma::load_matrix_sync(a[mt], vs + f * CK * VLD + mt * 16, VLD);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {  // each U fragment loaded once
-        wmma::load_matrix_sync(bm, uc + f * CK * ULD + nt * 16, ULD);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) wmma::mma_sync(acc_tc[mt][nt], a[mt], bm, acc_tc[mt][nt]);
-      }
-    } else {
-      // thread = (channel n, tiles 4tg..4tg+3); the 4 tiles' V values are
-      // one float4 (a broadcast: a warp shares tg), U is conflict-free.
-      const int n = tid % BN, tg = tid / BN;
+    const float* uc = us + st * US;
+    // thread = (channel n, tiles 4tg..4tg+3); the 4 tiles' V values are
+    // one float4 (a broadcast: a warp shares tg), U is conflict-free.
+    const int n = tid % BN, tg = tid / BN;
 #pragma unroll 1
-      for (int c = 0; c < CK; ++c)
+    for (int c = 0; c < CK; ++c)
 #pragma unroll
-        for (int f = 0; f < 16; ++f) {
-          const float uv = rn::to_f32(uc[(f * CK + c) * ULD + n]);
-          const float4 v4 = *reinterpret_cast<const float4*>(
-              reinterpret_cast<const float*>(vs) + (f * CK + c) * VLD + tg * 4);
-          acc[0][f] = fmaf(v4.x, uv, acc[0][f]);
-          acc[1][f] = fmaf(v4.y, uv, acc[1][f]);
-          acc[2][f] = fmaf(v4.z, uv, acc[2][f]);
-          acc[3][f] = fmaf(v4.w, uv, acc[3][f]);
-        }
-    }
+      for (int f = 0; f < 16; ++f) {
+        const float uv = uc[(f * CK + c) * ULD + n];
+        const float4 v4 = *reinterpret_cast<const float4*>(vs + (f * CK + c) * VLD + tg * 4);
+        acc[0][f] = fmaf(v4.x, uv, acc[0][f]);
+        acc[1][f] = fmaf(v4.y, uv, acc[1][f]);
+        acc[2][f] = fmaf(v4.z, uv, acc[2][f]);
+        acc[3][f] = fmaf(v4.w, uv, acc[3][f]);
+      }
     __syncthreads();  // the next prefetch overwrites this chunk's buffers
   }
 
-  if constexpr (kTensorCores) {
-    const int f = tid / 32;
+  const int n = tid % BN, tg = tid / BN;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-        wmma::store_matrix_sync(ms + (f * TT + mt * 16) * MLD + nt * 16, acc_tc[mt][nt], MLD,
-                                wmma::mem_row_major);
-    __syncthreads();
-    for (int i = tid; i < TT * BN; i += NT) {
-      const int t = i / BN, n = i % BN;
-      if (tw0 + t >= nw) continue;
-      float m[16];
-#pragma unroll
-      for (int f2 = 0; f2 < 16; ++f2) m[f2] = ms[(f2 * TT + t) * MLD + n];
-      store_tile(m, y, b, th, tw0 + t, n0 + n, H, W, K);
-    }
-  } else {
-    const int n = tid % BN, tg = tid / BN;
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-      if (tw0 + tg * 4 + t < nw) store_tile(acc[t], y, b, th, tw0 + tg * 4 + t, n0 + n, H, W, K);
-  }
+  for (int t = 0; t < 4; ++t)
+    if (tw0 + tg * 4 + t < nw) store_tile(acc[t], y, b, th, tw0 + tg * 4 + t, n0 + n, H, W, K);
 }
 
-// U = G w G^T for one (c, k) per thread: w [3][3][C][K] -> u [16][C][K],
-// in fp32 and rounded once to the storage type. The products are exact
-// (G holds 0, +-1/2, 1), so only the sums round, left to right as in the
-// plain version (ops/winograd.py:transform_weights).
-template <typename T>
-__global__ void wino_weights_kernel(const T* __restrict__ w, T* __restrict__ u, long long ck) {
+// U [16][C][K] for the fp32 kernel, one (c, k) per thread.
+__global__ void k3_fp32_weights(const float* __restrict__ w, float* __restrict__ u,
+                                long long ck) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= ck) return;
-  float g[3][3], t[4][3];
+  float g[3][3], v[16];
 #pragma unroll
   for (int r = 0; r < 3; ++r)
 #pragma unroll
-    for (int s = 0; s < 3; ++s) g[r][s] = rn::to_f32(w[(r * 3 + s) * ck + i]);
+    for (int s = 0; s < 3; ++s) g[r][s] = w[(r * 3 + s) * ck + i];
+  weight_transform(g, v);
 #pragma unroll
-  for (int s = 0; s < 3; ++s) {
-    t[0][s] = g[0][s];
-    t[1][s] = (g[0][s] * 0.5f + g[1][s] * 0.5f) + g[2][s] * 0.5f;
-    t[2][s] = (g[0][s] * 0.5f + g[1][s] * -0.5f) + g[2][s] * 0.5f;
-    t[3][s] = g[2][s];
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const float v[4] = {t[a][0], (t[a][0] * 0.5f + t[a][1] * 0.5f) + t[a][2] * 0.5f,
-                        (t[a][0] * 0.5f + t[a][1] * -0.5f) + t[a][2] * 0.5f, t[a][2]};
-#pragma unroll
-    for (int b = 0; b < 4; ++b) u[(a * 4 + b) * ck + i] = rn::from_f32<T>(v[b]);
+  for (int f = 0; f < 16; ++f) u[f * ck + i] = v[f];
+}
+
+// ---------------------------------------------------------------------------
+// bf16 storage: transforms, then wgmma + TMA GEMMs with the fold
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+
+constexpr int GM = 128;  // tiles per block: two consumer warpgroups x 64
+constexpr int GN = 64;   // output channels per block
+constexpr int GK = 64;   // input channels per stage: one 128-byte swizzle row
+constexpr int STAGES = 6;
+constexpr int A_BYTES = GM * GK * 2;  // V tile, 16 KB (half of it loaded by each CTA of a pair)
+constexpr int B_BYTES = GN * GK * 2;  // U tile, 8 KB
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int GEMM_THREADS = 384;  // warpgroups 0, 1 consume; 2 produces
+// Releases of a stage that its producer waits for: each consumer warp of
+// both CTAs of the pair (either CTA's multicast writes into both).
+constexpr int RELEASES = 2 * 8;
+constexpr size_t GEMM_SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * sizeof(uint64_t);
+static_assert(A_BYTES % 1024 == 0 && STAGE_BYTES % 1024 == 0,
+              "128-byte-swizzled tiles start on 1024-byte boundaries");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the completion of the barrier's phase with the given parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  while (!mbar_try_wait(bar, parity)) {
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* u, void* y, int B, int H, int W, int C, int K,
-           cudaStream_t s) {
+// Lane 0 of the calling warp arrives on a barrier of this CTA and on the
+// same barrier of the peer CTA (its shared::cluster address). Predicated,
+// not branched: a branch on the thread index between a wgmma and its wait
+// makes ptxas serialize every wgmma of the kernel.
+__device__ __forceinline__ void release_pair(uint32_t bar, uint32_t peer_bar, uint32_t lane) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.eq.u32 p, %0, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%1];\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [%2];\n"
+      "}\n" ::"r"(lane),
+      "r"(bar), "r"(peer_bar)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major tile with 128-byte rows and 128-byte
+// swizzle (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B) at shared
+// address a: 8-row groups 1024 bytes apart (SBO), the leading offset
+// unused, base offset 0 (tiles start on 1024-byte boundaries). The k-th
+// 16-wide slice of the row starts 32 k bytes later: add 2 k.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t a) {
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keep the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns the registers.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B for a 64 x 16 slice of A and a 16 x 64 slice of B, both bf16
+// K-major in shared memory; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// A^T's entries: row p (output phase), column k (frequency index).
+__host__ __device__ constexpr int at(int p, int k) {
+  return p == 0 ? (k < 3 ? 1 : 0) : (k == 0 ? 0 : (k == 1 ? 1 : -1));
+}
+
+template <int S>
+__device__ __forceinline__ void fold_into(const float (&m)[32], float (&y)[32]) {
+  if constexpr (S != 0) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) y[i] = S > 0 ? y[i] + m[i] : y[i] - m[i];
+  }
+}
+
+// A consumer warpgroup's state, per thread.
+struct Consumer {
+  uint32_t tiles;      // shared address of stage 0
+  uint32_t full;       // shared address of full[0]; empty[0] follows STAGES later
+  uint32_t peer_empty; // the peer CTA's empty[0], as a shared::cluster address
+  uint32_t lane;
+  int a_off, nk;
+  int i;               // the next stage to consume, counted over all frequencies
+  float acc[32];       // M of the current frequency
+  float y[4][32];      // output phases p1 * 2 + p2
+
+  // Frequency F: its GEMM over all C chunks, one wgmma group per stage with
+  // one group left in flight, then the fold into the output phases.
+  template <int F>
+  __device__ __forceinline__ void frequency() {
+    for (int kc = 0; kc < nk; ++kc, ++i) {
+      const uint32_t slot = i % STAGES;
+      mbar_wait(full + 8 * slot, (i / STAGES) & 1);
+      const uint32_t st = tiles + slot * STAGE_BYTES;
+      const uint64_t da = sw128_desc(st + a_off);
+      const uint64_t db = sw128_desc(st + A_BYTES);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < GK / 16; ++j) wgmma_m64n64k16(acc, da + 2 * j, db + 2 * j, kc | j);
+      wgmma_commit();
+      wgmma_wait<1>();  // stage i - 1's group has retired: release its slot
+      if (kc > 0) release(i - 1);
+    }
+    wgmma_wait<0>();
+    release(i - 1);
+    fence_regs(acc);
+    constexpr int k1 = F / 4, k2 = F % 4;
+    fold_into<at(0, k1) * at(0, k2)>(acc, y[0]);
+    fold_into<at(0, k1) * at(1, k2)>(acc, y[1]);
+    fold_into<at(1, k1) * at(0, k2)>(acc, y[2]);
+    fold_into<at(1, k1) * at(1, k2)>(acc, y[3]);
+  }
+
+  __device__ __forceinline__ void release(int j) {
+    const uint32_t off = 8 * (STAGES + j % STAGES);
+    release_pair(full + off, peer_empty + off - 8 * STAGES, lane);
+  }
+
+  template <int... F>
+  __device__ __forceinline__ void run(std::integer_sequence<int, F...>) {
+    (frequency<F>(), ...);
+  }
+};
+
+// Blocks come in clusters of two along the output channels: both CTAs of
+// a pair own the same 128 tiles, and each loads half of every V tile and
+// multicasts it to both, so a V tile leaves L2 once per pair.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(GEMM_THREADS, 1)
+    k3_gemm_fold(const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap umap,
+                 bf16* __restrict__ y, int T, int H, int W, int C, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t tiles = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = tiles + STAGES * STAGE_BYTES;  // full[s]: full + 8 s
+  const uint32_t empty = full + 8 * STAGES;            // empty[s]: empty + 8 s
+  const int nblk_n = K / GN;
+  const int n0 = (blockIdx.x % nblk_n) * GN;
+  const int m0 = (blockIdx.x / nblk_n) * GM;
+  const int nk = C / GK;
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  // The warpgroup index, broadcast from lane 0 so that the compiler sees
+  // the branch between the roles as uniform across each warp.
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, RELEASES);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Both CTAs' barriers exist before either multicasts or arrives remotely.
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
+               ::: "memory");
+
+  if (wg == 2) {  // producer: one thread keeps the ring full
+    if (threadIdx.x == 256) {
+      const int total = 16 * nk;
+      const uint64_t vm = reinterpret_cast<uint64_t>(&vmap), um = reinterpret_cast<uint64_t>(&umap);
+      const uint32_t half = rank * (A_BYTES / 2);  // this CTA's half of each V tile
+      const int m_half = m0 + GM / 2 * static_cast<int>(rank);
+      for (int L = 0; L < total + STAGES; ++L) {
+        const uint32_t slot = L % STAGES;
+        // Slot reuse: both CTAs' consumers have released stage L - STAGES.
+        // The last STAGES waits let every release, remote ones included,
+        // land before this CTA exits.
+        if (L >= STAGES) mbar_wait(empty + 8 * slot, ((L / STAGES) - 1) & 1);
+        if (L >= total) continue;
+        const uint32_t st = tiles + slot * STAGE_BYTES, bar = full + 8 * slot;
+        const int c = (L % nk) * GK, f = L / nk;
+        asm volatile(
+            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+            "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+            ".multicast::cluster [%2], [%3, {%4, %5, %6}], [%0], %7;\n"
+            "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%8], [%9, {%4, %10, %6}], [%0];\n" ::"r"(bar),
+            "r"(STAGE_BYTES), "r"(st + half), "l"(vm), "r"(c), "r"(m_half), "r"(f),
+            "h"(static_cast<uint16_t>(3)), "r"(st + A_BYTES), "l"(um), "r"(n0)
+            : "memory");
+      }
+    }
+  } else {
+    Consumer g;
+    g.tiles = tiles;
+    g.full = full;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(g.peer_empty)
+                 : "r"(empty), "r"(rank ^ 1));
+    g.lane = threadIdx.x % 32;
+    g.a_off = wg * (A_BYTES / 2);
+    g.nk = nk;
+    g.i = 0;
+#pragma unroll
+    for (int p = 0; p < 4; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) g.y[p][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) g.acc[i] = 0.f;
+    g.run(std::make_integer_sequence<int, 16>{});
+
+    // wgmma's accumulator layout: warp w of the warpgroup holds rows
+    // 16 w + lane / 4 (+ 8), columns 8 j + 2 (lane % 4) (+ 1) in registers
+    // 4 j (+ 1) and 4 j + 2 (+ 1).
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int nh = H / 2, nw = W / 2;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = m0 + wg * 64 + warp * 16 + lane / 4 + 8 * half;
+      if (t >= T) continue;
+      const int tw = t % nw, th = (t / nw) % nh, b = t / (nw * nh);
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const long long pix =
+            (static_cast<long long>(b) * H + 2 * th + p / 2) * W + 2 * tw + p % 2;
+        bf16* row = y + pix * K + n0 + 2 * (lane % 4);
+#pragma unroll
+        for (int j = 0; j < GN / 8; ++j)
+          *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+              __floats2bfloat162_rn(g.y[p][4 * j + 2 * half], g.y[p][4 * j + 2 * half + 1]);
+      }
+    }
+  }
+}
+
+// V [16][T][C] from x [B][H][W][C]: one thread per (tile, 8 channels), 16-
+// byte loads and stores, zeros outside the image (the SAME halo).
+__global__ void __launch_bounds__(256) k3_input_transform(const bf16* __restrict__ x,
+                                                          bf16* __restrict__ v, int B, int H,
+                                                          int W, int C) {
+  const int nh = H / 2, nw = W / 2, cg = C / 8;
+  const long long T = static_cast<long long>(B) * nh * nw;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= T * cg) return;
+  const int c = static_cast<int>(i % cg) * 8;
+  const long long t = i / cg;
+  const int tw = static_cast<int>(t % nw), th = static_cast<int>((t / nw) % nh);
+  const int b = static_cast<int>(t / (static_cast<long long>(nw) * nh));
+  uint4 raw[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int hh = 2 * th - 1 + r, ww = 2 * tw - 1 + s;
+      raw[r][s] = make_uint4(0, 0, 0, 0);
+      if (hh >= 0 && hh < H && ww >= 0 && ww < W)
+        raw[r][s] = __ldg(reinterpret_cast<const uint4*>(
+            x + ((static_cast<long long>(b) * H + hh) * W + ww) * C + c));
+    }
+  uint4 out[16];
+#pragma unroll
+  for (int pair = 0; pair < 4; ++pair) {  // channels 2 pair, 2 pair + 1
+    float d0[4][4], d1[4][4], v0[16], v1[16];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const uint32_t word = reinterpret_cast<const uint32_t*>(&raw[r][s])[pair];
+        const float2 f2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&word));
+        d0[r][s] = f2.x;
+        d1[r][s] = f2.y;
+      }
+    input_transform(d0, v0);
+    input_transform(d1, v1);
+#pragma unroll
+    for (int f = 0; f < 16; ++f) {
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(v0[f], v1[f]);
+      reinterpret_cast<uint32_t*>(&out[f])[pair] = *reinterpret_cast<const uint32_t*>(&h2);
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < 16; ++f) *reinterpret_cast<uint4*>(v + (f * T + t) * C + c) = out[f];
+}
+
+// U [16][K][C] from w [3][3][C][K]: a block transposes a 32 x 32 (c, k)
+// tile of all 9 taps through shared memory, so that reads run along k and
+// writes along c.
+__global__ void __launch_bounds__(256) k3_weight_transform(const bf16* __restrict__ w,
+                                                           bf16* __restrict__ u, int C, int K) {
+  __shared__ float tile[9][32][33];
+  const int c0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
+  for (int e = threadIdx.x; e < 9 * 32 * 32; e += 256) {
+    const int tap = e / 1024, cc = (e / 32) % 32, kk = e % 32;
+    const long long src = (static_cast<long long>(tap) * C + c0 + cc) * K + k0 + kk;
+    tile[tap][cc][kk] = __bfloat162float(w[src]);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 32 * 32; e += 256) {
+    const int cc = e % 32, kk = e / 32;
+    float g[3][3], v[16];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int s = 0; s < 3; ++s) g[r][s] = tile[r * 3 + s][cc][kk];
+    weight_transform(g, v);
+#pragma unroll
+    for (int f = 0; f < 16; ++f)
+      u[(static_cast<long long>(f) * K + k0 + kk) * C + c0 + cc] = __float2bfloat16_rn(v[f]);
+  }
+}
+
+// cuTensorMapEncodeTiled, through the runtime's driver entry point (no
+// link against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &q);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A bf16 [16][rows][C] tensor as a 3D map with a box of 64 channels x
+// box_rows rows x 1 frequency, 128-byte swizzle, zeros past the edges.
+bool make_map(CUtensorMap* map, const void* base, long long rows, int C, int box_rows) {
+  const EncodeTiled encode = encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(rows), 16};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(C) * 2,
+                                 static_cast<cuuint64_t>(rows) * C * 2};
+  const cuuint32_t box[3] = {GK, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+                box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_bf16(const bf16* x, const bf16* w, bf16* u, bf16* v, bf16* y, int B, int H, int W,
+                int C, int K, cudaStream_t s) {
+  const long long T = static_cast<long long>(B) * (H / 2) * (W / 2);
+  CUtensorMap vmap, umap;
+  if (!make_map(&vmap, v, T, C, GM / 2) || !make_map(&umap, u, K, C, GN))
+    return static_cast<int>(cudaErrorInvalidValue);
+  k3_weight_transform<<<dim3(C / 32, K / 32), 256, 0, s>>>(w, u, C, K);
+  const long long nthreads = T * (C / 8);
+  k3_input_transform<<<static_cast<unsigned>((nthreads + 255) / 256), 256, 0, s>>>(x, v, B, H,
+                                                                                    W, C);
+  const cudaError_t err = cudaFuncSetAttribute(
+      k3_gemm_fold, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(GEMM_SMEM));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>((T + GM - 1) / GM) * (K / GN);
+  k3_gemm_fold<<<blocks, GEMM_THREADS, GEMM_SMEM, s>>>(vmap, umap, y, static_cast<int>(T), H, W,
+                                                       C, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32(const float* x, const float* w, float* u, float* y, int B, int H, int W, int C,
+               int K, cudaStream_t s) {
   const long long ck = static_cast<long long>(C) * K;
-  wino_weights_kernel<T><<<static_cast<unsigned>((ck + 255) / 256), 256, 0, s>>>(
-      static_cast<const T*>(w), static_cast<T*>(u), ck);
-  const size_t smem = smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(wino_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  k3_fp32_weights<<<static_cast<unsigned>((ck + 255) / 256), 256, 0, s>>>(w, u, ck);
+  const cudaError_t err = cudaFuncSetAttribute(
+      k3_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(F32_SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nw = W / 2;
   const dim3 grid(((nw + TT - 1) / TT) * (K / BN), H / 2, B);
-  wino_kernel<T><<<grid, NT, smem, s>>>(static_cast<const T*>(x), static_cast<const T*>(u),
-                                        static_cast<T*>(y), H, W, C, K);
+  k3_fp32_kernel<<<grid, NT, F32_SMEM, s>>>(x, u, y, H, W, C, K);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x [B, H, W, C], w [3, 3, C, K], u [16, C, K] (scratch for G w G^T),
-// y [B, H, W, K], all 16-byte aligned; H, W even, C % 16 == 0, K % 64 == 0
-// (the wrapper's envelope guarantees them).
-extern "C" int rn_winograd(const void* x, const void* w, void* u, void* y, int dtype, int B,
-                           int H, int W, int C, int K, void* stream) {
+// x [B, H, W, C], w [3, 3, C, K], y [B, H, W, K], all 16-byte aligned; H, W
+// even (the wrapper's envelope guarantees these). Scratch: fp32, u
+// [16, C, K] and v unused, C % 16 == 0, K % 64 == 0; bf16, u [16, K, C]
+// and v [16, B * H/2 * W/2, C], C % 64 == 0, K % 128 == 0.
+extern "C" int rn_winograd(const void* x, const void* w, void* u, void* v, void* y, int dtype,
+                           int B, int H, int W, int C, int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, u, y, B, H, W, C, K, s);
-  return launch<__nv_bfloat16>(x, w, u, y, B, H, W, C, K, s);
+  if (dtype == 0)
+    return launch_f32(static_cast<const float*>(x), static_cast<const float*>(w),
+                      static_cast<float*>(u), static_cast<float*>(y), B, H, W, C, K, s);
+  return launch_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                     static_cast<bf16*>(u), static_cast<bf16*>(v), static_cast<bf16*>(y), B, H,
+                     W, C, K, s);
 }

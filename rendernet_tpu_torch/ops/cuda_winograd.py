@@ -26,6 +26,7 @@ __all__ = [
     "wino_conv2d_forward",
     "wino_conv2d_plain",
     "wino_conv2d_supported",
+    "v_scratch_bytes",
     "wino_wgrad",
     "wino_wgrad_plain",
 ]
@@ -56,9 +57,10 @@ def wino_conv2d_supported(x_shape, w_shape, stride) -> bool:
 
     Its VMEM clause (``_tiles`` must find a (bn, bb, th) tiling that fits the
     TPU's scoped VMEM, in both orientations) is left out: the CUDA kernels'
-    tiles are fixed (K3: 32 tiles x 64 channels x 16 input channels per
-    step; K6: 32 tiles x 32 x 32 channels) and fit an SM's shared memory for
-    every shape, and ci, co multiples of 128 cover their channel steps."""
+    tiles are fixed (K3 bf16: 128 tiles x 64 channels x 64 input channels
+    per stage; K3 fp32: 32 tiles x 64 x 16; K6: 32 tiles x 32 x 32) and fit
+    an SM's shared memory for every shape, and ci, co multiples of 128 cover
+    their channel steps."""
     if len(x_shape) != 4 or len(w_shape) != 4:
         return False
     kh, kw, ci, co = w_shape
@@ -77,12 +79,24 @@ def _check(x: torch.Tensor, other: torch.Tensor, what: str) -> None:
         raise TypeError(f"{what}: float32 or bfloat16 storage, got {x.dtype}")
 
 
-def _kernel_fits(x_shape, k: int) -> bool:
-    """What K3 itself needs: NHWC, even H and W, C % 16 and K % 64. The
-    data gradient runs K3 on the io-swapped weights, whose channel counts
-    the envelope's multiples of 128 keep in range."""
+def _kernel_fits(x_shape, k: int, dtype: torch.dtype) -> bool:
+    """What K3 itself needs: NHWC, even H and W; in bf16 C % 64 (one
+    64-channel stage of the wgmma GEMMs) and K % 128 (pairs of 64-channel
+    blocks, one per CTA of a cluster), in fp32 C % 16 and K % 64. The data
+    gradient runs K3 on the io-swapped weights, whose channel counts the
+    envelope's multiples of 128 keep in range."""
+    cstep, kstep = (64, 128) if dtype == torch.bfloat16 else (16, 64)
     return (len(x_shape) == 4 and x_shape[1] % 2 == 0 and x_shape[2] % 2 == 0
-            and x_shape[3] % 16 == 0 and k % 64 == 0)
+            and x_shape[3] % cstep == 0 and k % kstep == 0)
+
+
+def v_scratch_bytes(x_shape, dtype: torch.dtype) -> int:
+    """Bytes of the V scratch ``[16, B * H/2 * W/2, C]`` that one bf16 K3
+    call allocates (its input transform's output); fp32 calls use none."""
+    if dtype != torch.bfloat16:
+        return 0
+    b, h, w, c = x_shape
+    return 16 * b * (h // 2) * (w // 2) * c * 2
 
 
 def wino_conv2d_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -90,24 +104,31 @@ def wino_conv2d_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     Winograd. A CUDA tensor runs the K3 kernel (raising on a shape the
     kernel cannot take); a CPU tensor runs the plain version. The C entry
     first forms U = G w G^T (fp32, cast to ``x.dtype``) into a scratch
-    buffer, then runs the fused convolution."""
+    buffer; in bf16 it then writes V = B^T d B into a second scratch
+    ``[16, tiles, C]`` and runs the 16 GEMMs and the output transform, in
+    fp32 it runs the fused CUDA-core convolution. One launch is counted
+    per call."""
     if x.device.type == "cpu":
         return wino_conv2d_plain(x, w)
     _check(x, w, "wino_conv2d")
     if tuple(w.shape[:2]) != (3, 3) or w.shape[2] != x.shape[-1] or not _kernel_fits(
-            x.shape, w.shape[-1]):
+            x.shape, w.shape[-1], x.dtype):
         raise ValueError(f"wino_conv2d: {tuple(x.shape)} @ {tuple(w.shape)} is outside "
                          "the kernel's envelope; gate calls with wino_conv2d_supported")
     b, h, wd, c = x.shape
     k = w.shape[-1]
     x = _native.aligned(x)
     w = w.to(x.dtype).contiguous()
-    u = torch.empty((16, c, k), dtype=x.dtype, device=x.device)
+    bf16 = x.dtype == torch.bfloat16
+    u = torch.empty((16, k, c) if bf16 else (16, c, k), dtype=x.dtype, device=x.device)
+    v = torch.empty(v_scratch_bytes(x.shape, x.dtype) // x.element_size(), dtype=x.dtype,
+                    device=x.device)
     out = torch.empty((b, h, wd, k), dtype=x.dtype, device=x.device)
     lib = _native.load("winograd")
-    lib.rn_winograd.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    rc = lib.rn_winograd(x.data_ptr(), w.data_ptr(), u.data_ptr(), out.data_ptr(),
-                         _native.dtype_code(x.dtype), b, h, wd, c, k, _native.stream_ptr(x))
+    lib.rn_winograd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    rc = lib.rn_winograd(x.data_ptr(), w.data_ptr(), u.data_ptr(), v.data_ptr(),
+                         out.data_ptr(), _native.dtype_code(x.dtype), b, h, wd, c, k,
+                         _native.stream_ptr(x))
     _native.check(lib, rc, "K3 winograd")
     global launches
     launches += 1

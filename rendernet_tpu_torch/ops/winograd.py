@@ -29,7 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["transform_weights", "winograd3x3", "wino_wgrad_plain", "fold_weight_grad"]
+__all__ = ["input_transform", "transform_weights", "winograd3x3", "wino_wgrad_plain",
+           "fold_weight_grad"]
 
 # F(2x2, 3x3) transform matrices (Lavin & Gray, arXiv:1509.09308).
 _BT = np.array([
@@ -69,10 +70,12 @@ def transform_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.stack([_lincomb(t[a], _G[b]) for a in range(4) for b in range(4)]).to(dtype)
 
 
-def _input_transform(x: torch.Tensor):
+def input_transform(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """V = B^T d B of every 4x4 input tile of the SAME-padded ``x`` (an odd
-    H or W padded up by one) in fp32: ``[16, B * nh * nw, C]``, frequency
-    ``4 * k1 + k2``."""
+    H or W padded up by one), in fp32 then cast to ``dtype``: ``[B,H,W,C]
+    -> [16, B * nh * nw, C]``, tile ``(b * nh + th) * nw + tw``, frequency
+    ``4 * k1 + k2``. In bf16 this is the scratch that the K3 kernel's input
+    transform writes, bit for bit."""
     b, h, ww, c = x.shape
     ph, pw = -h % 2, -ww % 2
     nh, nw = (h + ph) // 2, (ww + pw) // 2
@@ -82,7 +85,7 @@ def _input_transform(x: torch.Tensor):
             for k1 in range(4)]
     v = [[_lincomb(rowt[k1], _BT[k2]) for k2 in range(4)] for k1 in range(4)]
     return torch.stack([v[k1][k2].reshape(b * nh * nw, c)
-                        for k1 in range(4) for k2 in range(4)])
+                        for k1 in range(4) for k2 in range(4)]).to(dtype)
 
 
 def winograd3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -91,7 +94,7 @@ def winograd3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, h, ww, _ = x.shape
     k = w.shape[-1]
     nh, nw = -(-h // 2), -(-ww // 2)
-    vmat = _input_transform(x).to(x.dtype)
+    vmat = input_transform(x, x.dtype)
     umat = transform_weights(w, x.dtype)
     m = torch.bmm(vmat.to(torch.float32), umat.to(torch.float32))
     m = m.reshape(4, 4, b, nh, nw, k)
@@ -111,7 +114,7 @@ def wino_wgrad_plain(x: torch.Tensor, gy: torch.Tensor, fp32_operands: bool = Fa
     fp32 (``pallas_winograd._wgrad_kernel``'s rounding points)."""
     k = gy.shape[-1]
     opdt = torch.float32 if fp32_operands else x.dtype
-    vmat = _input_transform(x).to(opdt)
+    vmat = input_transform(x, opdt)
     g = gy.to(torch.float32)
     gp = [g[:, p1::2, p2::2, :].reshape(-1, k) for p1 in range(2) for p2 in range(2)]
     dm = torch.stack([

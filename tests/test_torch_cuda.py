@@ -60,11 +60,22 @@ def test_conv3d_kernel(cuda, dtype, xs, co):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_winograd_kernel(cuda, dtype):
+@pytest.mark.parametrize("xs,co", [
+    ((8, 6, 70, 256), 128),     # ragged: 840 tiles, 35 per row (odd), K = 128 != C
+    ((8, 10, 14, 384), 256),    # 280 tiles: not a multiple of 128, blocks span images
+    ((8, 4, 8, 256), 512),      # K > C, 64 tiles: one partial tile block
+    ((24, 8, 8, 512), 384),     # batch 24, 384 tiles: three whole tile blocks
+    ((8, 16, 16, 1024), 1024),  # the res2 width: 16 channel stages per frequency
+])
+def test_winograd_kernel(cuda, dtype, xs, co):
+    """K3 against its plain version, one launch counted per call."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    x = torch.randn(8, 6, 70, 256, generator=g, device=cuda).to(dtype)
-    w = (torch.randn(3, 3, 256, 128, generator=g, device=cuda) * 0.05).to(dtype)
-    _close(cuda_winograd.wino_conv2d(x, w), cuda_winograd.wino_conv2d_plain(x, w), dtype)
+    x = torch.randn(*xs, generator=g, device=cuda).to(dtype)
+    w = (torch.randn(3, 3, xs[-1], co, generator=g, device=cuda) * 0.05).to(dtype)
+    before = cuda_winograd.launches_by_shape[tuple(xs), co]
+    got = cuda_winograd.wino_conv2d(x, w)
+    assert cuda_winograd.launches_by_shape[tuple(xs), co] == before + 1
+    _close(got, cuda_winograd.wino_conv2d_plain(x, w), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
