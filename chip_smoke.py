@@ -6,7 +6,10 @@
 Phases, all of them on every run:
   1. build every CUDA kernel from ``rendernet_tpu_torch/csrc`` (one nvcc per
      source, in parallel), print the card's name and power limit, and count
-     K3's wgmma and TMA instructions in its SASS (none is a failure);
+     the tensor-core and TMA instructions in the SASS of K3's, K2's and K2w's
+     libraries (K3 without wgmma, or K2 / K2w without mma.sync or wgmma, is
+     a failure, as is a ptxas line saying it serializes K2's or K2w's
+     tensor-core code);
   2. kernels: call each kernel's wrapper (K1 resample pass, K4 its adjoint,
      K2 conv3d, K2w its weight gradient, K3 Winograd, K6 the Winograd weight
      gradient, K5 the fused wide conv, K5w its weight gradient) at the shapes the serving path (batch 8), the training step
@@ -60,9 +63,10 @@ Phases, all of them on every run:
 The kernels' launch counters are zeroed just before each run of phases 3,
 4, 5 and 6 and read just after; every run's counts are checked, shape by
 shape, against the counts its graph implies. K3's phase 2 rows carry the
-bytes of its bf16 V scratch; the serving and training profiles print K3's
-device time and share of busy time; a ``train_memory`` line gives the V
-scratch per training call and each training run's peak memory.
+bytes of its bf16 V scratch; the serving, training and recon profiles
+print K2's, K2w's and K3's device time and share of busy time; a
+``train_memory`` line gives the V scratch per training call and each
+training run's peak memory.
 
 Prints a ``{"kernels": [...]}`` line with one row per kernel, dtype and
 main-path shape: a serving row's ``launches`` is per batch-8 forward of that
@@ -1532,10 +1536,16 @@ def run_conv2d(torch, failures, per_step):
     return out
 
 
+# Device kernels of K2, K2w and K3 in a profile, by substrings of their
+# names.
+PROFILED = {"K2": ("conv3d_mma_kernel", "conv3d_core_kernel"), "K2w": ("conv3d_wgrad_",),
+            "K3": ("k3_",)}
+
+
 def profile_run(torch, fn, top: int = 12):
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
-    the device's busy share of its wall time, and K3's device time and share
-    of the busy time (its kernels' names all start with "k3_")."""
+    the device's busy share of its wall time, and K2's, K2w's and K3's
+    device time and share of the busy time (their kernels by PROFILED)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1560,10 +1570,11 @@ def profile_run(torch, fn, top: int = 12):
     res = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "device_idle_share": 1.0 - busy_us / wall_us if wall_us else None,
            "top": [{"kernel": k[:90], "count": c, "ms": us / 1e3} for k, c, us in rows[:top]]}
-    k3 = [r for r in rows if "k3_" in r[0]]
-    k3_us = sum(r[2] for r in k3)
-    res["K3"] = {"ms": k3_us / 1e3, "kernels": sum(r[1] for r in k3),
-                 "busy_share": k3_us / busy_us if busy_us else None}
+    for kid, names in PROFILED.items():
+        mine = [r for r in rows if any(n in r[0] for n in names)]
+        us = sum(r[2] for r in mine)
+        res[kid] = {"ms": us / 1e3, "kernels": sum(r[1] for r in mine),
+                    "busy_share": us / busy_us if busy_us else None}
     log("profile " + json.dumps(res))
     return res
 
@@ -1591,22 +1602,30 @@ class plain_kernels:
             setattr(m, n, orig)
 
 
-def k3_sass(failures) -> None:
-    """Counts K3's wgmma (HGMMA) and TMA load (UTMALDG) instructions in the
-    built library's SASS; K3's bf16 path must issue wgmma. Skipped, and
-    said so, where the toolkit has no cuobjdump."""
+# Tensor-core instructions each library must hold: K3's bf16 GEMM is wgmma
+# (HGMMA); K2's and K2w's bf16 kernels are mma.sync (HMMA).
+SASS_NEEDS = {"winograd": ("HGMMA",), "conv3d": ("HMMA", "HGMMA"),
+              "conv3d_wgrad": ("HMMA", "HGMMA")}
+
+
+def kernel_sass(failures) -> None:
+    """Counts the tensor-core (HMMA, HGMMA) and TMA load (UTMALDG)
+    instructions in the SASS of K3's, K2's and K2w's libraries; each must
+    issue one of those SASS_NEEDS names. Skipped, and said so, where the
+    toolkit has no cuobjdump."""
     from rendernet_tpu_torch.ops import _native
 
     tool = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
-        log("sass [winograd] not inspected: no cuobjdump beside nvcc")
+        log("sass not inspected: no cuobjdump beside nvcc")
         return
-    sass = subprocess.run([tool, "-sass", str(_native._target("winograd"))],
-                          capture_output=True, text=True).stdout
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
-    log(f"sass [winograd] {json.dumps(counts)}")
-    if not counts["HGMMA"]:
-        failures.append("K3's library issues no wgmma (HGMMA) instruction")
+    for name, needs in SASS_NEEDS.items():
+        sass = subprocess.run([tool, "-sass", str(_native._target(name))],
+                              capture_output=True, text=True).stdout
+        counts = {op: sass.count(op) for op in ("HMMA", "HGMMA", "UTMALDG")}
+        log(f"sass [{name}] {json.dumps(counts)}")
+        if not any(counts[op] for op in needs):
+            failures.append(f"{name}'s library issues no tensor-core instruction ({needs})")
 
 
 def main() -> int:
@@ -1633,14 +1652,15 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _native.build_all()
     log(f"built {len(logs)} kernel libraries in {time.perf_counter() - t0:.1f} s")
+    failures: list = []
     for name, text in logs.items():
         for line in text.splitlines():
             if ("registers" in line or "spill" in line or "Compiling entry" in line
                     or "Performance Loss" in line):  # ptxas serializing wgmma, say
                 log(f"  [{name}] {line.strip()}")
-
-    failures: list = []
-    k3_sass(failures)
+            if "Performance Loss" in line and name.startswith("conv3d"):
+                failures.append(f"ptxas serializes tensor-core code in {name}: {line.strip()}")
+    kernel_sass(failures)
     t0 = time.perf_counter()
     rows = run_kernel_checks(torch, failures)
     log(f"phase 2 (kernels) took {time.perf_counter() - t0:.1f} s")

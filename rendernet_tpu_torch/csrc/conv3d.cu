@@ -1,5 +1,6 @@
 // K2: SAME, stride-1, 3x3x3 convolution, channels last, for the narrow
 // (16/32/64 output channel) 3D stack: [B, H, W, D, C] @ [3, 3, 3, C, co].
+// The data gradient runs the same kernel on the flipped, io-swapped weights.
 //
 // Replaces rendernet_tpu/ops/pallas_conv3d.py:_fwd_kernel (reached through
 // pl.pallas_call in _conv_call, entry nc_conv3d). The TPU kernel packs
@@ -9,172 +10,206 @@
 // M = output positions, N = co, K = 27 * C, fp32 accumulation.
 //
 // Bound: operations. 2 * M * co * 27 * C flops (a 32 -> 32 res1 conv at
-// batch 8 on 64 x 64 x 32: 5.8e10 flops, 59 us at 989 TFLOP/s bf16; 0.87 ms
-// at 67 TFLOP/s fp32), against ~34 MB of traffic (10 us). A block owns one
-// (b, h), 4 positions along W and 16 along D, and all co. It walks C in
-// chunks and stages the 3 x 6 x 18 halo tile of each chunk in shared memory,
-// so the 27 taps read shared memory and each input value is read from
-// device memory ~5x (halo) instead of 27x.
-//   * bf16: tensor cores through WMMA 16x16x16 fragments. Warp i computes
-//     the 16 D-positions at W-offset i; for tap (kh, kw, kd) its A fragment
-//     is 16 consecutive halo rows (d + kd) of 16 channels, a plain
-//     row-major tile of the staged halo, and its B fragments come from the
-//     chunk's weights, staged in shared memory beside the halo (zero-padded
-//     by the wrapper to a channel count that is a multiple of 16). Both are
-//     copied with 16-byte loads.
-//   * fp32: CUDA-core FMAs. Each thread owns one position and co/4 output
-//     channels in registers; the weights of the chunk sit in shared memory
-//     and every warp reads the same weight (a broadcast).
+// batch 24 on 64 x 64 x 32: 1.74e11 flops, 0.176 ms at 989 TFLOP/s bf16)
+// against 0.40 GB of compulsory traffic (x in, y out: 0.12 ms).
+//
+// bf16, C <= 32 (every conv of the models): persistent CTAs, one per SM,
+// 8 warps. A CTA loads the weights [27, C, co] into shared memory once
+// (zero rows past C; 55 KB at 32 -> 32) and keeps them there while it walks
+// its range of rows (conv3d_tile.cuh): per row, one output plane of 8 W x
+// 32 D positions of one (b, h), from the three halo planes h - 1, h, h + 1
+// of a cp.async ring (each plane loaded once per column). Warp i computes
+// the 32 D positions at W offset i: for each tap (kh, kw, kd) and 16-channel
+// chunk its A fragments are two 16-row ldmatrix loads of the halo plane kh
+// at rows (i + kw, kd + ...), its B fragments ldmatrix.trans loads of the
+// resident weights, and the products mma.sync m16n8k16 (bf16 in, fp32
+// accumulate). mma.sync and not wgmma: the A rows shift by one position per
+// kd, so A cannot be a wgmma shared-memory operand (its 8-row core matrices
+// start on 16-byte rows of one swizzle atom), and from registers it would
+// need a warpgroup-wide 64-row tile per (tap, chunk), four warps' lines at
+// once, for no fewer shared-memory reads. The epilogue rounds the fp32 sums
+// once to bf16 and stores them. Shared memory: 27 * 32 * co * 2 bytes of
+// weights + 5 ring slots of 10 x 34 x 32 x 2 bytes (164 KB at 32 -> 32,
+// 219 KB at 32 -> 64). C % 8 != 0 (a ragged channel count) stages the
+// planes element by element instead of by cp.async, in the same kernel.
+//
+// Shapes whose weights and ring do not fit shared memory (C > 32 in bf16;
+// no model has one) and fp32 run the CUDA-core kernel: a block owns one
+// (b, h), 4 W x 16 D positions and all co, walks C in chunks of 4 channels
+// (the weights stream through shared memory chunk by chunk), and each
+// thread keeps one position x co/4 channels in fp32 registers.
 // Bias stays outside the kernel, as in the reference's layer.
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "conv3d_tile.cuh"
 
 namespace {
 
-constexpr int TW = 4;    // output positions along W per block
-constexpr int TD = 16;   // output positions along D per block
-constexpr int HW = TW + 2, HD = TD + 2;
+using rn3::bf16;
+using rn3::Geom;
+using rn3::HD;
+using rn3::R;
+using rn3::TD;
+using rn3::TW;
 
-struct Geom {
-  int H, W, D, C, Cp;
-};
+constexpr int MMA_THREADS = 32 * TW;  // one warp per W line of a row
 
-__device__ __forceinline__ long long pix(const Geom& g, int b, int h, int w, int d) {
-  return ((static_cast<long long>(b) * g.H + h) * g.W + w) * g.D + d;
+template <int CO, int CP>
+constexpr int mma_smem_bytes() {
+  return 128 + 27 * CP * CO * 2 + R * rn3::HW * HD * CP * 2;
 }
 
-// bf16 tensor-core kernel: 128 threads, NF = co / 16 fragments per warp.
-// Dynamic shared memory: the halo tile xs[3][HW][HD][CK] and the chunk's
-// weights ws[27][CK][co + 8] (row stride padded against bank conflicts);
-// the epilogue's fp32 tile os[4 warps][16][co + 4] reuses the same bytes.
-template <int NF>
-constexpr int bf16_smem_bytes() {
-  const int main = 2 * (3 * HW * HD * 16 + 27 * 16 * (NF * 16 + 8));
-  const int epi = 4 * 4 * 16 * (NF * 16 + 4);
-  return main > epi ? main : epi;
-}
+// bf16 tensor-core kernel for C <= CP (CP = 16 or 32), co = CO.
+template <int CO, int CP, bool VEC>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    conv3d_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                      bf16* __restrict__ y, Geom g, int grid) {
+  constexpr int NX = CP / 8, NW = CO / 8;  // 16-byte chunks per plane row, weight row
+  constexpr int SLOT = rn3::HW * HD * CP * 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((128 - (rn3::smem_u32(smem_raw) & 127)) & 127);
+  unsigned char* ws = base;                        // [27 * CP rows][CO], swizzled
+  unsigned char* ring = base + 27 * CP * CO * 2;   // R slots of [HW * HD rows][CP]
+  const uint32_t ws_u = rn3::smem_u32(ws), ring_u = rn3::smem_u32(ring);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int lq = lane / 8, lr = lane % 8;  // ldmatrix: matrix and row of this lane
 
-template <int NF>
-__global__ void __launch_bounds__(128) conv3d_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                                                          const __nv_bfloat16* __restrict__ w,
-                                                          __nv_bfloat16* __restrict__ y,
-                                                          Geom g) {
-  constexpr int CK = 16, CO = NF * 16, WLD = CO + 8, OLD = CO + 4;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws = xs + 3 * HW * HD * CK;
-  float* os = reinterpret_cast<float*>(smem);
-  const int ndt = (g.D + TD - 1) / TD;
-  const int w0 = (blockIdx.x / ndt) * TW, d0 = (blockIdx.x % ndt) * TD;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid / 32;
+  for (int i = tid; i < 27 * CP * NW; i += MMA_THREADS) {
+    const int ch = i % NW, row = i / NW, c = row % CP, tap = row / CP;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (c < g.C)
+      v = *reinterpret_cast<const uint4*>(w + (static_cast<long long>(tap) * g.C + c) * CO +
+                                          ch * 8);
+    *reinterpret_cast<uint4*>(ws + rn3::swz<NW>(row, ch)) = v;
+  }
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
+  auto issue = [&](rn3::PlaneSeq& seq, int slot) {
+    long long col;
+    int q;
+    bool own;
+    if (!seq.next(col, q, own)) return false;
+    rn3::load_plane<NX, VEC>(x, g, rn3::column(g, col), q, 0, ring_u + slot * SLOT,
+                             ring + slot * SLOT, tid, MMA_THREADS);
+    rn::cp_async_commit();
+    return true;
+  };
+
+  auto row = [&](long long col, int h, int m) {
+    const rn3::Column c = rn3::column(g, col);
+    const int wo = c.w0 + warp;
+    if (wo >= g.W) return;  // warp-uniform: a ragged last W tile
+    float acc[2][CO / 8][4];
 #pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.f);
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bm;
-
-  for (int c0 = 0; c0 < g.Cp; c0 += CK) {
-    if (g.C % 8 == 0) {  // 16-byte loads of 8 channels
-      for (int i = tid; i < 3 * HW * HD * 2; i += 128) {
-        const int c = (i % 2) * 8, p = i / 2;
-        const int dd = p % HD, ww = (p / HD) % HW, kh = p / (HD * HW);
-        const int hh = h + kh - 1, wi = w0 + ww - 1, di = d0 + dd - 1;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (hh >= 0 && hh < g.H && wi >= 0 && wi < g.W && di >= 0 && di < g.D && c0 + c < g.C)
-          v = *reinterpret_cast<const uint4*>(x + pix(g, b, hh, wi, di) * g.C + c0 + c);
-        *reinterpret_cast<uint4*>(xs + p * CK + c) = v;
-      }
-    } else {
-      for (int i = tid; i < 3 * HW * HD * CK; i += 128) {
-        const int c = i % CK, dd = (i / CK) % HD, ww = (i / (CK * HD)) % HW, kh = i / (CK * HD * HW);
-        const int hh = h + kh - 1, wi = w0 + ww - 1, di = d0 + dd - 1;
-        __nv_bfloat16 v = __float2bfloat16_rn(0.f);
-        if (hh >= 0 && hh < g.H && wi >= 0 && wi < g.W && di >= 0 && di < g.D && c0 + c < g.C)
-          v = x[pix(g, b, hh, wi, di) * g.C + c0 + c];
-        xs[i] = v;
-      }
-    }
-    for (int i = tid; i < 27 * CK * CO / 8; i += 128) {
-      const int e = i * 8;
-      const int n = e % CO, c = (e / CO) % CK, tap = e / (CO * CK);
-      *reinterpret_cast<uint4*>(ws + (tap * CK + c) * WLD + n) =
-          *reinterpret_cast<const uint4*>(w + (static_cast<long long>(tap) * g.Cp + c0 + c) * CO + n);
-    }
-    __syncthreads();
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int n = 0; n < CO / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mf][n][e] = 0.f;
 #pragma unroll 1
-    for (int kh = 0; kh < 3; ++kh)
+    for (int kh = 0; kh < 3; ++kh) {
+      const uint32_t plane = ring_u + ((m - 2 + kh) % R) * SLOT;
 #pragma unroll 1
-      for (int kw = 0; kw < 3; ++kw)
+      for (int kw = 0; kw < 3; ++kw) {
 #pragma unroll
         for (int kd = 0; kd < 3; ++kd) {
-          wmma::load_matrix_sync(a, xs + ((kh * HW + warp + kw) * HD + kd) * CK, CK);
           const int tap = (kh * 3 + kw) * 3 + kd;
 #pragma unroll
-          for (int j = 0; j < NF; ++j) {
-            wmma::load_matrix_sync(bm, ws + tap * CK * WLD + j * 16, WLD);
-            wmma::mma_sync(acc[j], a, bm, acc[j]);
+          for (int kc = 0; kc < CP / 16; ++kc) {
+            unsigned a[2][4];
+#pragma unroll
+            for (int mf = 0; mf < 2; ++mf)
+              rn3::ldsm_x4(a[mf], plane + rn3::swz<NX>((warp + kw) * HD + kd + mf * 16 +
+                                                           (lq & 1) * 8 + lr,
+                                                       kc * 2 + (lq >> 1)));
+#pragma unroll
+            for (int nj = 0; nj < CO / 16; ++nj) {
+              unsigned b[4];
+              rn3::ldsm_x4_t(b, ws_u + rn3::swz<NW>(tap * CP + kc * 16 + (lq & 1) * 8 + lr,
+                                                    nj * 2 + (lq >> 1)));
+#pragma unroll
+              for (int mf = 0; mf < 2; ++mf) {
+                rn::mma_bf16(acc[mf][2 * nj], a[mf], b);
+                rn::mma_bf16(acc[mf][2 * nj + 1], a[mf], b + 2);
+              }
+            }
           }
         }
-    __syncthreads();
-  }
+      }
+    }
+    // Fragment rows: D positions d0 + 16 mf + lane / 4 (+ 8); columns:
+    // output channels 8 n + 2 (lane % 4) (+ 1).
 #pragma unroll
-  for (int j = 0; j < NF; ++j)
-    wmma::store_matrix_sync(os + warp * 16 * OLD + j * 16, acc[j], OLD, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < 4 * 16 * CO; i += 128) {
-    const int n = i % CO, dd = (i / CO) % 16, wi = i / (CO * 16);
-    const int wo = w0 + wi, dO = d0 + dd;
-    if (wo < g.W && dO < g.D)
-      y[pix(g, b, h, wo, dO) * CO + n] = __float2bfloat16_rn(os[(wi * 16 + dd) * OLD + n]);
-  }
+    for (int mf = 0; mf < 2; ++mf)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int d = c.d0 + mf * 16 + half * 8 + lane / 4;
+        if (d >= g.D) continue;
+        bf16* out = y + rn3::pix(g, c.b, h, wo, d) * CO + 2 * (lane % 4);
+#pragma unroll
+        for (int n = 0; n < CO / 8; ++n)
+          *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+              __floats2bfloat162_rn(acc[mf][n][2 * half], acc[mf][n][2 * half + 1]);
+      }
+  };
+
+  const long long r0 = g.rows * blockIdx.x / grid, r1 = g.rows * (blockIdx.x + 1) / grid;
+  rn3::walk_rows(r0, r1, g.H, issue, row);
 }
 
-template <int NF>
-void launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16* y,
-                 const Geom& g, dim3 grid, cudaStream_t s) {
-  constexpr int smem = bf16_smem_bytes<NF>();
-  if (cudaFuncSetAttribute(conv3d_bf16_kernel<NF>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess)
-    return;  // the error stays pending for cudaGetLastError()
-  conv3d_bf16_kernel<NF><<<grid, 128, smem, s>>>(x, w, y, g);
+template <int CO, int CP>
+cudaError_t launch_mma(const bf16* x, const bf16* w, bf16* y, const Geom& g, int grid,
+                       cudaStream_t s) {
+  constexpr int smem = mma_smem_bytes<CO, CP>();
+  const bool vec = g.C % 8 == 0;
+  auto kernel = vec ? &conv3d_mma_kernel<CO, CP, true> : &conv3d_mma_kernel<CO, CP, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, MMA_THREADS, smem, s>>>(x, w, y, g, grid);
+  return cudaGetLastError();
 }
 
-// fp32 CUDA-core kernel: 256 threads; thread = (position p, channel group ng).
 template <int CO>
-__global__ void __launch_bounds__(256) conv3d_f32_kernel(const float* __restrict__ x,
-                                                         const float* __restrict__ w,
-                                                         float* __restrict__ y, Geom g) {
+cudaError_t launch_mma_c(const bf16* x, const bf16* w, bf16* y, const Geom& g, int grid,
+                         cudaStream_t s) {
+  if (g.C <= 16) return launch_mma<CO, 16>(x, w, y, g, grid, s);
+  return launch_mma<CO, 32>(x, w, y, g, grid, s);
+}
+
+// CUDA-core kernel (fp32, and bf16 with C > 32): 256 threads; thread =
+// (position p, channel group ng). Tile: one (b, h), 4 W x 16 D positions.
+constexpr int CTW = 4, CTD = 16, CHW = CTW + 2, CHD = CTD + 2;
+
+template <typename T, int CO>
+__global__ void __launch_bounds__(256) conv3d_core_kernel(const T* __restrict__ x,
+                                                          const T* __restrict__ w,
+                                                          T* __restrict__ y, Geom g) {
   constexpr int CK = 4, NPT = CO / 4;
-  __shared__ float xs[3 * HW * CK * HD];  // [kh][w][c][d]: consecutive d, consecutive banks
-  __shared__ float ws[27 * CK * CO];      // [tap][c][n]
-  const int ndt = (g.D + TD - 1) / TD;
-  const int w0 = (blockIdx.x / ndt) * TW, d0 = (blockIdx.x % ndt) * TD;
+  __shared__ float xs[3 * CHW * CK * CHD];  // [kh][w][c][d]: consecutive d, consecutive banks
+  __shared__ float ws[27 * CK * CO];        // [tap][c][n]
+  const int ndt = (g.D + CTD - 1) / CTD;
+  const int w0 = (blockIdx.x / ndt) * CTW, d0 = (blockIdx.x % ndt) * CTD;
   const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x;
   const int p = tid % 64, ng = tid / 64;
-  const int wi = p / TD, dd = p % TD;
+  const int wi = p / CTD, dd = p % CTD;
 
   float acc[NPT];
 #pragma unroll
   for (int j = 0; j < NPT; ++j) acc[j] = 0.f;
 
-  for (int c0 = 0; c0 < g.Cp; c0 += CK) {
-    for (int i = tid; i < 3 * HW * CK * HD; i += 256) {
-      const int di = i % HD, c = (i / HD) % CK, ww = (i / (HD * CK)) % HW, kh = i / (HD * CK * HW);
+  for (int c0 = 0; c0 < g.C; c0 += CK) {
+    for (int i = tid; i < 3 * CHW * CK * CHD; i += 256) {
+      const int di = i % CHD, c = (i / CHD) % CK, ww = (i / (CHD * CK)) % CHW,
+                kh = i / (CHD * CK * CHW);
       const int hh = h + kh - 1, wx = w0 + ww - 1, dx = d0 + di - 1;
       float v = 0.f;
       if (hh >= 0 && hh < g.H && wx >= 0 && wx < g.W && dx >= 0 && dx < g.D && c0 + c < g.C)
-        v = x[pix(g, b, hh, wx, dx) * g.C + c0 + c];
+        v = rn::to_f32(x[rn3::pix(g, b, hh, wx, dx) * g.C + c0 + c]);
       xs[i] = v;
     }
     for (int i = tid; i < 27 * CK * CO; i += 256) {
       const int n = i % CO, c = (i / CO) % CK, tap = i / (CO * CK);
-      ws[i] = w[(static_cast<long long>(tap) * g.Cp + c0 + c) * CO + n];
+      ws[i] = c0 + c < g.C ? rn::to_f32(w[(static_cast<long long>(tap) * g.C + c0 + c) * CO + n])
+                           : 0.f;
     }
     __syncthreads();
 #pragma unroll 1
@@ -185,7 +220,7 @@ __global__ void __launch_bounds__(256) conv3d_f32_kernel(const float* __restrict
         for (int kd = 0; kd < 3; ++kd)
 #pragma unroll
           for (int c = 0; c < CK; ++c) {
-            const float av = xs[((kh * HW + wi + kw) * CK + c) * HD + dd + kd];
+            const float av = xs[((kh * CHW + wi + kw) * CK + c) * CHD + dd + kd];
             const float* wr = ws + (((kh * 3 + kw) * 3 + kd) * CK + c) * CO + ng * NPT;
 #pragma unroll
             for (int j = 0; j < NPT; ++j) acc[j] = fmaf(av, wr[j], acc[j]);
@@ -194,36 +229,45 @@ __global__ void __launch_bounds__(256) conv3d_f32_kernel(const float* __restrict
   }
   const int wo = w0 + wi, dO = d0 + dd;
   if (wo < g.W && dO < g.D) {
-    float* out = y + pix(g, b, h, wo, dO) * CO + ng * NPT;
+    T* out = y + rn3::pix(g, b, h, wo, dO) * CO + ng * NPT;
 #pragma unroll
-    for (int j = 0; j < NPT; ++j) out[j] = acc[j];
+    for (int j = 0; j < NPT; ++j) out[j] = rn::from_f32<T>(acc[j]);
   }
+}
+
+template <typename T>
+cudaError_t launch_core(const void* x, const void* w, void* y, const Geom& g, int co,
+                        cudaStream_t s) {
+  const dim3 grid(((g.W + CTW - 1) / CTW) * ((g.D + CTD - 1) / CTD), g.H, g.B);
+  auto xt = static_cast<const T*>(x);
+  auto wt = static_cast<const T*>(w);
+  auto yt = static_cast<T*>(y);
+  if (co == 16) conv3d_core_kernel<T, 16><<<grid, 256, 0, s>>>(xt, wt, yt, g);
+  if (co == 32) conv3d_core_kernel<T, 32><<<grid, 256, 0, s>>>(xt, wt, yt, g);
+  if (co == 64) conv3d_core_kernel<T, 64><<<grid, 256, 0, s>>>(xt, wt, yt, g);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// x [B, H, W, D, C]; w [27, Cp, co] with Cp = C rounded up to 16 and zero
-// rows past C; y [B, H, W, D, co]; co in {16, 32, 64}.
+// x [B, H, W, D, C], w [27, C, co] (contiguous), y [B, H, W, D, co]; co in
+// {16, 32, 64}; all 16-byte aligned. grid: the CTAs that split the rows on
+// the tensor-core path (bf16, C <= 32), at most the number of rows
+// (cuda_conv3d.conv3d_plan); the other shapes ignore it.
 extern "C" int rn_conv3d(const void* x, const void* w, void* y, int dtype, int B, int H,
-                         int W, int D, int C, int Cp, int co, void* stream) {
+                         int W, int D, int C, int co, int grid, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Geom g{H, W, D, C, Cp};
-  const dim3 grid(((W + TW - 1) / TW) * ((D + TD - 1) / TD), H, B);
+  const Geom g = rn3::make_geom(B, H, W, D, C);
   if (co != 16 && co != 32 && co != 64) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) {
-    auto xf = static_cast<const float*>(x);
-    auto wf = static_cast<const float*>(w);
-    auto yf = static_cast<float*>(y);
-    if (co == 16) conv3d_f32_kernel<16><<<grid, 256, 0, s>>>(xf, wf, yf, g);
-    if (co == 32) conv3d_f32_kernel<32><<<grid, 256, 0, s>>>(xf, wf, yf, g);
-    if (co == 64) conv3d_f32_kernel<64><<<grid, 256, 0, s>>>(xf, wf, yf, g);
-  } else {
-    auto xb = static_cast<const __nv_bfloat16*>(x);
-    auto wb = static_cast<const __nv_bfloat16*>(w);
-    auto yb = static_cast<__nv_bfloat16*>(y);
-    if (co == 16) launch_bf16<1>(xb, wb, yb, g, grid, s);
-    if (co == 32) launch_bf16<2>(xb, wb, yb, g, grid, s);
-    if (co == 64) launch_bf16<4>(xb, wb, yb, g, grid, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return static_cast<int>(launch_core<float>(x, w, y, g, co, s));
+  if (C > 32) return static_cast<int>(launch_core<bf16>(x, w, y, g, co, s));
+  if (grid < 1 || grid > g.rows) return static_cast<int>(cudaErrorInvalidValue);
+  auto xb = static_cast<const bf16*>(x);
+  auto wb = static_cast<const bf16*>(w);
+  auto yb = static_cast<bf16*>(y);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (co == 16) err = launch_mma_c<16>(xb, wb, yb, g, grid, s);
+  if (co == 32) err = launch_mma_c<32>(xb, wb, yb, g, grid, s);
+  if (co == 64) err = launch_mma_c<64>(xb, wb, yb, g, grid, s);
+  return static_cast<int>(err);
 }

@@ -133,7 +133,7 @@ def _kernel_for(x: torch.Tensor, w_shape, stride, ndim: int):
                                                                         stride):
         return "conv2d"
     if ndim == 2 and WINOGRAD_2D and cuda_winograd.wino_conv2d_supported(x.shape, w_shape,
-                                                                          stride):
+                                                                          stride, x.dtype):
         return "wino"
     return None
 

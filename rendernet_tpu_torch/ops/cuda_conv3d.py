@@ -11,6 +11,7 @@ Counterpart of ``rendernet_tpu/ops/pallas_conv3d.py``: ``[B,H,W,D,C] @
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 
 import torch
@@ -88,6 +89,57 @@ def nc_conv3d_wgrad_plain(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     return gw
 
 
+# The bf16 tensor-core kernels' column of positions (csrc/conv3d_tile.cuh:
+# TW x TD): a row is TILE_W x TILE_D positions of one (b, h).
+TILE_W, TILE_D = 8, 32
+
+
+def conv3d_rows(x_shape) -> int:
+    """Rows of the bf16 kernels' walk: one per (b, W tile, D tile, h)."""
+    b, h, w, d, _ = x_shape
+    return b * -(-w // TILE_W) * -(-d // TILE_D) * h
+
+
+def conv3d_plan(x_shape, n_sm: int) -> int:
+    """K2's persistent grid on its bf16 tensor-core path: one CTA per SM
+    (its weights and ring take most of an SM's shared memory), never more
+    CTAs than rows. CTA i walks rows ``[rows * i // grid, rows * (i + 1) //
+    grid)``."""
+    return min(conv3d_rows(x_shape), n_sm)
+
+
+def wgrad_plan(dtype: torch.dtype, x_shape, co: int, n_sm: int):
+    """K2w's partial sums: ``(parts, cpad)``, the workspace being ``parts *
+    27 * cpad * co`` fp32 values and ``parts`` the CTAs over positions.
+
+    bf16: a CTA owns a slice of up to 32 input x 32 output channels (16 x 16
+    where C or co is 16); ``cpad`` is C rounded up to the slice width, and
+    the ``n_sm`` CTAs, one per SM, are shared among the slices. fp32: the
+    CUDA-core kernel's chunks of position tiles (4 W x 16 D of one (b, h)),
+    sized for ~8 blocks per SM over 3 kh x the 16-channel slices."""
+    b, h, w, d, c = x_shape
+    if dtype == torch.bfloat16:
+        cs, os_ = (16 if c <= 16 else 32), (16 if co == 16 else 32)
+        slices = -(-c // cs) * (co // os_)
+        return max(1, min(conv3d_rows(x_shape), n_sm // slices)), -(-c // cs) * cs
+    nslices = -(-c // 16)
+    ntiles = b * h * -(-w // 4) * -(-d // 16)
+    return max(1, min(ntiles, -(-8 * n_sm // (3 * nslices)))), nslices * 16
+
+
+def kernel_weights(w: torch.Tensor) -> torch.Tensor:
+    """The weights as K2 reads them: ``[3, 3, 3, C, co]`` (JAX's layout) as a
+    contiguous, 16-byte aligned ``[27, C, co]``; a copy only where ``w`` is
+    a strided view, such as the data gradient's flipped, io-swapped
+    weights. Each CTA pads them to its channel step in shared memory."""
+    return _native.aligned(w.reshape(27, w.shape[3], w.shape[4]))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check_cuda(x: torch.Tensor, other: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda" or other.device != x.device or other.dtype != x.dtype:
         raise ValueError(f"{what}: both operands must be on one CUDA device, in one dtype")
@@ -97,7 +149,9 @@ def nc_conv3d_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The K2 wrapper: SAME stride-1 3x3x3 conv, ``[B,H,W,D,C] @ [3,3,3,C,co]``.
 
     A CUDA tensor inside :func:`nc_conv3d_supported` runs the K2 kernel (any
-    other CUDA input raises); a CPU tensor runs :func:`nc_conv3d_plain`.
+    other CUDA input raises); a CPU tensor runs :func:`nc_conv3d_plain`. The
+    kernel reads the weights as ``[27, C, co]``, copied only where ``w`` is
+    a strided view (the data gradient's flipped weights).
     """
     if x.device.type == "cpu":
         return nc_conv3d_plain(x, w)
@@ -107,15 +161,13 @@ def nc_conv3d_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          "the kernel's envelope; gate calls with nc_conv3d_supported")
     b, h, wd, d, c = x.shape
     co = w.shape[-1]
-    cp = -(-c // 16) * 16
-    x = _native.aligned(x)
-    wp = torch.zeros((27, cp, co), dtype=x.dtype, device=x.device)
-    wp[:, :c] = w.reshape(27, c, co)
+    x, wk = _native.aligned(x), kernel_weights(w)
     out = torch.empty((b, h, wd, d, co), dtype=x.dtype, device=x.device)
     lib = _native.load("conv3d")
     lib.rn_conv3d.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    rc = lib.rn_conv3d(x.data_ptr(), wp.data_ptr(), out.data_ptr(), _native.dtype_code(x.dtype),
-                       b, h, wd, d, c, cp, co, _native.stream_ptr(x))
+    rc = lib.rn_conv3d(x.data_ptr(), wk.data_ptr(), out.data_ptr(), _native.dtype_code(x.dtype),
+                       b, h, wd, d, c, co, conv3d_plan(x.shape, _sm_count(x.device.index)),
+                       _native.stream_ptr(x))
     _native.check(lib, rc, "K2 conv3d")
     global launches
     launches += 1
@@ -130,7 +182,8 @@ def nc_conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
 
     A CUDA tensor inside :func:`nc_conv3d_supported` runs the K2w kernel
     (any other CUDA input raises); a CPU tensor runs
-    :func:`nc_conv3d_wgrad_plain`.
+    :func:`nc_conv3d_wgrad_plain`. The partial-sum workspace is sized by
+    :func:`wgrad_plan`.
     """
     if x.device.type == "cpu":
         return nc_conv3d_wgrad_plain(x, gy)
@@ -142,18 +195,14 @@ def nc_conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"nc_conv3d_wgrad: x {tuple(x.shape)}, gy {tuple(gy.shape)} is "
                          "outside the kernel's envelope; gate calls with nc_conv3d_supported")
     x, gy = _native.aligned(x), _native.aligned(gy)
-    lib = _native.load("conv3d_wgrad")
-    dt = _native.dtype_code(x.dtype)
-    nchunks, cpad = ctypes.c_int(), ctypes.c_int()
-    lib.rn_conv3d_wgrad_plan.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 2
-    lib.rn_conv3d_wgrad_plan.restype = None
-    lib.rn_conv3d_wgrad_plan(dt, b, h, wd, d, c, co, ctypes.byref(nchunks), ctypes.byref(cpad))
-    part = torch.empty(nchunks.value * 27 * cpad.value * co, dtype=torch.float32,
-                       device=x.device)
+    parts, cpad = wgrad_plan(x.dtype, x.shape, co, _sm_count(x.device.index))
+    part = torch.empty(parts * 27 * cpad * co, dtype=torch.float32, device=x.device)
     out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
-    lib.rn_conv3d_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    rc = lib.rn_conv3d_wgrad(x.data_ptr(), gy.data_ptr(), part.data_ptr(), out.data_ptr(), dt,
-                             b, h, wd, d, c, co, _native.stream_ptr(x))
+    lib = _native.load("conv3d_wgrad")
+    lib.rn_conv3d_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    rc = lib.rn_conv3d_wgrad(x.data_ptr(), gy.data_ptr(), part.data_ptr(), out.data_ptr(),
+                             _native.dtype_code(x.dtype), b, h, wd, d, c, co, parts, cpad,
+                             _native.stream_ptr(x))
     _native.check(lib, rc, "K2w conv3d weight gradient")
     global wgrad_launches
     wgrad_launches += 1

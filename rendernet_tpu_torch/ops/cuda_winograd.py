@@ -49,18 +49,52 @@ wgrad_launches_by_shape: Counter = Counter()
 wino_conv2d_plain = winograd3x3
 
 
-def wino_conv2d_supported(x_shape, w_shape, stride) -> bool:
-    """The envelope of ``pallas_winograd.wino_conv2d_supported`` (:118-144):
-    SAME 3x3 stride 1, even H and W, ci >= 256, ci and co multiples of 128,
-    batch >= 8 (at batch 1 the JAX kernel was measured slower than the plain
-    conv, so single frames keep the conv path).
+# The TPU kernel's tiling fit, copied from ``pallas_winograd.py:12,23-116``
+# (without its benchmark hook ``TILE_OVERRIDE``) so that the port routes
+# exactly the convs JAX routes to its kernel.
+_VMEM_LIMIT = 100 * 1024 * 1024
 
-    Its VMEM clause (``_tiles`` must find a (bn, bb, th) tiling that fits the
-    TPU's scoped VMEM, in both orientations) is left out: the CUDA kernels'
-    tiles are fixed (K3 bf16: 128 tiles x 64 channels x 64 input channels
-    per stage; K3 fp32: 32 tiles x 64 x 16; K6: 32 tiles x 32 x 32) and fit
-    an SM's shared memory for every shape, and ci, co multiples of 128 cover
-    their channel steps."""
+
+def _vmem_bytes(nw, bb, cch, bn, th, xbytes):
+    """``pallas_winograd._vmem_bytes``: the TPU kernel's working set."""
+    u = 16 * cch * bn * xbytes
+    xrows = 2 * (2 * th + 2) * (2 * nw + 2) * bb * cch * xbytes
+    v = 16 * nw * bb * cch * 4
+    m = 16 * nw * bb * bn * 4
+    y = 2 * (2 * th) * (2 * nw) * bb * bn * xbytes
+    return u + xrows + v + m + y
+
+
+def _tiles(h, w, b, cch, co, xbytes):
+    """``pallas_winograd._tiles``: the first (bn, bb, th) whose working set
+    fits half the TPU kernel's scoped VMEM, or None."""
+    nw = w // 2
+    nh = h // 2
+    for bn in (512, 256, 128):
+        if co % bn:
+            continue
+        for bb in (8, 16, b):
+            if b % bb or (bb % 8 and bb != b):
+                continue
+            for th in (1, 2):
+                if nh % th:
+                    continue
+                if _vmem_bytes(nw, bb, cch, bn, th, xbytes) <= _VMEM_LIMIT // 2:
+                    return (bn, bb, th)
+    return None
+
+
+def wino_conv2d_supported(x_shape, w_shape, stride, dtype: torch.dtype) -> bool:
+    """The envelope of ``pallas_winograd.wino_conv2d_supported`` (:118-144),
+    clause for clause, so that both packages send the same convs to their
+    Winograd kernels: SAME 3x3 stride 1, even H and W, ci >= 256, ci and co
+    multiples of 128, batch >= 8 (at batch 1 the JAX kernel was measured
+    slower than the plain conv, so single frames keep the conv path), and
+    the TPU kernel's tiling fit (``_tiles``) in both orientations, since the
+    data gradient runs the kernel with ci and co swapped. ``dtype`` is the
+    activations' dtype: the fit depends on its itemsize. The CUDA kernels'
+    own tiles are fixed and fit every shape inside this envelope
+    (:func:`_kernel_fits`); the TPU's clause is kept for routing alone."""
     if len(x_shape) != 4 or len(w_shape) != 4:
         return False
     kh, kw, ci, co = w_shape
@@ -69,7 +103,11 @@ def wino_conv2d_supported(x_shape, w_shape, stride) -> bool:
     b, h, w, c = x_shape
     if c != ci or ci % 128 or co % 128 or ci < 256:
         return False
-    return h % 2 == 0 and w % 2 == 0 and b >= 8
+    if h % 2 or w % 2 or b < 8:
+        return False
+    xbytes = torch.tensor([], dtype=dtype).element_size()
+    return (_tiles(h, w, b, ci, co, xbytes) is not None
+            and _tiles(h, w, b, co, ci, xbytes) is not None)
 
 
 def _check(x: torch.Tensor, other: torch.Tensor, what: str) -> None:
@@ -153,7 +191,7 @@ def wino_wgrad(x: torch.Tensor, gy: torch.Tensor, fp32_operands: bool | None = N
     b, h, wd, c = x.shape
     k = gy.shape[-1]
     if (gy.dtype != x.dtype or tuple(gy.shape[:-1]) != (b, h, wd)
-            or not wino_conv2d_supported(x.shape, (3, 3, c, k), (1, 1))):
+            or not wino_conv2d_supported(x.shape, (3, 3, c, k), (1, 1), x.dtype)):
         raise ValueError(f"wino_wgrad: x {tuple(x.shape)}, gy {tuple(gy.shape)} is outside "
                          "the kernel's envelope; gate calls with wino_conv2d_supported")
     x, gy = _native.aligned(x), _native.aligned(gy)
@@ -204,7 +242,7 @@ def wino_conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     :data:`WGRAD` selects. A CUDA tensor outside
     :func:`wino_conv2d_supported` raises; CPU tensors take the plain
     versions."""
-    if x.device.type != "cpu" and not wino_conv2d_supported(x.shape, w.shape, (1, 1)):
+    if x.device.type != "cpu" and not wino_conv2d_supported(x.shape, w.shape, (1, 1), x.dtype):
         raise ValueError(f"wino_conv2d: {tuple(x.shape)} @ {tuple(w.shape)} is outside "
                          "the kernel's envelope; gate calls with wino_conv2d_supported")
     return _WinoConv2d.apply(x, w)

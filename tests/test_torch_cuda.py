@@ -49,14 +49,26 @@ def test_resample_pass_kernel(cuda, dtype):
     _close(got, cuda_resample.interp_pass_plain(vol, params, 40, 37), dtype)
 
 
+# K2 / K2w cases: every (C, co) of C in {16, 24, 32} and co in {16, 32, 64};
+# batches 1, 5 and 24 (24 at the res1 training shape); W and D that are not
+# multiples of the bf16 kernels' 8 x 32 tile; C % 8 != 0 (the planes staged
+# element by element); C = 8 and C > 32 (the CUDA-core kernel in bf16).
+CONV3D_CASES = [((1, 4, 8, 32, c), co) for c in (16, 24, 32) for co in (16, 32, 64)] + [
+    ((5, 8, 8, 32, 32), 32), ((24, 64, 64, 32, 32), 32), ((2, 5, 10, 24, 24), 64),
+    ((2, 4, 8, 20, 32), 32), ((2, 4, 8, 16, 20), 32), ((1, 4, 8, 8, 16), 16),
+    ((2, 3, 4, 8, 8), 32), ((2, 3, 8, 32, 48), 32)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("xs,co", [((2, 5, 10, 24, 24), 64), ((1, 4, 8, 8, 16), 16),
-                                   ((2, 3, 4, 8, 8), 32)])
+@pytest.mark.parametrize("xs,co", CONV3D_CASES)
 def test_conv3d_kernel(cuda, dtype, xs, co):
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn(*xs, generator=g, device=cuda).to(dtype)
     w = (torch.randn(3, 3, 3, xs[-1], co, generator=g, device=cuda) * 0.1).to(dtype)
-    _close(cuda_conv3d.nc_conv3d(x, w), cuda_conv3d.nc_conv3d_plain(x, w), dtype)
+    before = cuda_conv3d.launches_by_shape[tuple(xs), co]
+    got = cuda_conv3d.nc_conv3d(x, w)
+    assert cuda_conv3d.launches_by_shape[tuple(xs), co] == before + 1
+    _close(got, cuda_conv3d.nc_conv3d_plain(x, w), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -135,15 +147,18 @@ def test_wrappers_raise_outside_the_envelope(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("xs,co", [((2, 5, 10, 24, 24), 64), ((1, 4, 8, 8, 16), 16),
-                                   ((2, 3, 4, 8, 8), 32), ((1, 4, 8, 8, 32), 32)])
+@pytest.mark.parametrize("xs,co", CONV3D_CASES + [((1, 4, 8, 8, 32), 32)])
 def test_conv3d_wgrad_kernel(cuda, dtype, xs, co):
+    """K2w against its plain version, and run twice: the same bits (its
+    partial sums are added in a fixed order, with no atomics)."""
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(*xs, generator=g, device=cuda).to(dtype)
     gy = torch.randn(*xs[:-1], co, generator=g, device=cuda).to(dtype)
-    before = cuda_conv3d.wgrad_launches
+    before = cuda_conv3d.wgrad_launches_by_shape[tuple(xs), co]
     got = cuda_conv3d.nc_conv3d_wgrad(x, gy)
-    assert cuda_conv3d.wgrad_launches == before + 1
+    again = cuda_conv3d.nc_conv3d_wgrad(x, gy)
+    assert cuda_conv3d.wgrad_launches_by_shape[tuple(xs), co] == before + 2
+    assert torch.equal(got, again)
     _close(got, cuda_conv3d.nc_conv3d_wgrad_plain(x, gy), torch.float32)
 
 

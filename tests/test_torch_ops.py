@@ -212,25 +212,37 @@ def test_winograd_plain_matches_pallas(dtype):
     np.testing.assert_allclose(got, want, atol=tol, rtol=0)
 
 
-def test_winograd_envelope_matches_jax():
-    """Agrees with JAX wherever JAX's VMEM clause (_tiles) accepts; the port
-    leaves that TPU clause out."""
-    table = [
-        ((8, 64, 64, 1024), (3, 3, 1024, 1024), (1, 1)),
-        ((8, 64, 64, 512), (3, 3, 512, 512), (1, 1)),
-        ((8, 16, 16, 256), (3, 3, 256, 256), (1, 1)),
-        ((8, 6, 70, 256), (3, 3, 256, 128), (1, 1)),
-        ((1, 64, 64, 1024), (3, 3, 1024, 1024), (1, 1)),    # batch < 8
-        ((8, 64, 64, 128), (3, 3, 128, 128), (1, 1)),       # ci < 256
-        ((8, 64, 64, 320), (3, 3, 320, 320), (1, 1)),       # not a multiple of 128
-        ((8, 63, 64, 256), (3, 3, 256, 256), (1, 1)),       # odd H
-        ((8, 64, 64, 256), (4, 4, 256, 256), (1, 1)),       # 4x4
-        ((8, 64, 64, 256), (3, 3, 256, 256), (2, 2)),       # strided
-    ]
+# The old edge table of the envelope test; each model shape below is swept
+# over batches 8-64, where JAX's tiling clause (_tiles) turns convs away at
+# batches that are not multiples of 8.
+_WINO_EDGES = [
+    ((8, 64, 64, 1024), (3, 3, 1024, 1024), (1, 1)),
+    ((8, 64, 64, 512), (3, 3, 512, 512), (1, 1)),
+    ((8, 16, 16, 256), (3, 3, 256, 256), (1, 1)),
+    ((8, 6, 70, 256), (3, 3, 256, 128), (1, 1)),
+    ((1, 64, 64, 1024), (3, 3, 1024, 1024), (1, 1)),    # batch < 8
+    ((8, 64, 64, 128), (3, 3, 128, 128), (1, 1)),       # ci < 256
+    ((8, 64, 64, 320), (3, 3, 320, 320), (1, 1)),       # not a multiple of 128
+    ((8, 63, 64, 256), (3, 3, 256, 256), (1, 1)),       # odd H
+    ((8, 64, 64, 256), (4, 4, 256, 256), (1, 1)),       # 4x4
+    ((8, 64, 64, 256), (3, 3, 256, 256), (2, 2)),       # strided
+]
+_WINO_SWEEPS = {f"{h}x{w}x{c}": [((b, h, w, c), (3, 3, c, c), (1, 1)) for b in range(8, 65)]
+                for h, w, c in ((64, 64, 1024), (64, 64, 512), (32, 32, 1024), (32, 32, 512))}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cases", ["edges", *_WINO_SWEEPS])
+def test_winograd_envelope_matches_jax(cases, dtype):
+    """The port's envelope equals JAX's for the activations' dtype, its
+    tiling clause included: the edge table, and each model shape at every
+    batch from 8 to 64."""
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    table = _WINO_EDGES if cases == "edges" else _WINO_SWEEPS[cases]
     for xs, ws, st in table:
-        for jdt in (jnp.float32, jnp.bfloat16):
-            assert (cuda_winograd.wino_conv2d_supported(xs, ws, st)
-                    == pallas_winograd.wino_conv2d_supported(xs, ws, st, dtype=jdt)), (xs, ws)
+        assert (cuda_winograd.wino_conv2d_supported(xs, ws, st, tdt)
+                == pallas_winograd.wino_conv2d_supported(xs, ws, st, dtype=jdt)), (xs, ws)
 
 
 def test_phong_composite_matches_jax():

@@ -86,9 +86,9 @@ def test_envelope_fits_the_kernel_both_ways():
         for hw in (2, 6, 32, 64):
             for c in (256, 384, 512, 1024):
                 for k in (128, 256, 640, 1024):
-                    if not cuda_winograd.wino_conv2d_supported((b, hw, hw, c), (3, 3, c, k),
-                                                               (1, 1)):
-                        continue
                     for dt in (torch.float32, torch.bfloat16):
+                        if not cuda_winograd.wino_conv2d_supported((b, hw, hw, c),
+                                                                   (3, 3, c, k), (1, 1), dt):
+                            continue
                         assert cuda_winograd._kernel_fits((b, hw, hw, c), k, dt)
                         assert cuda_winograd._kernel_fits((b, hw, hw, k), c, dt)
