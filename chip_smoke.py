@@ -6,10 +6,11 @@
 Phases, all of them on every run:
   1. build every CUDA kernel from ``rendernet_tpu_torch/csrc`` (one nvcc per
      source, in parallel), print the card's name and power limit, and count
-     the tensor-core and TMA instructions in the SASS of K3's, K2's and K2w's
-     libraries (K3 without wgmma, or K2 / K2w without mma.sync or wgmma, is
-     a failure, as is a ptxas line saying it serializes K2's or K2w's
-     tensor-core code);
+     the tensor-core and TMA instructions in the SASS of K3's, K2's, K2w's,
+     K5's and K5w's libraries (K3, K5 or K5w without wgmma or without TMA
+     loads, or K2 / K2w without mma.sync or wgmma, is a failure, as is a
+     ptxas line saying it serializes K2's, K2w's, K5's or K5w's tensor-core
+     code);
   2. kernels: call each kernel's wrapper (K1 resample pass, K4 its adjoint,
      K2 conv3d, K2w its weight gradient, K3 Winograd, K6 the Winograd weight
      gradient, K5 the fused wide conv, K5w its weight gradient) at the shapes the serving path (batch 8), the training step
@@ -17,7 +18,11 @@ Phases, all of them on every run:
      inverse-rendering step (5 hypotheses; fp32 and bf16) give it, and at
      the data-gradient shapes, plus one ragged shape each; hold it against
      its plain PyTorch version in the working dtype; time kernel, plain
-     version and the cuDNN yardstick with CUDA events;
+     version and the library yardstick with CUDA events (cuDNN for the
+     convolutions; ``F.grid_sample``'s kernel ``grid_sampler_2d`` for K1
+     and its backward ``grid_sampler_2d_backward`` for K4, whose errors
+     against the plain version are printed, not gated: bf16 grids round
+     the positions);
   3. serving: run the render CLI (fp32, ``--fast --resample multipass
      --rotate --sweep_batch 8``: 72 frames, 9 batch-8 forwards) on a
      procedural voxel, then one bf16 ``shader_forward`` at batch 8, both at
@@ -64,7 +69,7 @@ The kernels' launch counters are zeroed just before each run of phases 3,
 4, 5 and 6 and read just after; every run's counts are checked, shape by
 shape, against the counts its graph implies. K3's phase 2 rows carry the
 bytes of its bf16 V scratch; the serving, training and recon profiles
-print K2's, K2w's and K3's device time and share of busy time; a
+print K2's, K2w's, K3's, K5's and K5w's device time and share of busy time; a
 ``train_memory`` line gives the V scratch per training call and each
 training run's peak memory.
 
@@ -402,9 +407,11 @@ def make_case(torch, op, spec, dtype, gen):
         u = torch.rand(bc, 4, generator=gen, device=dev) * 2 - 1
         params = torch.stack([1 + 0.4 * u[:, 0], 0.4 * u[:, 1], 0.4 * u[:, 2],
                               20 * u[:, 3]], dim=-1)
+        inp, grid = _grid_sample_operands(torch, vol, params, db, ol)
         return (lambda: cuda_resample.interp_pass_fwd(vol, params, db, ol),
                 lambda: cuda_resample.interp_pass_plain(vol, params, db, ol),
-                None, 10.0 * bc * r * ol, item * bc * (r * lanes + r * ol) + 16 * bc, False)
+                lambda: torch.grid_sampler_2d(inp, grid, 0, 0, True),
+                10.0 * bc * r * ol, item * bc * (r * lanes + r * ol) + 16 * bc, False)
     if op == "pass_bwd":  # reads v and g, writes gv (vol's dtype) and gp (fp32)
         bc, r, lanes, ol, db, taps, sign = spec
         vol = rnd(bc, r, lanes)
@@ -413,9 +420,13 @@ def make_case(torch, op, spec, dtype, gen):
         delta = 20 * u[:, 3] if sign > 0 else lanes - 1 - 20 * u[:, 3]
         params = torch.stack([alpha, 0.4 * u[:, 1], 0.4 * u[:, 2], delta], dim=-1)
         g = rnd(bc, r, ol)
+        inp, grid = _grid_sample_operands(torch, vol, params, db, ol)
+        g4 = g.reshape(bc * r, 1, 1, ol)
         return (lambda: cuda_resample.interp_pass_bwd(vol, params, g, db, taps, ol),
                 lambda: cuda_resample.interp_pass_bwd_plain(vol, params, g, db, taps, ol),
-                None, bc * r * (10.0 * taps * lanes + 8.0 * ol),
+                lambda: torch.ops.aten.grid_sampler_2d_backward(g4, inp, grid, 0, 0, True,
+                                                                [True, True]),
+                bc * r * (10.0 * taps * lanes + 8.0 * ol),
                 item * bc * r * (2 * lanes + ol) + 4 * bc * r * ol + 16 * bc, False)
     xs, co = spec[0], spec[1]
     m = math.prod(xs[:-1])
@@ -471,6 +482,41 @@ def make_case(torch, op, spec, dtype, gen):
                 lambda: grad.conv2d_weight(cf(x), (co, c, 3, 3), cf(gy), padding=1),
                 2.0 * 16 * tiles * c * co, item * (x.numel() + gy.numel()) + 4 * 9 * c * co, True)
     raise ValueError(op)
+
+
+def _grid_sample_operands(torch, vol, params, db, ol):
+    """K1's pass as ``F.grid_sample`` (bilinear, zeros padding, aligned
+    corners; timed as its native kernel ``torch.grid_sampler_2d``, since
+    the cuDNN sampler that ``F.grid_sample`` may pick refuses these shapes)
+    sees it: each of the BC * R rows an image of height 1 and width L,
+    sampled at the pass's positions ``alpha l + c_a d_a + c_b d_b + delta``
+    mapped to [-1, 1] (y 0). Zero padding is K1's out-of-range
+    rule; its backward gives K4's voxel cotangent and, times 2 / (L - 1),
+    its position cotangent. The grid takes the input's dtype (grid_sample
+    requires it), so in bf16 its positions round: its results are printed
+    beside the kernel's, not gated."""
+    bc, r, lanes = vol.shape
+    rows = torch.arange(r, device=vol.device)
+    d_a = (rows // db).to(torch.float32)[None, :, None]
+    d_b = (rows % db).to(torch.float32)[None, :, None]
+    ll = torch.arange(ol, device=vol.device, dtype=torch.float32)[None, None, :]
+    p = params.to(torch.float32)
+    pos = p[:, 0, None, None] * ll + (p[:, 1, None, None] * d_a + p[:, 2, None, None] * d_b
+                                      + p[:, 3, None, None])
+    x = pos * (2.0 / (lanes - 1)) - 1.0
+    grid = torch.stack([x, torch.zeros_like(x)], dim=-1).reshape(bc * r, 1, ol, 2)
+    return vol.reshape(bc * r, 1, 1, lanes), grid.to(vol.dtype)
+
+
+def library_as_plain(op, spec, out):
+    """The K1 / K4 library call's result in its plain version's layout:
+    K1 [BC, R, out_lanes]; K4 (gv [BC, R, L], gp [BC, R, out_lanes] fp32)."""
+    bc, r, lanes, ol = spec[:4]
+    if op == "pass":
+        return out.reshape(bc, r, ol)
+    gv, ggrid = out
+    gp = ggrid[..., 0].float() * (2.0 / (lanes - 1))
+    return gv.reshape(bc, r, lanes), gp.reshape(bc, r, ol)
 
 
 def conv2d_case(torch, op, spec, dtype, rnd, m, c):
@@ -545,6 +591,12 @@ def run_kernel_checks(torch, failures):
                 part_tol = (WGRAD_TOL if f32_out else KERNEL_TOL[dname]) * part_scale
                 ok = ok and bool(torch.isfinite(a.float()).all()) and part_err <= part_tol
                 err, scale, tol = max(err, part_err), max(scale, part_scale), max(tol, part_tol)
+            lib_err = None
+            if op in ("pass", "pass_bwd"):  # printed, not gated (library_as_plain)
+                lo = library_as_plain(op, spec, lib())
+                lo = lo if isinstance(lo, tuple) else (lo,)
+                lib_err = [float((a.float() - b.float()).abs().max()) for a, b in zip(lo, ref)]
+                del lo
             del got, ref
             kms = time_ms(torch, kern, 20)
             pms = time_ms(torch, plain, 5)
@@ -555,6 +607,8 @@ def run_kernel_checks(torch, failures):
                        max_abs_ref=scale, tol=tol, ok=ok, ms=kms, plain_ms=pms,
                        library_ms=lms, bound_ms=bms, bound_by=by, run=run,
                        key=case_key(op, spec))
+            if lib_err is not None:
+                row["library_max_abs_err"] = lib_err
             if kid == "K3":
                 row["v_scratch_bytes"] = cuda_winograd.v_scratch_bytes(spec[0], dtype)
             rows[kid, label, dname] = row
@@ -1536,16 +1590,17 @@ def run_conv2d(torch, failures, per_step):
     return out
 
 
-# Device kernels of K2, K2w and K3 in a profile, by substrings of their
-# names.
+# Device kernels of K2, K2w, K3, K5 and K5w in a profile, by substrings of
+# their (demangled) names.
 PROFILED = {"K2": ("conv3d_mma_kernel", "conv3d_core_kernel"), "K2w": ("conv3d_wgrad_",),
-            "K3": ("k3_",)}
+            "K3": ("k3_",), "K5": ("conv2d_wgmma_kernel", "conv2d_f32_kernel"),
+            "K5w": ("wgrad_wgmma_kernel", "::wgrad_f32_kernel", "::wgrad_reduce_kernel")}
 
 
 def profile_run(torch, fn, top: int = 12):
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
-    the device's busy share of its wall time, and K2's, K2w's and K3's
-    device time and share of the busy time (their kernels by PROFILED)."""
+    the device's busy share of its wall time, and the device time and share
+    of the busy time of each kernel in PROFILED."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1602,17 +1657,25 @@ class plain_kernels:
             setattr(m, n, orig)
 
 
-# Tensor-core instructions each library must hold: K3's bf16 GEMM is wgmma
-# (HGMMA); K2's and K2w's bf16 kernels are mma.sync (HMMA).
+# Tensor-core instructions each library must hold (any one of them): K3's,
+# K5's and K5w's bf16 GEMMs are wgmma (HGMMA); K2's and K2w's bf16 kernels
+# are mma.sync (HMMA). SASS_TMA: the libraries whose wgmma is fed by TMA
+# (UTMALDG) and must show it.
 SASS_NEEDS = {"winograd": ("HGMMA",), "conv3d": ("HMMA", "HGMMA"),
-              "conv3d_wgrad": ("HMMA", "HGMMA")}
+              "conv3d_wgrad": ("HMMA", "HGMMA"), "conv2d": ("HGMMA",),
+              "conv2d_wgrad": ("HGMMA",)}
+SASS_TMA = ("winograd", "conv2d", "conv2d_wgrad")
+# Libraries whose ptxas report must not say that it serializes their
+# tensor-core code ("Potential Performance Loss": C7515 / C7518 and kin).
+NO_SERIALIZATION = ("conv3d", "conv3d_wgrad", "conv2d", "conv2d_wgrad")
 
 
 def kernel_sass(failures) -> None:
     """Counts the tensor-core (HMMA, HGMMA) and TMA load (UTMALDG)
-    instructions in the SASS of K3's, K2's and K2w's libraries; each must
-    issue one of those SASS_NEEDS names. Skipped, and said so, where the
-    toolkit has no cuobjdump."""
+    instructions in the SASS of K3's, K2's, K2w's, K5's and K5w's
+    libraries; each must issue one of its SASS_NEEDS names, and those of
+    SASS_TMA a TMA load. Skipped, and said so, where the toolkit has no
+    cuobjdump."""
     from rendernet_tpu_torch.ops import _native
 
     tool = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
@@ -1626,6 +1689,8 @@ def kernel_sass(failures) -> None:
         log(f"sass [{name}] {json.dumps(counts)}")
         if not any(counts[op] for op in needs):
             failures.append(f"{name}'s library issues no tensor-core instruction ({needs})")
+        if name in SASS_TMA and not counts["UTMALDG"]:
+            failures.append(f"{name}'s library issues no TMA load (UTMALDG)")
 
 
 def main() -> int:
@@ -1658,7 +1723,7 @@ def main() -> int:
             if ("registers" in line or "spill" in line or "Compiling entry" in line
                     or "Performance Loss" in line):  # ptxas serializing wgmma, say
                 log(f"  [{name}] {line.strip()}")
-            if "Performance Loss" in line and name.startswith("conv3d"):
+            if "Performance Loss" in line and name in NO_SERIALIZATION:
                 failures.append(f"ptxas serializes tensor-core code in {name}: {line.strip()}")
     kernel_sass(failures)
     t0 = time.perf_counter()

@@ -1,0 +1,183 @@
+#!/usr/bin/env python3
+"""Times chosen kernels of the port, and the paths that run them, against an
+earlier revision of the repository, on one CUDA card.
+
+    mkdir -p _scratch/parent && git archive <rev> | tar -x -C _scratch/parent
+    python3 compare_parent.py _scratch/parent K5 K5w
+
+The arguments after the earlier revision's tree are kernel ids of
+``chip_smoke.py`` (K1, K4, K2, K2w, K3, K6, K5, K5w). Four processes, in
+turns earlier revision, this tree, this tree, earlier revision, each on its
+own tree's package and ``chip_smoke.py`` (kernels built from that tree's
+sources, into that tree's ``_build``):
+
+1. kernels: at every phase-2 row of those kernels (each dtype, ragged and
+   check shapes included), the wrapper's time (``chip_smoke.time_ms``:
+   CUDA events over repeated calls) beside the library call's where there
+   is one (cuDNN for the convolutions), and its error against the plain
+   version (``chip_smoke``'s tolerances);
+2. end to end, with ``layers.CUDA_CONV2D`` off and, where K5 or K5w is
+   chosen, also on (the fused wide-conv route): one bf16 batch-8
+   ``shader_forward`` at full width (ms per forward, and the device's idle
+   share over a profiled forward), ``bench.py``'s two training
+   configurations (batch 24, bf16, patch 128 and 64: two warm-up steps,
+   then E2E_STEPS steps on one batch, each timed synchronize to
+   synchronize; median and mean) and the bf16 inverse-rendering step at
+   ``ReconConfig()`` (a warm-up, then RECON_STEPS steps on a fixed random
+   target; ms per step).
+
+Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
+per kernel row and one per end-to-end route, each with the four turns'
+readings. Exits non-zero if a kernel row misses its tolerance.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+E2E_STEPS = 8
+RECON_STEPS = 5
+
+
+def _kernel_rows(torch, cs, kids):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for kid, label, op, spec, dnames, _ in cs.CASES:
+        if kid not in kids:
+            continue
+        for dname in dnames:
+            dtype = getattr(torch, dname)
+            kern, plain, lib, flops, nbytes, f32_out = cs.make_case(torch, op, spec, dtype, gen)
+            got, ref = kern(), plain()
+            got, ref = (x if isinstance(x, tuple) else (x,) for x in (got, ref))
+            err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, ref))
+            scale = max(float(b.float().abs().max()) for b in ref)
+            tol = (cs.WGRAD_TOL if f32_out else cs.KERNEL_TOL[dname]) * scale
+            del got, ref
+            print(json.dumps({"kernel": kid, "shape": label, "dtype": dname,
+                              "ms": cs.time_ms(torch, kern, 20),
+                              "library_ms": cs.time_ms(torch, lib, 20) if lib else None,
+                              "bound_ms": cs.bound(flops, nbytes, dname)[0], "err": err,
+                              "tol": tol}), flush=True)
+            torch.cuda.empty_cache()
+
+
+def _e2e(torch, np, cs, conv2d: bool) -> dict:
+    from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.recon.inverse import ReconConfig, initial_latents, make_recon_step
+    from rendernet_tpu_torch.train.config import TrainConfig
+    from rendernet_tpu_torch.train.steps import create_shader_state, make_shader_train_step
+
+    layers.WINOGRAD_2D, layers.CUDA_CONV2D = True, conv2d
+    res = {"conv2d": conv2d}
+    try:
+        net = init_shader_params(0, ShaderConfig(), device="cuda")
+        vox, _, pose = cs.bench_batch(torch, np, 8)
+        with torch.no_grad():
+            fwd = lambda: shader_forward(net, vox, pose, compute_dtype=torch.bfloat16,  # noqa: E731
+                                         resample="multipass")
+            res["forward_ms"] = cs.time_ms(torch, fwd, 10)
+            res["forward_idle_share"] = cs.profile_run(torch, fwd)["device_idle_share"]
+        del net, vox, pose
+        cfg = TrainConfig(batch_size=24, img_res=512, new_size=128, compute_dtype="bfloat16",
+                          is_greyscale=True, e_eta=1e-5, moment_dtype="bfloat16")
+        mcfg = ShaderConfig(preact_policy=True)
+        batch = cs.bench_batch(torch, np, 24)
+        state, tx = create_shader_state(0, mcfg, cfg, device="cuda")
+        for patch in (128, 64):
+            step = make_shader_train_step(mcfg, cfg, tx, patch)
+            times, losses = [], []
+            for i in range(2 + E2E_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, *batch, 1)
+                losses.append(float(loss))  # synchronizes
+                if i >= 2:
+                    times.append((time.perf_counter() - t0) * 1e3)
+            res[f"step{patch}_ms"] = {"median": statistics.median(times),
+                                      "mean": statistics.fmean(times)}
+            res[f"step{patch}_finite"] = all(math.isfinite(x) for x in losses)
+        del state, tx, batch
+        torch.cuda.empty_cache()
+        model = cs.recon_model(torch)
+        rcfg = ReconConfig(compute_dtype="bfloat16", light_elevation=cs.RECON_LIGHT_ELEVATION)
+        step = make_recon_step(model, rcfg)
+        lat = initial_latents(rcfg, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        target = torch.rand(5, 512, 512, 3, generator=gen, device="cuda")
+        lat, _ = step(lat, target)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sums = []
+        for _ in range(RECON_STEPS):
+            lat, per = step(lat, target)
+            sums.append(per.sum())
+        torch.cuda.synchronize()
+        res["recon16_ms"] = (time.perf_counter() - t0) / RECON_STEPS * 1e3
+        res["recon16_finite"] = all(math.isfinite(float(x)) for x in sums)
+    finally:
+        layers.WINOGRAD_2D, layers.CUDA_CONV2D = False, False
+        torch.cuda.empty_cache()
+    return res
+
+
+def run(tree: str, kids) -> None:
+    """One turn, on the package of ``tree`` (this process imports it)."""
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from rendernet_tpu_torch.ops import _native
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _native.build_all()
+    _kernel_rows(torch, cs, kids)
+    for conv2d in (False, True) if {"K5", "K5w"} & set(kids) else (False,):
+        print("e2e " + json.dumps(_e2e(torch, np, cs, conv2d)), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) >= 3 and sys.argv[1] == "--run":
+        run(sys.argv[2], sys.argv[3:])
+        return 0
+    if len(sys.argv) < 3:
+        print(__doc__, file=sys.stderr)
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    parent = str(Path(sys.argv[1]).resolve())
+    here = str(Path(__file__).resolve().parent)
+    kids = sys.argv[2:]
+    turns = []
+    for tree in (parent, here, here, parent):
+        out = subprocess.run([sys.executable, __file__, "--run", tree, *kids], check=True,
+                             stdout=subprocess.PIPE, text=True).stdout
+        turns.append([line for line in out.splitlines()
+                      if line.startswith("{") or line.startswith("e2e ")])
+    failed = 0
+    for rows in zip(*turns):
+        if rows[0].startswith("e2e "):
+            e2e = [json.loads(r[4:]) for r in rows]
+            print("e2e " + json.dumps({"conv2d": e2e[0]["conv2d"], "parent": [e2e[0], e2e[3]],
+                                       "new": [e2e[1], e2e[2]]}), flush=True)
+            continue
+        p0, n0, n1, p1 = (json.loads(r) for r in rows)
+        ok = all(r["err"] <= r["tol"] for r in (p0, n0, n1, p1))
+        failed += not ok
+        print(json.dumps({"kernel": n0["kernel"], "shape": n0["shape"], "dtype": n0["dtype"],
+                          "parent_ms": [p0["ms"], p1["ms"]], "new_ms": [n0["ms"], n1["ms"]],
+                          "library_ms": [r["library_ms"] for r in (p0, n0, n1, p1)],
+                          "bound_ms": n0["bound_ms"], "err_parent": p0["err"], "err_new": n0["err"],
+                          "tol": n0["tol"], "ok": ok}), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -66,11 +66,9 @@
 // frequencies, walks C in chunks of 16 (cp.async, double-buffered),
 // transforms the slab to V in shared memory, and each thread accumulates 4
 // tiles x 1 channel x 16 frequencies in registers. U is [16, C, K] there.
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
-
 #include <utility>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -285,97 +283,12 @@ constexpr size_t GEMM_SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * sizeof(u
 static_assert(A_BYTES % 1024 == 0 && STAGE_BYTES % 1024 == 0,
               "128-byte-swizzled tiles start on 1024-byte boundaries");
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait for the completion of the barrier's phase with the given parity.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-
-// Lane 0 of the calling warp arrives on a barrier of this CTA and on the
-// same barrier of the peer CTA (its shared::cluster address). Predicated,
-// not branched: a branch on the thread index between a wgmma and its wait
-// makes ptxas serialize every wgmma of the kernel.
-__device__ __forceinline__ void release_pair(uint32_t bar, uint32_t peer_bar, uint32_t lane) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.eq.u32 p, %0, 0;\n"
-      "@p mbarrier.arrive.shared::cta.b64 _, [%1];\n"
-      "@p mbarrier.arrive.shared::cluster.b64 _, [%2];\n"
-      "}\n" ::"r"(lane),
-      "r"(bar), "r"(peer_bar)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile with 128-byte rows and 128-byte
-// swizzle (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B) at shared
-// address a: 8-row groups 1024 bytes apart (SBO), the leading offset
-// unused, base offset 0 (tiles start on 1024-byte boundaries). The k-th
-// 16-wide slice of the row starts 32 k bytes later: add 2 k.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t a) {
-  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma that owns the registers.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d (+)= A B for a 64 x 16 slice of A and a 16 x 64 slice of B, both bf16
-// K-major in shared memory; scale_d 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
-                                                int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
+using rn::fence_regs;
+using rn::mbar_wait;
+using rn::sw128_desc;
+using rn::wgmma_commit;
+using rn::wgmma_fence;
+using rn::wgmma_wait;
 
 // A^T's entries: row p (output phase), column k (frequency index).
 __host__ __device__ constexpr int at(int p, int k) {
@@ -413,7 +326,7 @@ struct Consumer {
       const uint64_t db = sw128_desc(st + A_BYTES);
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < GK / 16; ++j) wgmma_m64n64k16(acc, da + 2 * j, db + 2 * j, kc | j);
+      for (int j = 0; j < GK / 16; ++j) rn::wgmma<GN, 0, 0>(acc, da + 2 * j, db + 2 * j, kc | j);
       wgmma_commit();
       wgmma_wait<1>();  // stage i - 1's group has retired: release its slot
       if (kc > 0) release(i - 1);
@@ -430,7 +343,7 @@ struct Consumer {
 
   __device__ __forceinline__ void release(int j) {
     const uint32_t off = 8 * (STAGES + j % STAGES);
-    release_pair(full + off, peer_empty + off - 8 * STAGES, lane);
+    rn::mbar_arrive_pair_lane0(full + off, peer_empty + off - 8 * STAGES, lane);
   }
 
   template <int... F>
@@ -446,34 +359,31 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(GEMM_THREADS, 1)
     k3_gemm_fold(const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap umap,
                  bf16* __restrict__ y, int T, int H, int W, int C, int K) {
   extern __shared__ unsigned char smem_raw[];
-  const uint32_t tiles = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t tiles = (rn::smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t full = tiles + STAGES * STAGE_BYTES;  // full[s]: full + 8 s
   const uint32_t empty = full + 8 * STAGES;            // empty[s]: empty + 8 s
   const int nblk_n = K / GN;
   const int n0 = (blockIdx.x % nblk_n) * GN;
   const int m0 = (blockIdx.x / nblk_n) * GM;
   const int nk = C / GK;
-  uint32_t rank;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  const uint32_t rank = rn::cluster_rank();
   // The warpgroup index, broadcast from lane 0 so that the compiler sees
   // the branch between the roles as uniform across each warp.
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, RELEASES);
+      rn::mbar_init(full + 8 * s, 1);
+      rn::mbar_init(empty + 8 * s, RELEASES);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    rn::fence_mbar_init();
   }
   // Both CTAs' barriers exist before either multicasts or arrives remotely.
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
-               ::: "memory");
+  rn::cluster_sync();
 
   if (wg == 2) {  // producer: one thread keeps the ring full
     if (threadIdx.x == 256) {
       const int total = 16 * nk;
-      const uint64_t vm = reinterpret_cast<uint64_t>(&vmap), um = reinterpret_cast<uint64_t>(&umap);
       const uint32_t half = rank * (A_BYTES / 2);  // this CTA's half of each V tile
       const int m_half = m0 + GM / 2 * static_cast<int>(rank);
       for (int L = 0; L < total + STAGES; ++L) {
@@ -485,24 +395,16 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(GEMM_THREADS, 1)
         if (L >= total) continue;
         const uint32_t st = tiles + slot * STAGE_BYTES, bar = full + 8 * slot;
         const int c = (L % nk) * GK, f = L / nk;
-        asm volatile(
-            "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-            "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-            ".multicast::cluster [%2], [%3, {%4, %5, %6}], [%0], %7;\n"
-            "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-            "[%8], [%9, {%4, %10, %6}], [%0];\n" ::"r"(bar),
-            "r"(STAGE_BYTES), "r"(st + half), "l"(vm), "r"(c), "r"(m_half), "r"(f),
-            "h"(static_cast<uint16_t>(3)), "r"(st + A_BYTES), "l"(um), "r"(n0)
-            : "memory");
+        rn::mbar_expect_tx(bar, STAGE_BYTES);
+        rn::tma_load_3d_multicast(st + half, &vmap, c, m_half, f, bar, 3);
+        rn::tma_load_3d(st + A_BYTES, &umap, c, n0, f, bar);
       }
     }
   } else {
     Consumer g;
     g.tiles = tiles;
     g.full = full;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(g.peer_empty)
-                 : "r"(empty), "r"(rank ^ 1));
+    g.peer_empty = rn::cluster_address(empty, rank ^ 1);
     g.lane = threadIdx.x % 32;
     g.a_off = wg * (A_BYTES / 2);
     g.nk = nk;
@@ -615,45 +517,12 @@ __global__ void __launch_bounds__(256) k3_weight_transform(const bf16* __restric
   }
 }
 
-// cuTensorMapEncodeTiled, through the runtime's driver entry point (no
-// link against libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &q);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A bf16 [16][rows][C] tensor as a 3D map with a box of 64 channels x
 // box_rows rows x 1 frequency, 128-byte swizzle, zeros past the edges.
 bool make_map(CUtensorMap* map, const void* base, long long rows, int C, int box_rows) {
-  const EncodeTiled encode = encoder();
-  if (!encode) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(rows), 16};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(C) * 2,
-                                 static_cast<cuuint64_t>(rows) * C * 2};
-  const cuuint32_t box[3] = {GK, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
-                box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const long long dims[3] = {C, rows, 16}, strides[2] = {2LL * C, 2LL * rows * C};
+  const int box[3] = {GK, box_rows, 1};
+  return rn::make_bf16_map(map, base, 3, dims, strides, box);
 }
 
 int launch_bf16(const bf16* x, const bf16* w, bf16* u, bf16* v, bf16* y, int B, int H, int W,

@@ -14,6 +14,7 @@ Every C entry takes device pointers and the caller's CUDA stream as
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -24,7 +25,8 @@ from typing import Dict
 
 import torch
 
-__all__ = ["SOURCES", "build_all", "load", "check", "dtype_code", "stream_ptr", "aligned"]
+__all__ = ["SOURCES", "build_all", "load", "check", "dtype_code", "stream_ptr", "aligned",
+           "sm_count"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -120,6 +122,13 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index`` (the
+    persistent kernels' grid: one CTA per SM)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def aligned(t: torch.Tensor) -> torch.Tensor:

@@ -27,10 +27,19 @@ decides which convs take this route, so both packages route the same convs
 (batch enters through the TPU tiling's ``bb`` rule). The Hopper kernels
 pick their own tiles and need only C % 32 == 0 and co % 128 == 0 (K5) or
 C % 128 == 0 (K5w).
+
+The bf16 kernels are persistent (one CTA per SM, in clusters of two that
+share one operand's loads); their schedules are planned here and tested on
+the CPU (``tests/test_torch_conv2d_layout.py``): :func:`conv2d_plan` and
+:func:`conv2d_tile` for K5's output tiles (128 pixels of one image row by
+128 or 256 output channels), :func:`wgrad_plan`, :func:`wgrad_item`,
+:func:`wgrad_row_block` and :func:`wgrad_chains` for K5w's work items, its
+pixel parts and accumulator chains.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 
 import torch
@@ -42,17 +51,26 @@ from rendernet_tpu_torch.ops.conv_grad import flip_io
 __all__ = [
     "PRELU_SAVE_PRE",
     "conv2d_hwnc",
+    "conv2d_plan",
+    "conv2d_tile",
     "conv2d_hwnc_plain",
     "conv2d_wgrad",
     "conv2d_wgrad_plain",
     "hwnc_to_nhwc",
+    "kernel_weights",
     "nhwc_to_hwnc",
+    "tile_n",
     "wc_conv2d",
     "wc_conv2d_hwnc",
     "wc_conv2d_prelu_hwnc",
     "wc_conv2d_relu_hwnc",
     "wc_conv2d_res_hwnc",
     "wc_conv2d_supported",
+    "wgrad_chains",
+    "wgrad_item",
+    "wgrad_plan",
+    "wgrad_row_block",
+    "wgrad_steps",
 ]
 
 # The PReLU op's backward residual, as ``pallas_conv2d.PRELU_SAVE_PRE``
@@ -169,6 +187,152 @@ def wc_conv2d_supported(x_shape, w_shape, stride, obufs=1) -> bool:
 
 
 # ---------------------------------------------------------------------------
+# the bf16 kernels' persistent schedules (csrc/conv2d.cu, csrc/conv2d_wgrad.cu)
+# ---------------------------------------------------------------------------
+TILE_M = 128  # K5: pixels per output tile, along one image row's W * B axis
+STEP_PIXELS = 64  # K5w: pixels per K step, along one image row
+MAX_CHAIN_STEPS = 8192 // STEP_PIXELS  # K5w: steps per fp32 accumulator chain
+MAX_PART_BYTES = 512 << 20  # K5w's workspace of partial sums, at most
+# One CTA's K step on a 132-SM H100 at the bf16 peak (989 TFLOP/s): the
+# cost model that sizes K5w's parts, in microseconds per output column.
+_STEP_US_PER_COLUMN = 2 * 128 * 64 / (989e6 / 132)
+_HBM_BYTES_PER_US = 3.35e6
+
+
+def tile_n(co: int) -> int:
+    """The output channels of a bf16 tile: 256 where co allows it, else
+    128."""
+    return 256 if co % 256 == 0 else 128
+
+
+def conv2d_plan(x_shape, co: int, n_sm: int):
+    """K5's bf16 schedule for HWNC ``x_shape``: ``(grid, bn, tiles_per_row,
+    pairs)``. A tile is TILE_M pixels of one image row h by ``bn`` output
+    channels; a row's W * B pixels take ``tiles_per_row`` tiles, the last
+    one masked on store. CTAs come in clusters of two that take tile pairs
+    (two pixel tiles, one output tile: they share the weight boxes), one
+    CTA per SM, never more pairs than there are: cluster k takes pairs k,
+    k + grid / 2, ... (the kernel cuts the grid further to the clusters the
+    card can hold at once)."""
+    h, w, b, _ = x_shape
+    bn = tile_n(co)
+    tiles_per_row = -(-(w * b) // TILE_M)
+    pairs = -(-(h * tiles_per_row) // 2) * (co // bn)
+    return 2 * min(pairs, max(n_sm // 2, 1)), bn, tiles_per_row, pairs
+
+
+def conv2d_tile(q: int, rank: int, x_shape, co: int):
+    """Tile pair q of :func:`conv2d_plan` as CTA ``rank`` (0 or 1) of a
+    cluster takes it, as the kernel decodes it (``tile_of``): ``(h, m0,
+    n0)``, the image row, its first pixel along W * B and the first output
+    channel. The pair's pixel tiles are 2 (q // (co / bn)) + rank; the co /
+    bn pairs of one pixel-tile pair are adjacent. Past the last pixel tile
+    (an odd count) h is H: a tile of nothing."""
+    _, bn, tiles_per_row, _ = conv2d_plan(x_shape, co, 2)
+    mp, nt = divmod(q, co // bn)
+    h, mt = divmod(2 * mp + rank, tiles_per_row)
+    return h, mt * TILE_M, nt * bn
+
+
+def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The weights as K5 reads them: ``[3, 3, C, co]`` (JAX's HWIO) in
+    ``dtype`` as a contiguous, 16-byte aligned ``[9, C, co]``, taps in (ky,
+    kx) order; the kernel's tensor map cuts it into boxes of 64 output x 64
+    input channels of one tap. A copy only where ``w`` is a strided view
+    (the data gradient's flipped, io-swapped weights) or of another
+    dtype."""
+    return _native.aligned(w.to(dtype)).reshape(9, w.shape[2], w.shape[3])
+
+
+def wgrad_steps(x_shape) -> int:
+    """K5w's K steps over the whole image: STEP_PIXELS pixels of one row each,
+    a row's last step masked."""
+    h, w, b, _ = x_shape
+    return h * -(-(w * b) // STEP_PIXELS)
+
+
+def _wgrad_chunks_fp32(x_shape, co: int) -> int:
+    """The fp32 kernel's pixel chunks: enough for ~4 blocks on each of 132
+    SMs over its (tap, 128 x 128) tiles, at least 1,024 and at most 8,192
+    pixels each, within MAX_PART_BYTES of partial sums."""
+    h, w, b, c = x_shape
+    m = h * w * b
+    tiles = 9 * (c // 128) * (co // 128)
+    n = min(-(-132 * 4 // tiles), m // 1024)
+    n = max(n, -(-m // 8192))
+    n = min(n, MAX_PART_BYTES // (9 * c * co * 4), 65535)
+    return max(n, 1)
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_plan(dtype: torch.dtype, x_shape, co: int, n_sm: int):
+    """K5w's ``(parts, grid)``: the pixel parts whose fp32 partial sums are
+    added in part order (a workspace of ``parts * 9 * C * co`` floats when
+    ``parts > 1``), and the bf16 kernel's persistent CTAs.
+
+    bf16: a work item is (part, pair of row pairs, output tile), parts
+    outermost, taken by a cluster of two CTAs (one row pair each, sharing
+    the cotangent boxes); there are ``pairs = ceil(9 C / 256) * co / bn``
+    of them per part, and part p takes steps ``[S p / parts, S (p + 1) /
+    parts)`` of the S = :func:`wgrad_steps`. ``parts`` minimises a cost
+    model on ``n_sm / 2`` clusters: waves of items x steps per item, plus
+    the reduction's bytes (the partials read once, the result written
+    once). fp32: :func:`_wgrad_chunks_fp32` and one block per (tap, 128 x
+    128 tile, chunk)."""
+    h, w, b, c = x_shape
+    if dtype != torch.bfloat16:
+        parts = _wgrad_chunks_fp32(x_shape, co)
+        return parts, 9 * (c // 128) * (co // 128) * parts
+    bn = tile_n(co)
+    pairs = -(-(9 * c // 128) // 2) * (co // bn)
+    clusters = max(n_sm // 2, 1)
+    steps = wgrad_steps(x_shape)
+    ws = 9 * c * co * 4
+    best = None
+    for parts in range(1, min(steps, 64) + 1):
+        if parts > 1 and parts * ws > MAX_PART_BYTES:
+            break
+        cost = -(-pairs * parts // clusters) * -(-steps // parts) * _STEP_US_PER_COLUMN * bn
+        if parts > 1:
+            cost += (parts + 1) * ws / _HBM_BYTES_PER_US
+        if best is None or cost < best[0]:
+            best = (cost, parts)
+    parts = best[1]
+    return parts, 2 * min(pairs * parts, clusters)
+
+
+def wgrad_item(q: int, rank: int, x_shape, co: int, parts: int):
+    """K5w's work item q as CTA ``rank`` (0 or 1) of a cluster takes it, as
+    the kernel decodes it (``item_of``): ``(part, row pair, n0, first step,
+    end step)``. The row pair is 2 (pair index) + rank; past the last row
+    pair (an odd count, 9 C / 128) it is a pair of nothing, whose channels
+    lie past C."""
+    h, w, b, c = x_shape
+    bn = tile_n(co)
+    per_part = -(-(9 * c // 128) // 2) * (co // bn)
+    p, r = divmod(q, per_part)
+    rpp, nt = divmod(r, co // bn)
+    steps = wgrad_steps(x_shape)
+    return p, 2 * rpp + rank, nt * bn, steps * p // parts, steps * (p + 1) // parts
+
+
+def wgrad_row_block(rb: int):
+    """Row block rb (64 channels of one tap) of K5w's 9 C rows: ``(tap, c0)``.
+    Taken in (channel block, tap) order, so row pair rp = (2 rp, 2 rp + 1)
+    is mostly two taps of one channel block."""
+    return rb % 9, rb // 9 * 64
+
+
+def wgrad_chains(s_begin: int, s_end: int):
+    """The accumulator chains of one K5w work item: ``[(begin, end), ...]``,
+    as equal as can be and at most MAX_CHAIN_STEPS steps each. The first
+    chain's sums are stored, each later chain's added to them in order."""
+    n = s_end - s_begin
+    k = -(-n // MAX_CHAIN_STEPS)
+    return [(s_begin + n * i // k, s_begin + n * (i + 1) // k) for i in range(k)]
+
+
+# ---------------------------------------------------------------------------
 # layouts and plain versions
 # ---------------------------------------------------------------------------
 def nhwc_to_hwnc(x: torch.Tensor) -> torch.Tensor:
@@ -268,18 +432,19 @@ def conv2d_hwnc(xh, w, bias=None, alpha=None, res=None, act="none", emit_pre=Fal
         raise ValueError(f"conv2d_hwnc: residual {tuple(res.shape)} for output "
                          f"{(h, wd, b, co)}")
     x = _native.aligned(xh)
-    w9 = _native.aligned(w.to(x.dtype))
+    w9 = kernel_weights(w, x.dtype)
     vec = [None if v is None else v.to(torch.float32).contiguous() for v in (bias, alpha)]
     if any(v is not None and v.numel() != co for v in vec):
         raise ValueError(f"conv2d_hwnc: bias / alpha must have {co} values")
     r = None if res is None else _native.aligned(res.to(x.dtype))
     y = torch.empty((h, wd, b, co), dtype=x.dtype, device=x.device)
     z = torch.empty_like(y) if emit_pre else None
+    grid = conv2d_plan(x.shape, co, _native.sm_count(x.device.index))[0]
     lib = _native.load("conv2d")
-    lib.rn_conv2d.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    lib.rn_conv2d.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     rc = lib.rn_conv2d(x.data_ptr(), w9.data_ptr(), _ptr(vec[0]), _ptr(vec[1]), _ptr(r),
                        y.data_ptr(), _ptr(z), _native.dtype_code(x.dtype), _ACTS[act],
-                       h, wd, b, c, co, _native.stream_ptr(x))
+                       h, wd, b, c, co, grid, _native.stream_ptr(x))
     _native.check(lib, rc, "K5 conv2d")
     global launches
     launches += 1
@@ -304,15 +469,14 @@ def conv2d_wgrad(xh: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
     h, wd, b, c = xh.shape
     co = gz.shape[-1]
     x, g = _native.aligned(xh), _native.aligned(gz)
-    lib = _native.load("conv2d_wgrad")
-    lib.rn_conv2d_wgrad_chunks.argtypes = [ctypes.c_int] * 5
-    nchunks = lib.rn_conv2d_wgrad_chunks(h, wd, b, c, co)
-    part = torch.empty(nchunks * 9 * c * co if nchunks > 1 else 0, dtype=torch.float32,
+    parts, grid = wgrad_plan(x.dtype, x.shape, co, _native.sm_count(x.device.index))
+    part = torch.empty(parts * 9 * c * co if parts > 1 else 0, dtype=torch.float32,
                        device=x.device)
     out = torch.empty((3, 3, c, co), dtype=torch.float32, device=x.device)
-    lib.rn_conv2d_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib = _native.load("conv2d_wgrad")
+    lib.rn_conv2d_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     rc = lib.rn_conv2d_wgrad(x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(),
-                             _native.dtype_code(x.dtype), h, wd, b, c, co,
+                             _native.dtype_code(x.dtype), h, wd, b, c, co, parts, grid,
                              _native.stream_ptr(x))
     _native.check(lib, rc, "K5w conv2d weight gradient")
     global wgrad_launches

@@ -11,7 +11,6 @@ Counterpart of ``rendernet_tpu/ops/pallas_conv3d.py``: ``[B,H,W,D,C] @
 from __future__ import annotations
 
 import ctypes
-import functools
 from collections import Counter
 
 import torch
@@ -135,11 +134,6 @@ def kernel_weights(w: torch.Tensor) -> torch.Tensor:
     return _native.aligned(w.reshape(27, w.shape[3], w.shape[4]))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _check_cuda(x: torch.Tensor, other: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda" or other.device != x.device or other.dtype != x.dtype:
         raise ValueError(f"{what}: both operands must be on one CUDA device, in one dtype")
@@ -166,7 +160,7 @@ def nc_conv3d_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lib = _native.load("conv3d")
     lib.rn_conv3d.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     rc = lib.rn_conv3d(x.data_ptr(), wk.data_ptr(), out.data_ptr(), _native.dtype_code(x.dtype),
-                       b, h, wd, d, c, co, conv3d_plan(x.shape, _sm_count(x.device.index)),
+                       b, h, wd, d, c, co, conv3d_plan(x.shape, _native.sm_count(x.device.index)),
                        _native.stream_ptr(x))
     _native.check(lib, rc, "K2 conv3d")
     global launches
@@ -195,7 +189,7 @@ def nc_conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"nc_conv3d_wgrad: x {tuple(x.shape)}, gy {tuple(gy.shape)} is "
                          "outside the kernel's envelope; gate calls with nc_conv3d_supported")
     x, gy = _native.aligned(x), _native.aligned(gy)
-    parts, cpad = wgrad_plan(x.dtype, x.shape, co, _sm_count(x.device.index))
+    parts, cpad = wgrad_plan(x.dtype, x.shape, co, _native.sm_count(x.device.index))
     part = torch.empty(parts * 27 * cpad * co, dtype=torch.float32, device=x.device)
     out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
     lib = _native.load("conv3d_wgrad")

@@ -217,12 +217,19 @@ def _k5_args(g, cuda, dtype, shape, co, epilogue):
     return x, w, kw
 
 
+# K5 shapes: ragged (odd H, batch 3, ci != co, W * B = 24 of a 128-pixel
+# tile); batch 5 (W * B = 80; 200 over two tiles with 128-channel tiles);
+# C = 96 (a 64-channel chunk half past C, zero-filled); 192 tiles (more than
+# one per SM on the persistent walk); batch 8 with W * B = 256.
+K5_SHAPES = [((7, 8, 3, 384), 256), ((16, 16, 5, 256), 256), ((8, 40, 5, 256), 384),
+             ((5, 9, 3, 96), 128), ((64, 64, 5, 256), 256), ((16, 32, 8, 256), 512)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("epilogue", K5_EPILOGUES)
-@pytest.mark.parametrize("shape,co", [((7, 8, 3, 384), 256), ((16, 16, 5, 256), 256)])
+@pytest.mark.parametrize("shape,co", K5_SHAPES)
 def test_conv2d_kernel(cuda, dtype, epilogue, shape, co):
-    """K5 with each epilogue against its plain version: a ragged shape (odd
-    H, batch 3, ci != co, 168 pixels) and a recon-like one (batch 5)."""
+    """K5 with each epilogue against its plain version (K5_SHAPES)."""
     g = torch.Generator(device=cuda).manual_seed(8)
     x, w, kw = _k5_args(g, cuda, dtype, shape, co, epilogue)
     before = cuda_conv2d.launches
@@ -235,15 +242,23 @@ def test_conv2d_kernel(cuda, dtype, epilogue, shape, co):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape,co", [((7, 8, 3, 384), 256), ((64, 64, 5, 256), 256),
-                                      ((8, 8, 2, 128), 384)])
+                                      ((8, 8, 2, 128), 384), ((8, 40, 5, 256), 256),
+                                      ((6, 36, 5, 128), 384), ((130, 2, 4, 128), 128),
+                                      ((32, 32, 24, 512), 512)])
 def test_conv2d_wgrad_kernel(cuda, dtype, shape, co):
-    """K5w against its plain version, one chunk and several."""
+    """K5w against its plain version, one part and several; batch 5 with W *
+    B not a multiple of the 64-pixel step, 384 output channels (128-wide
+    tiles), an image of 130 steps (two accumulator chains in one part), the
+    res3 patch-64 training shape. Run twice: the same bits (the parts are
+    added in a fixed order, with no atomics)."""
     g = torch.Generator(device=cuda).manual_seed(9)
     x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
     gz = torch.randn(*shape[:3], co, generator=g, device=cuda).to(dtype)
     before = cuda_conv2d.wgrad_launches_by_shape[tuple(shape), co]
     got = cuda_conv2d.conv2d_wgrad(x, gz)
-    assert cuda_conv2d.wgrad_launches_by_shape[tuple(shape), co] == before + 1
+    again = cuda_conv2d.conv2d_wgrad(x, gz)
+    assert cuda_conv2d.wgrad_launches_by_shape[tuple(shape), co] == before + 2
+    assert torch.equal(got, again)
     _close(got, cuda_conv2d.conv2d_wgrad_plain(x, gz), torch.float32)
 
 
