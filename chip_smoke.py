@@ -6,11 +6,11 @@
 Phases, all of them on every run:
   1. build every CUDA kernel from ``rendernet_tpu_torch/csrc`` (one nvcc per
      source, in parallel), print the card's name and power limit, and count
-     the tensor-core and TMA instructions in the SASS of K3's, K2's, K2w's,
-     K5's and K5w's libraries (K3, K5 or K5w without wgmma or without TMA
-     loads, or K2 / K2w without mma.sync or wgmma, is a failure, as is a
-     ptxas line saying it serializes K2's, K2w's, K5's or K5w's tensor-core
-     code);
+     the tensor-core and TMA instructions in the SASS of K3's, K6's, K2's,
+     K2w's, K5's and K5w's libraries (K3, K6, K5 or K5w without wgmma or
+     without TMA loads, or K2 / K2w without mma.sync or wgmma, is a
+     failure, as is a ptxas line saying it serializes K6's, K2's, K2w's,
+     K5's or K5w's tensor-core code);
   2. kernels: call each kernel's wrapper (K1 resample pass, K4 its adjoint,
      K2 conv3d, K2w its weight gradient, K3 Winograd, K6 the Winograd weight
      gradient, K5 the fused wide conv, K5w its weight gradient) at the shapes the serving path (batch 8), the training step
@@ -36,9 +36,11 @@ Phases, all of them on every run:
      with every kernel replaced by its plain version, compared parameter
      by parameter; (b) ``bench.py``'s two
      configurations (batch 24, bf16, bf16 Adam moments, patch 128 and 64):
-     a warm-up step, then 8 timed steps on one fixed batch; (c) one step
-     each with ``WGRAD=True``, ``WGRAD="fp32"`` and ``remat=True``; (d) a
-     profile of one patch-128 step;
+     a warm-up step, then 8 timed steps on one fixed batch; (c) the
+     patch-128 step with ``WGRAD=True`` (K6, bf16 operands), ``WGRAD="fp32"``
+     (K6, fp32 products) and ``remat=True``: a warm-up step, then 3 timed
+     steps each (median, peak memory), and a profile of one ``WGRAD=True``
+     step; (d) a profile of one patch-128 step;
   5. inverse rendering at ``ReconConfig()`` (5 pose hypotheses, 64^3
      shape and texture grids, a 128^3 camera grid, the 512^2 two-head
      renderer, Phong composite, per-sample MSE), random weights from seeds:
@@ -68,10 +70,10 @@ Phases, all of them on every run:
 The kernels' launch counters are zeroed just before each run of phases 3,
 4, 5 and 6 and read just after; every run's counts are checked, shape by
 shape, against the counts its graph implies. K3's phase 2 rows carry the
-bytes of its bf16 V scratch; the serving, training and recon profiles
-print K2's, K2w's, K3's, K5's and K5w's device time and share of busy time; a
-``train_memory`` line gives the V scratch per training call and each
-training run's peak memory.
+bytes of its bf16 V scratch; the serving, training and recon
+profiles print K2's, K2w's, K3's, K6's, K5's and K5w's device time and
+share of busy time; a ``train_memory`` line gives K3's V scratch and K6's
+scratch per training call and each training run's peak memory.
 
 Prints a ``{"kernels": [...]}`` line with one row per kernel, dtype and
 main-path shape: a serving row's ``launches`` is per batch-8 forward of that
@@ -93,6 +95,7 @@ import gc
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -187,6 +190,13 @@ def time_ms(torch, fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound_dtype(op: str, dname: str) -> str:
+    """The peak rate that bounds a case's operations: K4's fp32 CUDA-core
+    math, K6's bf16 tensor-core passes (three for fp32 products), else the
+    storage dtype's."""
+    return {"pass_bwd": "float32", "wino_wgrad": "bfloat16"}.get(op, dname)
 
 
 def bound(flops: float, nbytes: float, dtype: str):
@@ -473,14 +483,16 @@ def make_case(torch, op, spec, dtype, gen):
                 lambda: cuda_winograd.wino_conv2d_plain(gy, wf),
                 lambda: grad.conv2d_input(size, w.permute(3, 2, 0, 1), cf(gy), padding=1),
                 2.0 * 16 * tiles * c * co, item * (gy.numel() + 16 * c * co + m * co), False)
-    if op == "wino_wgrad":
+    if op == "wino_wgrad":  # the split form (fp32 products) does three bf16 passes
         fp32_ops = spec[2]
+        passes = 3 if cuda_winograd.wgrad_split(dtype, fp32_ops) else 1
         x = rnd(*xs)
         gy = rnd(*xs[:-1], co)
         return (lambda: cuda_winograd.wino_wgrad(x, gy, fp32_ops),
                 lambda: cuda_winograd.wino_wgrad_plain(x, gy, fp32_ops),
                 lambda: grad.conv2d_weight(cf(x), (co, c, 3, 3), cf(gy), padding=1),
-                2.0 * 16 * tiles * c * co, item * (x.numel() + gy.numel()) + 4 * 9 * c * co, True)
+                passes * 2.0 * 16 * tiles * c * co,
+                item * (x.numel() + gy.numel()) + 4 * 9 * c * co, True)
     raise ValueError(op)
 
 
@@ -601,8 +613,7 @@ def run_kernel_checks(torch, failures):
             kms = time_ms(torch, kern, 20)
             pms = time_ms(torch, plain, 5)
             lms = time_ms(torch, lib, 20) if lib is not None else None
-            fp32_math = (op == "wino_wgrad" and spec[2]) or op == "pass_bwd"
-            bms, by = bound(flops, nbytes, "float32" if fp32_math else dname)
+            bms, by = bound(flops, nbytes, bound_dtype(op, dname))
             row = dict(kernel=kid, shape=label, dtype=dname, max_abs_err=err,
                        max_abs_ref=scale, tol=tol, ok=ok, ms=kms, plain_ms=pms,
                        library_ms=lms, bound_ms=bms, bound_by=by, run=run,
@@ -965,32 +976,39 @@ def gradient_check(torch, np, failures, patches=(128, 64), conv2d=False, tag="gr
 
 
 TRAIN_STEPS = 8
+EXTRA_STEPS = 3  # timed steps of each extra mode (WGRAD=True, WGRAD="fp32", remat)
 
 
 def timed_steps(torch, failures, state, step, batch, n, expected, what, tag, info):
     """A warm-up step, then ``n`` timed steps of ``step`` on one batch
-    (synchronize to synchronize), with peak memory, launch counts checked
-    against ``expected`` per step, every loss finite and every parameter
-    finite and moved. Returns (state, result, launches per step)."""
+    (synchronize to synchronize; each step's time, and their median, from
+    CUDA events recorded between the steps), with peak memory, launch
+    counts checked against ``expected`` per step, every loss finite and
+    every parameter finite and moved. Returns (state, result, launches per
+    step)."""
     before = {k: p.detach().clone() for k, p in state.params.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
     state, loss = step(state, *batch, 1)  # warm-up
     torch.cuda.synchronize()
     reset_counts()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
     t0 = time.perf_counter()
+    marks[0].record()
     losses = []
-    for _ in range(n):
+    for i in range(n):
         state, loss = step(state, *batch, 1)
+        marks[i + 1].record()
         losses.append(loss)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    step_ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
     totals, by_shape = read_counts()
     ps = check_step_counts(failures, what, by_shape, n, expected)
     losses = [float(x) for x in losses]
     moved = [k for k, p in state.params.named_parameters() if not torch.equal(p, before[k])]
     finite = all(bool(torch.isfinite(p).all()) for p in state.params.parameters())
-    res = dict(info, steps=n, ms_per_step=dt / n * 1e3,
-               frames_per_s=batch[0].shape[0] * n / dt, losses=losses,
+    res = dict(info, steps=n, ms_per_step=dt / n * 1e3, step_ms=step_ms,
+               median_ms=statistics.median(step_ms), frames_per_s=batch[0].shape[0] * n / dt, losses=losses,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                params_moved=len(moved), params=len(before),
                launches_per_step={k: v // n for k, v in totals.items()})
@@ -1034,33 +1052,40 @@ def run_training(torch, failures):
                                               {"patch": patch, "batch": b, "dtype": "bfloat16"})
         per_step["train" if patch == 128 else "train64"] = ps
     out["train"] = train
-    v_bytes = {str((b, s, s, c)): cuda_winograd.v_scratch_bytes((b, s, s, c), torch.bfloat16)
-               for s in (64, 32) for c in (1024, 512)}
-    log("train_memory " + json.dumps({"k3_v_scratch_bytes_per_call": v_bytes,
-                                      "peak_mem_gib": {p: train[p]["peak_mem_gib"]
-                                                       for p in train}}))
-
-    # extra modes, one step each at patch 128
+    # extra modes at patch 128, each timed as the train lines; a profile of
+    # one WGRAD=True step
     extra = {}
     for mode, wgrad, remat in (("wgrad_bf16", True, False), ("wgrad_fp32", "fp32", False),
                                ("remat", False, True)):
         cuda_winograd.WGRAD = wgrad
         step = make_shader_train_step(ShaderConfig(preact_policy=True, remat=remat), cfg, tx, 128)
-        reset_counts()
-        t0 = time.perf_counter()
-        state, loss = step(state, vox, img, pose, 1)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        totals, by_shape = read_counts()
-        ps = check_step_counts(failures, f"{mode} step", by_shape, 1,
-                               step_launches(b, 128, wgrad=bool(wgrad), remat=remat))
+        state, extra[mode], ps = timed_steps(
+            torch, failures, state, step, (vox, img, pose), EXTRA_STEPS,
+            step_launches(b, 128, wgrad=bool(wgrad), remat=remat), f"{mode} steps",
+            f"extra {mode}", {"mode": mode, "patch": 128, "batch": b, "dtype": "bfloat16"})
         if wgrad:
             per_step[mode] = ps
-        extra[mode] = {"ms": dt * 1e3, "loss": float(loss), "launches": totals}
-        log(f"extra {mode} " + json.dumps(extra[mode]))
-        if not math.isfinite(float(loss)):
-            failures.append(f"{mode} step: non-finite loss")
+        if wgrad is True:
+            holder = [state]
+
+            def one_wgrad_step():
+                holder[0], _ = step(holder[0], vox, img, pose, 1)
+
+            out["profile_wgrad_bf16"] = profile_run(torch, one_wgrad_step, run="wgrad_bf16")
+            state = holder[0]
     cuda_winograd.WGRAD = False
+    v_bytes = {str((b, s, s, c)): cuda_winograd.v_scratch_bytes((b, s, s, c), torch.bfloat16)
+               for s in (64, 32) for c in (1024, 512)}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    k6_bytes = {m: {str((b, 64, 64, c)): cuda_winograd.wgrad_scratch_bytes(
+        (b, 64, 64, c), c, torch.bfloat16, m == "wgrad_fp32", n_sm) for c in (1024, 512)}
+        for m in ("wgrad_bf16", "wgrad_fp32")}
+    log("train_memory " + json.dumps({"k3_v_scratch_bytes_per_call": v_bytes,
+                                      "k6_scratch_bytes_per_call": k6_bytes,
+                                      "peak_mem_gib": {**{p: train[p]["peak_mem_gib"]
+                                                          for p in train},
+                                                       **{m: extra[m]["peak_mem_gib"]
+                                                          for m in extra}}}))
     out["extra_modes"] = extra
 
     step = make_shader_train_step(mcfg, cfg, tx, 128)
@@ -1590,17 +1615,18 @@ def run_conv2d(torch, failures, per_step):
     return out
 
 
-# Device kernels of K2, K2w, K3, K5 and K5w in a profile, by substrings of
-# their (demangled) names.
+# Device kernels of K2, K2w, K3, K6, K5 and K5w in a profile, by substrings
+# of their (demangled) names.
 PROFILED = {"K2": ("conv3d_mma_kernel", "conv3d_core_kernel"), "K2w": ("conv3d_wgrad_",),
-            "K3": ("k3_",), "K5": ("conv2d_wgmma_kernel", "conv2d_f32_kernel"),
+            "K3": ("k3_",), "K6": ("k6_",), "K5": ("conv2d_wgmma_kernel", "conv2d_f32_kernel"),
             "K5w": ("wgrad_wgmma_kernel", "::wgrad_f32_kernel", "::wgrad_reduce_kernel")}
 
 
-def profile_run(torch, fn, top: int = 12):
+def profile_run(torch, fn, top: int = 12, run: str | None = None):
     """Device time by kernel name over one call of ``fn`` (torch.profiler),
     the device's busy share of its wall time, and the device time and share
-    of the busy time of each kernel in PROFILED."""
+    of the busy time of each kernel in PROFILED; ``run`` names the run in
+    the printed line."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1622,7 +1648,7 @@ def profile_run(torch, fn, top: int = 12):
             rows.append((evt.key, evt.count, dev_us))
     rows.sort(key=lambda r: -r[2])
     busy_us = sum(r[2] for r in rows)
-    res = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+    res = {"run": run, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "device_idle_share": 1.0 - busy_us / wall_us if wall_us else None,
            "top": [{"kernel": k[:90], "count": c, "ms": us / 1e3} for k, c, us in rows[:top]]}
     for kid, names in PROFILED.items():
@@ -1658,21 +1684,21 @@ class plain_kernels:
 
 
 # Tensor-core instructions each library must hold (any one of them): K3's,
-# K5's and K5w's bf16 GEMMs are wgmma (HGMMA); K2's and K2w's bf16 kernels
+# K6's, K5's and K5w's GEMMs are wgmma (HGMMA); K2's and K2w's bf16 kernels
 # are mma.sync (HMMA). SASS_TMA: the libraries whose wgmma is fed by TMA
 # (UTMALDG) and must show it.
-SASS_NEEDS = {"winograd": ("HGMMA",), "conv3d": ("HMMA", "HGMMA"),
-              "conv3d_wgrad": ("HMMA", "HGMMA"), "conv2d": ("HGMMA",),
-              "conv2d_wgrad": ("HGMMA",)}
-SASS_TMA = ("winograd", "conv2d", "conv2d_wgrad")
+SASS_NEEDS = {"winograd": ("HGMMA",), "winograd_wgrad": ("HGMMA",),
+              "conv3d": ("HMMA", "HGMMA"), "conv3d_wgrad": ("HMMA", "HGMMA"),
+              "conv2d": ("HGMMA",), "conv2d_wgrad": ("HGMMA",)}
+SASS_TMA = ("winograd", "winograd_wgrad", "conv2d", "conv2d_wgrad")
 # Libraries whose ptxas report must not say that it serializes their
 # tensor-core code ("Potential Performance Loss": C7515 / C7518 and kin).
-NO_SERIALIZATION = ("conv3d", "conv3d_wgrad", "conv2d", "conv2d_wgrad")
+NO_SERIALIZATION = ("winograd_wgrad", "conv3d", "conv3d_wgrad", "conv2d", "conv2d_wgrad")
 
 
 def kernel_sass(failures) -> None:
     """Counts the tensor-core (HMMA, HGMMA) and TMA load (UTMALDG)
-    instructions in the SASS of K3's, K2's, K2w's, K5's and K5w's
+    instructions in the SASS of K3's, K6's, K2's, K2w's, K5's and K5w's
     libraries; each must issue one of its SASS_NEEDS names, and those of
     SASS_TMA a TMA load. Skipped, and said so, where the toolkit has no
     cuobjdump."""

@@ -24,7 +24,9 @@ sources, into that tree's ``_build``):
    then E2E_STEPS steps on one batch, each timed synchronize to
    synchronize; median and mean) and the bf16 inverse-rendering step at
    ``ReconConfig()`` (a warm-up, then RECON_STEPS steps on a fixed random
-   target; ms per step).
+   target; ms per step); where K6 is chosen, with the flag off, also the
+   patch-128 step with ``cuda_winograd.WGRAD`` set to True and to "fp32"
+   (K6 in each operand form) on each tree, timed the same way.
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 per kernel row and one per end-to-end route, each with the four turns'
@@ -45,6 +47,8 @@ RECON_STEPS = 5
 
 
 def _kernel_rows(torch, cs, kids):
+    # the tree's own rate for a case's bound (trees before it bound by dtype)
+    rate = getattr(cs, "bound_dtype", lambda op, dname: dname)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for kid, label, op, spec, dnames, _ in cs.CASES:
         if kid not in kids:
@@ -61,14 +65,31 @@ def _kernel_rows(torch, cs, kids):
             print(json.dumps({"kernel": kid, "shape": label, "dtype": dname,
                               "ms": cs.time_ms(torch, kern, 20),
                               "library_ms": cs.time_ms(torch, lib, 20) if lib else None,
-                              "bound_ms": cs.bound(flops, nbytes, dname)[0], "err": err,
+                              "bound_ms": cs.bound(flops, nbytes, rate(op, dname))[0],
+                              "err": err,
                               "tol": tol}), flush=True)
             torch.cuda.empty_cache()
 
 
-def _e2e(torch, np, cs, conv2d: bool) -> dict:
+def _timed_steps(torch, step, state, batch):
+    """Two warm-up steps, then E2E_STEPS steps, each timed synchronize to
+    synchronize: (state, {"median", "mean"} ms, every loss finite)."""
+    times, losses = [], []
+    for i in range(2 + E2E_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, *batch, 1)
+        losses.append(float(loss))  # synchronizes
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return state, {"median": statistics.median(times), "mean": statistics.fmean(times)}, \
+        all(math.isfinite(x) for x in losses)
+
+
+def _e2e(torch, np, cs, conv2d: bool, wgrad: bool) -> dict:
     from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
     from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.ops import cuda_winograd
     from rendernet_tpu_torch.recon.inverse import ReconConfig, initial_latents, make_recon_step
     from rendernet_tpu_torch.train.config import TrainConfig
     from rendernet_tpu_torch.train.steps import create_shader_state, make_shader_train_step
@@ -91,17 +112,17 @@ def _e2e(torch, np, cs, conv2d: bool) -> dict:
         state, tx = create_shader_state(0, mcfg, cfg, device="cuda")
         for patch in (128, 64):
             step = make_shader_train_step(mcfg, cfg, tx, patch)
-            times, losses = [], []
-            for i in range(2 + E2E_STEPS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, loss = step(state, *batch, 1)
-                losses.append(float(loss))  # synchronizes
-                if i >= 2:
-                    times.append((time.perf_counter() - t0) * 1e3)
-            res[f"step{patch}_ms"] = {"median": statistics.median(times),
-                                      "mean": statistics.fmean(times)}
-            res[f"step{patch}_finite"] = all(math.isfinite(x) for x in losses)
+            state, res[f"step{patch}_ms"], res[f"step{patch}_finite"] = _timed_steps(
+                torch, step, state, batch)
+        # the patch-128 step with K6 in each operand form
+        for mode in (True, "fp32") if wgrad and not conv2d else ():
+            cuda_winograd.WGRAD = mode
+            try:
+                step = make_shader_train_step(mcfg, cfg, tx, 128)
+                state, res[f"wgrad_{mode}_step128_ms"], res[f"wgrad_{mode}_finite"] = \
+                    _timed_steps(torch, step, state, batch)
+            finally:
+                cuda_winograd.WGRAD = False
         del state, tx, batch
         torch.cuda.empty_cache()
         model = cs.recon_model(torch)
@@ -140,7 +161,7 @@ def run(tree: str, kids) -> None:
     _native.build_all()
     _kernel_rows(torch, cs, kids)
     for conv2d in (False, True) if {"K5", "K5w"} & set(kids) else (False,):
-        print("e2e " + json.dumps(_e2e(torch, np, cs, conv2d)), flush=True)
+        print("e2e " + json.dumps(_e2e(torch, np, cs, conv2d, "K6" in kids)), flush=True)
 
 
 def main() -> int:

@@ -148,10 +148,6 @@ __device__ __forceinline__ Item item_of(int q, int rank, int rpairs, int ntiles_
           static_cast<int>(static_cast<long long>(steps) * (p + 1) / parts)};
 }
 
-__device__ __forceinline__ void red_add(float* p, float v) {
-  asm volatile("red.relaxed.gpu.global.add.f32 [%0], %1;\n" ::"l"(p), "f"(v) : "memory");
-}
-
 // Row block rb of the 9 C / 64: its tap and first channel.
 __device__ __forceinline__ void row_block(int rb, int& tap, int& c0) {
   tap = rb % 9;
@@ -282,8 +278,8 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(wg::THREADS, 1)
           if (ch == 0) {
             *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
           } else {
-            red_add(o, v0);
-            red_add(o + 1, v1);
+            rn::red_add(o, v0);
+            rn::red_add(o + 1, v1);
           }
         }
     }

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma + TMA kernels
-// (K3's GEMM in winograd.cu, K5 in conv2d.cu, K5w in conv2d_wgrad.cu):
+// (K3's GEMM in winograd.cu, K5 in conv2d.cu, K5w in conv2d_wgrad.cu, K6's
+// GEMM in winograd_wgrad.cu):
 // mbarriers for the full / empty ring between a TMA producer and wgmma
 // consumers, TMA tile loads, wgmma shared-memory descriptors for 128-byte-
 // swizzled tiles in both majorities, the wgmma instructions themselves, and
@@ -276,6 +277,14 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
   if constexpr (N == 64) wgmma_m64n64k16<TA, TB>(d, da, db, scale_d);
   if constexpr (N == 128) wgmma_m64n128k16<TA, TB>(d, da, db, scale_d);
   if constexpr (N == 256) wgmma_m64n256k16<TA, TB>(d, da, db, scale_d);
+}
+
+// An fp32 add to global memory that returns nothing (no load latency). From
+// the same thread to the same address, such adds land in program order, so
+// a weight gradient's later accumulator chains add to the first chain's
+// stored sums in the same order on every run.
+__device__ __forceinline__ void red_add(float* p, float v) {
+  asm volatile("red.relaxed.gpu.global.add.f32 [%0], %1;\n" ::"l"(p), "f"(v) : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -13,7 +13,8 @@
 //                        operands are K-major and need no transpose mode.
 //   k3_input_transform   x [B,H,W,C] -> V [16,T,C] (T = B*H/2*W/2 tiles),
 //                        one thread per (tile, 8 channels), 16-byte loads
-//                        and stores.
+//                        and stores (winograd_transform.cuh, shared with
+//                        K6).
 //   k3_gemm_fold         one block per 128 tiles x 64 output channels: the
 //                        16 GEMMs on wgmma fed by TMA, each folded into the
 //                        2x2 output phases as soon as it is done.
@@ -69,6 +70,7 @@
 #include <utility>
 
 #include "hopper.cuh"
+#include "winograd_transform.cuh"
 
 namespace {
 
@@ -93,26 +95,7 @@ constexpr size_t F32_SMEM = sizeof(float) * (2 * XS + 2 * US + VS);
 using rn::cp_async16;
 using rn::cp_async_commit;
 using rn::cp_async_wait;
-
-// The 4x4 input transform of one channel, in the reference's order:
-// v[4 * k1 + k2] = sum_s BT[k2, s] (sum_r BT[k1, r] d[r][s]).
-__device__ __forceinline__ void input_transform(const float d[4][4], float v[16]) {
-  float rt[4][4];
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    rt[0][s] = d[0][s] - d[2][s];
-    rt[1][s] = d[1][s] + d[2][s];
-    rt[2][s] = -d[1][s] + d[2][s];
-    rt[3][s] = d[1][s] - d[3][s];
-  }
-#pragma unroll
-  for (int k1 = 0; k1 < 4; ++k1) {
-    v[4 * k1 + 0] = rt[k1][0] - rt[k1][2];
-    v[4 * k1 + 1] = rt[k1][1] + rt[k1][2];
-    v[4 * k1 + 2] = -rt[k1][1] + rt[k1][2];
-    v[4 * k1 + 3] = rt[k1][1] - rt[k1][3];
-  }
-}
+using rn::input_transform;
 
 // U = G g G^T of one (c, k), g[r][s] = w[r, s, c, k], in fp32. The products
 // are exact (G holds 0, +-1/2, 1), so only the sums round, left to right as
@@ -283,17 +266,13 @@ constexpr size_t GEMM_SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * sizeof(u
 static_assert(A_BYTES % 1024 == 0 && STAGE_BYTES % 1024 == 0,
               "128-byte-swizzled tiles start on 1024-byte boundaries");
 
+using rn::at;
 using rn::fence_regs;
 using rn::mbar_wait;
 using rn::sw128_desc;
 using rn::wgmma_commit;
 using rn::wgmma_fence;
 using rn::wgmma_wait;
-
-// A^T's entries: row p (output phase), column k (frequency index).
-__host__ __device__ constexpr int at(int p, int k) {
-  return p == 0 ? (k < 3 ? 1 : 0) : (k == 0 ? 0 : (k == 1 ? 1 : -1));
-}
 
 template <int S>
 __device__ __forceinline__ void fold_into(const float (&m)[32], float (&y)[32]) {
@@ -442,52 +421,13 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(GEMM_THREADS, 1)
 }
 
 // V [16][T][C] from x [B][H][W][C]: one thread per (tile, 8 channels), 16-
-// byte loads and stores, zeros outside the image (the SAME halo).
+// byte loads and stores, zeros outside the image (the SAME halo); shared
+// with K6 (winograd_transform.cuh).
 __global__ void __launch_bounds__(256) k3_input_transform(const bf16* __restrict__ x,
                                                           bf16* __restrict__ v, int B, int H,
                                                           int W, int C) {
-  const int nh = H / 2, nw = W / 2, cg = C / 8;
-  const long long T = static_cast<long long>(B) * nh * nw;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= T * cg) return;
-  const int c = static_cast<int>(i % cg) * 8;
-  const long long t = i / cg;
-  const int tw = static_cast<int>(t % nw), th = static_cast<int>((t / nw) % nh);
-  const int b = static_cast<int>(t / (static_cast<long long>(nw) * nh));
-  uint4 raw[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int hh = 2 * th - 1 + r, ww = 2 * tw - 1 + s;
-      raw[r][s] = make_uint4(0, 0, 0, 0);
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W)
-        raw[r][s] = __ldg(reinterpret_cast<const uint4*>(
-            x + ((static_cast<long long>(b) * H + hh) * W + ww) * C + c));
-    }
-  uint4 out[16];
-#pragma unroll
-  for (int pair = 0; pair < 4; ++pair) {  // channels 2 pair, 2 pair + 1
-    float d0[4][4], d1[4][4], v0[16], v1[16];
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        const uint32_t word = reinterpret_cast<const uint32_t*>(&raw[r][s])[pair];
-        const float2 f2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&word));
-        d0[r][s] = f2.x;
-        d1[r][s] = f2.y;
-      }
-    input_transform(d0, v0);
-    input_transform(d1, v1);
-#pragma unroll
-    for (int f = 0; f < 16; ++f) {
-      const __nv_bfloat162 h2 = __floats2bfloat162_rn(v0[f], v1[f]);
-      reinterpret_cast<uint32_t*>(&out[f])[pair] = *reinterpret_cast<const uint32_t*>(&h2);
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < 16; ++f) *reinterpret_cast<uint4*>(v + (f * T + t) * C + c) = out[f];
+  rn::input_transform_at<bf16, 8, false>(
+      x, v, static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x, B, H, W, C);
 }
 
 // U [16][K][C] from w [3][3][C][K]: a block transposes a 32 x 32 (c, k)

@@ -1,331 +1,367 @@
 // K6: transform-domain weight gradient of the Winograd F(2x2, 3x3) conv
 // (K3), SAME, stride 1, NHWC:
 //   gU[f, c, k] = sum over 2x2 output tiles of V[f, tile, c] * dM[f, tile, k]
+//   gw = G^T gU G  -> [3, 3, C, K] fp32
 // for the 16 frequencies f, where V = B^T d B is K3's input transform of
-// the tile's 4x4 input patch (fp32, then cast to the operand type) and dM
-// spreads the tile's 2x2 block of gy over the 16 frequencies through A
-// (the adjoint of K3's inverse transform; fp32, then cast). The fold
-// gw = G^T gU G to [3, 3, C, K] is a small fp32 einsum in the wrapper.
+// the tile's 4x4 input patch and dM spreads the tile's 2x2 block of gy over
+// the 16 frequencies through A (the adjoint of K3's output transform); both
+// in fp32 from the stored values, rounded once to the operand type.
 //
-// Replaces rendernet_tpu/ops/pallas_winograd.py:_wgrad_kernel (reached
+// Replaces rendernet_tpu/ops/pallas_winograd.py:342 (_wgrad_kernel, reached
 // through pl.pallas_call in _wino_wgrad). The TPU kernel pins the whole
-// [16, C, bnk] fp32 gU block in VMEM across its sequential (batch,
-// tile-row) grid. An SM cannot hold 16 x C x K accumulators, so here a
-// block owns all 16 frequencies of a 32 x 32 (C, K) tile over a slice of
-// the tile rows, and writes fp32 partial sums when there is more than one
-// slice; a second kernel adds the slices in a fixed order (no atomics),
-// so the result is the same on every run.
+// [16, C, bnk] fp32 gU block in VMEM across its sequential (batch, tile-row)
+// grid and recomputes V and dM in VMEM. Hopper's blocks run in no order and
+// an SM holds no 16 x C x K accumulator, so the work is cut the way K3's
+// forward (csrc/winograd.cu, design (a)) and K5w (csrc/conv2d_wgrad.cu) cut
+// theirs: transforms first, through device memory, then 16 GEMMs.
 //
-// Bound: operations, 2 * 16 * tiles * C * K flops (res2 at batch 24:
-// 24576 tiles, C = K = 1024, 0.82 TFLOP, 0.83 ms at 989 TFLOP/s bf16;
-// 12.3 ms at 67 TFLOP/s fp32), 2.25x fewer than the direct weight gradient.
-// Per step a block takes one row of up to 32 tiles (fixed b and tile row):
-// it copies the 4 input rows and 2 cotangent rows those tiles read into
-// shared memory in 16-byte loads; each thread then computes V for (tile,
-// channel) pairs and dM for (tile, output channel) pairs from there, and
-//   * bf16 operands (WGRAD=True with bf16 activations): tensor cores, WMMA
-//     16x16x16; warp w owns frequencies 2w and 2w+1, each a 2 x 2 grid of
-//     accumulator fragments over the 32 x 32 tile;
-//   * fp32 operands (WGRAD="fp32", or fp32 activations): CUDA-core FMAs; a
-//     thread owns 4 frequencies x 4 channels x 4 output channels.
-// V is recomputed once per 32 output channels and dM once per 32 input
-// channels, and the copies are not pipelined; those are the places to start
-// making it faster.
-#include <mma.h>
+//   k6_input_transform  x  -> V  [P][16][T][C] bf16, T = B H/2 W/2 tiles in
+//   k6_spread           gy -> dM [P][16][T][K] bf16  K3's order (b, th, tw);
+//                       one thread per (tile, 4 or 8 channels), vector loads
+//                       and stores (winograd_transform.cuh, K3's own input
+//                       transform).
+//   k6_gemm             gU[f] = V[f]^T dM[f]: M = C, N = K, reduced over T.
+//   k6_fold             the parts' fp32 partials added in part order, then
+//                       the fold G^T gU G, written as [3, 3, C, K] fp32.
+//
+// Operand forms. bf16 operands (WGRAD=True on bf16 activations): P = 1,
+// V and dM rounded to bf16 as the reference rounds them. fp32 operands
+// (WGRAD="fp32", or fp32 storage): P = 2, each value as two bf16 planes hi =
+// bf16(v), lo = bf16(v - hi), and the GEMM runs three wgmma per k-step into
+// one fp32 accumulator, hi.hi + hi.lo + lo.hi (the 3-pass product; the lo.lo
+// term it drops, and lo's rounding, are about 2^-16 of each product).
+//
+// The GEMM (k6_gemm) is K5w's pipeline on plain 2-D operands: persistent,
+// one CTA per SM in clusters of two, 288 threads (two consumer warpgroups,
+// one producer warp). V[f] and dM[f] are read through one 3-D tensor map
+// each ([16 P][T][C], [16 P][T][K]; plane lo of frequency f is map index 16
+// + f) with boxes of 64 channels x BKP tiles, 128-byte swizzle: both
+// operands are MN-major in shared memory (channels contiguous, tiles down
+// the rows), read through wgmma's transpose bits. A work item is (part of
+// T, frequency, pair of 128-channel C blocks, output tile of TN = 256
+// channels, or 128 where K % 256 != 0); each CTA of a cluster takes one C
+// block (its two warpgroups 64 channels each, m64nTNk16) and half of the
+// dM boxes, multicast into both. Items are numbered parts outermost, then
+// frequency, then the (C, K) tiles, so the clusters running at once hold
+// the tiles of a few frequencies and walk T in step: V[f] and dM[f] (50 MB
+// each at res2, batch 24) come from L2 after their first read. The TMA box
+// zero-fills tiles past T (a ragged last step adds nothing) and channels
+// past C (the partner of an odd last C block, which stores nothing).
+// Fixed-order sums: the parts' fp32 partials are added in part order by
+// k6_fold, and each item restarts its accumulators every <= 8,192 tiles
+// (the first chain stores, later ones red.global.add from the same
+// threads), so the result repeats bit for bit. The schedule is a table
+// from cuda_winograd.wino_wgrad_table (items, then their chains in steps):
+// the kernel decodes nothing but its rank's C block and a step's tiles.
+//
+// Bound: operations. The 16 GEMMs do 2 * 16 * T * C * K flops (res2 at
+// batch 24: T = 24,576, C = K = 1024: 0.82 TFLOP, 0.834 ms at 989 TFLOP/s
+// bf16), three times that in the split form. The transforms move x and gy
+// once and write V and dM (805 MB each at res2 in bf16, twice that split),
+// which the GEMM reads back about once.
+#include <cuda_bf16.h>
 
-#include <type_traits>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "hopper.cuh"
+#include "winograd_transform.cuh"
 
 namespace {
 
-constexpr int TT = 32;   // tiles per step (along W)
-constexpr int CT = 32;   // input channels per block
-constexpr int KT = 32;   // output channels per block
-constexpr int NT = 256;  // threads per block
-constexpr int TARGET_BLOCKS = 132 * 4;
-// Row strides (elements) of the staged V [16][TT][LD] and dM [16][TT][LD]:
-// padded for the tensor-core path so that the 8-row fragment loads are
-// free of bank conflicts, unpadded (float4 reads) for the fp32 path.
-constexpr int LD_TC = CT + 8;
-constexpr int LD_F32 = CT;
-static_assert(CT == KT, "V and dM share one row stride");
+using bf16 = __nv_bfloat16;
 
-constexpr int XC = 2 * TT + 2;  // input columns a step's tiles read
+constexpr int CB = 128;                // C channels (GEMM rows) per CTA
+constexpr int THREADS = 288;           // warpgroups 0, 1 consume; warp 8 produces
+constexpr int RELEASES = 2 * 8;        // consumer warps of both CTAs of a pair
+constexpr int ITEM_INTS = 6;           // cuda_winograd.WGRAD_ITEM_INTS
 
-// Shared memory: V and dM [16][TT][LD] in the operand type, then the
-// step's input rows xs[4][XC][CT] and cotangent rows gs[2][2 TT][KT] in the
-// storage type.
-template <typename T, bool TC>
-constexpr size_t smem_bytes() {
-  return (TC ? 2 * 16 * TT * LD_TC * sizeof(__nv_bfloat16) : 2 * 16 * TT * LD_F32 * sizeof(float))
-         + (4 * XC * CT + 2 * 2 * TT * KT) * sizeof(T);
-}
-
-struct Geom {
-  int H, W, C, K;
-  long long nsteps;  // B * (H / 2) * ceil((W / 2) / TT)
-  int nslices;
+template <int TN, bool SPLIT>
+struct Cfg {
+  static constexpr int P = SPLIT ? 2 : 1;       // operand planes (hi, lo)
+  static constexpr int BKP = SPLIT ? 32 : 64;   // tiles per stage (the GEMM's K)
+  static constexpr int BOX = 64 * BKP * 2;      // 64 channels x BKP tiles, bf16
+  static constexpr int A_BYTES = 2 * P * BOX;   // each warpgroup's V box per plane
+  static constexpr int NB = TN / 64;            // dM boxes per plane
+  static constexpr int STAGE_BYTES = A_BYTES + P * NB * BOX;
+  static constexpr int STAGES = TN == 256 ? 4 : 6;  // 192 KB of ring in every form
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  static_assert(BOX % 1024 == 0, "swizzled boxes start on 1024-byte boundaries");
 };
 
-template <typename T, bool TC>
-__global__ void __launch_bounds__(NT) wino_wgrad_kernel(const T* __restrict__ x,
-                                                        const T* __restrict__ gy,
-                                                        float* __restrict__ dst, Geom g) {
-  using Op = typename std::conditional<TC, __nv_bfloat16, float>::type;
-  constexpr int LD = TC ? LD_TC : LD_F32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Op* vs = reinterpret_cast<Op*>(smem);  // [16][TT][LD]
-  Op* ds = vs + 16 * TT * LD;            // [16][TT][LD]
-  T* xs = reinterpret_cast<T*>(ds + 16 * TT * LD);  // [4][XC][CT]
-  T* gs = xs + 4 * XC * CT;                          // [2][2 TT][KT]
-  constexpr int EPV = 16 / sizeof(T);  // elements per 16-byte copy
+struct Geom {
+  int C, K, nitems;
+};
 
-  const int nkt = g.K / KT;
-  const int c0 = (blockIdx.x / nkt) * CT, k0 = (blockIdx.x % nkt) * KT;
-  const int slice = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int nw = g.W / 2, ngroups = (nw + TT - 1) / TT;
+// Work item q of the table (cuda_winograd.wino_wgrad_table): row q holds
+// (part, frequency, C-block pair, n0, first chain, end chain); chain j's
+// (first step, end step) follow the nitems rows. The CTA's C block is
+// 2 (pair) + rank.
+struct Item {
+  int p, f, cb, n0, c_begin, c_end;
+};
+__device__ __forceinline__ Item item_of(const int* __restrict__ sched, int q, int rank) {
+  const int* r = sched + ITEM_INTS * q;
+  return {__ldg(r), __ldg(r + 1), 2 * __ldg(r + 2) + rank, __ldg(r + 3), __ldg(r + 4),
+          __ldg(r + 5)};
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc_tc[2][2][2];  // [f][ci][ki]
-  float acc[4][4][4];                                                      // [f][c][k]
-  if constexpr (TC) {
-#pragma unroll
-    for (int f = 0; f < 2; ++f)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc_tc[f][i][j], 0.f);
-  } else {
-#pragma unroll
-    for (int f = 0; f < 4; ++f)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[f][i][j] = 0.f;
+template <int TN, bool SPLIT>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
+    k6_gemm(const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap,
+            float* __restrict__ dst, const int* __restrict__ sched, Geom g) {
+  using Cf = Cfg<TN, SPLIT>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (rn::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = ring + Cf::STAGES * Cf::STAGE_BYTES;  // full[s]: full + 8 s
+  const uint32_t empty = full + 8 * Cf::STAGES;               // empty[s]: empty + 8 s
+  const int cblocks = g.C / CB;
+  const int* __restrict__ chains = sched + ITEM_INTS * g.nitems;
+  const int cluster = blockIdx.x / 2, nclusters = gridDim.x / 2;
+  const uint32_t rank = rn::cluster_rank();
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cf::STAGES; ++s) {
+      rn::mbar_init(full + 8 * s, 1);
+      rn::mbar_init(empty + 8 * s, RELEASES);
+    }
+    rn::fence_mbar_init();
   }
+  // Both CTAs' barriers exist before either multicasts or arrives remotely.
+  rn::cluster_sync();
 
-  const long long s0 = g.nsteps * slice / g.nslices, s1 = g.nsteps * (slice + 1) / g.nslices;
-  for (long long step = s0; step < s1; ++step) {
-    const int tw0 = static_cast<int>(step % ngroups) * TT;
-    const int th = static_cast<int>((step / ngroups) % (g.H / 2));
-    const int b = static_cast<int>(step / (static_cast<long long>(ngroups) * (g.H / 2)));
-
-    // Stage the step's 4 input rows (zero outside the image: the SAME
-    // halo) and 2 cotangent rows, 16 bytes at a time.
-    for (int i = tid; i < 4 * XC * CT / EPV; i += NT) {
-      const int e = i * EPV;
-      const int c = e % CT, col = (e / CT) % XC, r = e / (CT * XC);
-      const int hh = 2 * th - 1 + r, ww = 2 * tw0 - 1 + col;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (hh >= 0 && hh < g.H && ww >= 0 && ww < g.W)
-        v = *reinterpret_cast<const uint4*>(
-            x + ((static_cast<long long>(b) * g.H + hh) * g.W + ww) * g.C + c0 + c);
-      *reinterpret_cast<uint4*>(xs + e) = v;
-    }
-    for (int i = tid; i < 2 * 2 * TT * KT / EPV; i += NT) {
-      const int e = i * EPV;
-      const int k = e % KT, col = (e / KT) % (2 * TT), r = e / (KT * 2 * TT);
-      const int ww = 2 * tw0 + col;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (ww < g.W)
-        v = *reinterpret_cast<const uint4*>(
-            gy + ((static_cast<long long>(b) * g.H + 2 * th + r) * g.W + ww) * g.K + k0 + k);
-      *reinterpret_cast<uint4*>(gs + e) = v;
-    }
-    __syncthreads();
-    // V = B^T d B for (tile t, channel c), in fp32 in the reference's
-    // order (K3's input transform), cast to the operand type. A tile past
-    // the image's last column gets a zero dM (its cotangent columns are
-    // staged as zeros), so it adds nothing.
-    for (int i = tid; i < TT * CT; i += NT) {
-      const int t = i / CT, c = i % CT;
-      float v[16];
-      {
-        float d[4][4], rt[4][4];
+  if (warp == 8) {  // producer: one thread keeps the ring full
+    if (threadIdx.x == 256) {
+      int it = 0;  // stages filled, over all items
+      for (int q = cluster; q < g.nitems; q += nclusters) {
+        const Item itm = item_of(sched, q, static_cast<int>(rank));
+        for (int ch = itm.c_begin; ch < itm.c_end; ++ch) {
+          const int s_end = __ldg(chains + 2 * ch + 1);
+          for (int s = __ldg(chains + 2 * ch); s < s_end; ++s, ++it) {
+            const int t0 = s * Cf::BKP;
+            const uint32_t slot = it % Cf::STAGES;
+            // Slot reuse: both CTAs' consumers have released stage it - STAGES.
+            if (it >= Cf::STAGES) rn::mbar_wait(empty + 8 * slot, ((it / Cf::STAGES) - 1) & 1);
+            const uint32_t st = ring + slot * Cf::STAGE_BYTES, bar = full + 8 * slot;
+            rn::mbar_expect_tx(bar, Cf::STAGE_BYTES);
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+            for (int pl = 0; pl < Cf::P; ++pl) {
+              // this CTA's V boxes, one per consumer warpgroup
 #pragma unroll
-          for (int s = 0; s < 4; ++s) d[r][s] = rn::to_f32(xs[(r * XC + 2 * t + s) * CT + c]);
+              for (int w = 0; w < 2; ++w)
+                rn::tma_load_3d(st + (w * Cf::P + pl) * Cf::BOX, &vmap, itm.cb * CB + 64 * w, t0,
+                                itm.f + 16 * pl, bar);
+              // this CTA's half of the dM boxes, into both CTAs of the pair
 #pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          rt[0][s] = d[0][s] - d[2][s];
-          rt[1][s] = d[1][s] + d[2][s];
-          rt[2][s] = -d[1][s] + d[2][s];
-          rt[3][s] = d[1][s] - d[3][s];
-        }
-#pragma unroll
-        for (int k1 = 0; k1 < 4; ++k1) {
-          v[k1 * 4 + 0] = rt[k1][0] - rt[k1][2];
-          v[k1 * 4 + 1] = rt[k1][1] + rt[k1][2];
-          v[k1 * 4 + 2] = -rt[k1][1] + rt[k1][2];
-          v[k1 * 4 + 3] = rt[k1][1] - rt[k1][3];
-        }
-      }
-#pragma unroll
-      for (int f = 0; f < 16; ++f) vs[(f * TT + t) * LD + c] = rn::from_f32<Op>(v[f]);
-    }
-    // dM[k1 k2] = sum over (p1, p2) of A[p1, k1] A[p2, k2] gy[2 th + p1, 2 tw + p2],
-    // p1 outer, in fp32, cast to the operand type.
-    for (int i = tid; i < TT * KT; i += NT) {
-      const int t = i / KT, k = i % KT;
-      float gp[2][2];
-#pragma unroll
-      for (int p1 = 0; p1 < 2; ++p1)
-#pragma unroll
-        for (int p2 = 0; p2 < 2; ++p2)
-          gp[p1][p2] = rn::to_f32(gs[(p1 * 2 * TT + 2 * t + p2) * KT + k]);
-      // Columns of A^T = [[1, 1, 1, 0], [0, 1, -1, -1]] for k = 0..3.
-      const float a0[4] = {1.f, 1.f, 1.f, 0.f}, a1[4] = {0.f, 1.f, -1.f, -1.f};
-#pragma unroll
-      for (int k1 = 0; k1 < 4; ++k1)
-#pragma unroll
-        for (int k2 = 0; k2 < 4; ++k2) {
-          float m = 0.f;
-          if (a0[k1] * a0[k2] != 0.f) m += gp[0][0] * (a0[k1] * a0[k2]);
-          if (a0[k1] * a1[k2] != 0.f) m += gp[0][1] * (a0[k1] * a1[k2]);
-          if (a1[k1] * a0[k2] != 0.f) m += gp[1][0] * (a1[k1] * a0[k2]);
-          if (a1[k1] * a1[k2] != 0.f) m += gp[1][1] * (a1[k1] * a1[k2]);
-          ds[((k1 * 4 + k2) * TT + t) * LD + k] = rn::from_f32<Op>(m);
-        }
-    }
-    __syncthreads();
-    if constexpr (TC) {
-      const int warp = tid / 32;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bm[2];
-#pragma unroll
-      for (int fl = 0; fl < 2; ++fl) {
-        const int f = 2 * warp + fl;
-#pragma unroll
-        for (int ks = 0; ks < TT / 16; ++ks) {
-          // A(c, t) = V[f][t][c]: column-major; B(t, k) = dM[f][t][k]: row-major.
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            wmma::load_matrix_sync(a[i], vs + (f * TT + ks * 16) * LD + i * 16, LD);
-            wmma::load_matrix_sync(bm[i], ds + (f * TT + ks * 16) * LD + i * 16, LD);
+              for (int b = 0; b < Cf::NB / 2; ++b) {
+                const int qb = static_cast<int>(rank) * (Cf::NB / 2) + b;
+                rn::tma_load_3d_multicast(st + Cf::A_BYTES + (pl * Cf::NB + qb) * Cf::BOX, &dmap,
+                                          itm.n0 + 64 * qb, t0, itm.f + 16 * pl, bar, 3);
+              }
+            }
           }
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-#pragma unroll
-            for (int j = 0; j < 2; ++j)
-              wmma::mma_sync(acc_tc[fl][i][j], a[i], bm[j], acc_tc[fl][i][j]);
         }
       }
-    } else {
-      const int cg = tid % 8, kg = (tid / 8) % 8, fg = tid / 64;
-      const float* vf = reinterpret_cast<const float*>(vs);
-      const float* df = reinterpret_cast<const float*>(ds);
-#pragma unroll 2
-      for (int t = 0; t < TT; ++t)
+      // Let every release of the last stages, the peer's remote ones
+      // included, land before this CTA exits.
+      for (int d = 0; d < Cf::STAGES; ++d, ++it)
+        if (it >= Cf::STAGES)
+          rn::mbar_wait(empty + 8 * (it % Cf::STAGES), ((it / Cf::STAGES) - 1) & 1);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wgi owns channels cb * 128 + 64 wgi .. + 63 of each item
+  const int wgi = warp / 4;
+  const uint32_t lane = threadIdx.x % 32;
+  const int row = (warp % 4) * 16 + static_cast<int>(lane) / 4;
+  // the peer CTA's empty[0], as a shared::cluster address
+  const uint32_t peer_empty = rn::cluster_address(empty, rank ^ 1);
+  float acc[TN / 2];
 #pragma unroll
-        for (int fl = 0; fl < 4; ++fl) {
-          const int f = fg * 4 + fl;
-          const float4 v4 = *reinterpret_cast<const float4*>(vf + (f * TT + t) * LD + cg * 4);
-          const float4 d4 = *reinterpret_cast<const float4*>(df + (f * TT + t) * LD + kg * 4);
-          const float vv[4] = {v4.x, v4.y, v4.z, v4.w}, dd[4] = {d4.x, d4.y, d4.z, d4.w};
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+  int it = 0;  // stages consumed, over all items
+  for (int q = cluster; q < g.nitems; q += nclusters) {
+    const Item itm = item_of(sched, q, static_cast<int>(rank));
+    float* out = dst + static_cast<long long>(itm.p) * 16 * g.C * g.K +
+                 (static_cast<long long>(itm.f) * g.C + itm.cb * CB + 64 * wgi + row) * g.K +
+                 itm.n0 + 2 * static_cast<int>(lane % 4);
+    for (int ch = itm.c_begin; ch < itm.c_end; ++ch) {
+      const int nk = __ldg(chains + 2 * ch + 1) - __ldg(chains + 2 * ch);
+      for (int k = 0; k < nk; ++k, ++it) {
+        const uint32_t slot = it % Cf::STAGES;
+        rn::mbar_wait(full + 8 * slot, (it / Cf::STAGES) & 1);
+        const uint32_t st = ring + slot * Cf::STAGE_BYTES;
+        const uint64_t da = rn::sw128_mn_desc(st + wgi * Cf::P * Cf::BOX, Cf::BOX);
+        const uint64_t db = rn::sw128_mn_desc(st + Cf::A_BYTES, Cf::BOX);
+        rn::wgmma_fence();
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < Cf::BKP / 16; ++j) {
+          rn::wgmma<TN, 1, 1>(acc, da + 128 * j, db + 128 * j, k | j);
+          if constexpr (SPLIT) {
+            // the lo planes: V's next box, dM's NB boxes later
+            constexpr uint64_t lo_a = Cf::BOX >> 4, lo_b = (Cf::NB * Cf::BOX) >> 4;
+            rn::wgmma<TN, 1, 1>(acc, da + 128 * j, db + lo_b + 128 * j, 1);
+            rn::wgmma<TN, 1, 1>(acc, da + lo_a + 128 * j, db + 128 * j, 1);
+          }
+        }
+        rn::wgmma_commit();
+        rn::wgmma_wait<1>();  // stage it - 1's group has retired: release its slot
+        if (k > 0) {
+          const uint32_t off = 8 * ((it - 1) % Cf::STAGES);
+          rn::mbar_arrive_pair_lane0(empty + off, peer_empty + off, lane);
+        }
+      }
+      rn::wgmma_wait<0>();
+      const uint32_t off = 8 * ((it - 1) % Cf::STAGES);
+      rn::mbar_arrive_pair_lane0(empty + off, peer_empty + off, lane);
+      rn::fence_regs(acc);
+      if (itm.cb >= cblocks) continue;  // the partner of an odd last C block
+      // rows row and row + 8 of the warpgroup's 64, columns 8 j + 2 (lane %
+      // 4) (+ 1); the first chain stores, each later one adds in order.
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[fl][i][j] = fmaf(vv[i], dd[j], acc[fl][i][j]);
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j) {
+          float* o = out + 8LL * half * g.K + 8 * j;
+          const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+          if (ch == itm.c_begin) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            rn::red_add(o, v0);
+            rn::red_add(o + 1, v1);
+          }
         }
     }
-    __syncthreads();  // the next step overwrites vs and ds
-  }
-
-  // dst [nslices][16][C][K]
-  float* out = dst + static_cast<long long>(slice) * 16 * g.C * g.K;
-  if constexpr (TC) {
-    const int warp = tid / 32;
-#pragma unroll
-    for (int fl = 0; fl < 2; ++fl)
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(
-              out + (static_cast<long long>(2 * warp + fl) * g.C + c0 + i * 16) * g.K + k0 + j * 16,
-              acc_tc[fl][i][j], g.K, wmma::mem_row_major);
-  } else {
-    const int cg = tid % 8, kg = (tid / 8) % 8, fg = tid / 64;
-#pragma unroll
-    for (int fl = 0; fl < 4; ++fl)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float4 r = make_float4(acc[fl][i][0], acc[fl][i][1], acc[fl][i][2], acc[fl][i][3]);
-        *reinterpret_cast<float4*>(
-            out + (static_cast<long long>(fg * 4 + fl) * g.C + c0 + cg * 4 + i) * g.K + k0 +
-            kg * 4) = r;
-      }
   }
 }
 
-// out[i] = sum over slices, in slice order, of part[slice][i].
-__global__ void wino_wgrad_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                         long long n, int nslices) {
+// The transforms, one thread each per (tile, CPT channels).
+template <typename In, int CPT, bool SPLIT>
+__global__ void __launch_bounds__(256) k6_input_transform(const In* __restrict__ x,
+                                                          bf16* __restrict__ v, int B, int H,
+                                                          int W, int C) {
+  rn::input_transform_at<In, CPT, SPLIT>(
+      x, v, static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x, B, H, W, C);
+}
+
+template <typename In, int CPT, bool SPLIT>
+__global__ void __launch_bounds__(256) k6_spread(const In* __restrict__ gy, bf16* __restrict__ dm,
+                                                 int B, int H, int W, int K) {
+  rn::cotangent_spread_at<In, CPT, SPLIT>(
+      gy, dm, static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x, B, H, W, K);
+}
+
+// gU[f][i] = sum over parts, in part order, of part[p][f][i] (i = c K + k);
+// then gw[r][s][i] = sum_a G[a, r] sum_b G[b, s] gU[4 a + b][i] (G's rows
+// (1, 0, 0), (1/2, 1/2, 1/2), (1/2, -1/2, 1/2), (0, 0, 1)).
+__global__ void __launch_bounds__(256) k6_fold(const float* __restrict__ part,
+                                               float* __restrict__ out, long long ck, int parts) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.f;
-  for (int k = 0; k < nslices; ++k) s += part[k * n + i];
-  out[i] = s;
+  if (i >= ck) return;
+  float u[16];
+#pragma unroll
+  for (int f = 0; f < 16; ++f) {
+    float s = part[f * ck + i];
+    for (int p = 1; p < parts; ++p) s += part[(static_cast<long long>(p) * 16 + f) * ck + i];
+    u[f] = s;
+  }
+  float t[4][3];  // t[a][s] = sum_b G[b, s] u[4 a + b]
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float* ua = u + 4 * a;
+    t[a][0] = (ua[0] + 0.5f * ua[1]) + 0.5f * ua[2];
+    t[a][1] = 0.5f * ua[1] - 0.5f * ua[2];
+    t[a][2] = (0.5f * ua[1] + 0.5f * ua[2]) + ua[3];
+  }
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    out[(0 * 3 + s) * ck + i] = (t[0][s] + 0.5f * t[1][s]) + 0.5f * t[2][s];
+    out[(1 * 3 + s) * ck + i] = 0.5f * t[1][s] - 0.5f * t[2][s];
+    out[(2 * 3 + s) * ck + i] = (0.5f * t[1][s] + 0.5f * t[2][s]) + t[3][s];
+  }
 }
 
-long long steps_of(int B, int H, int W) {
-  return static_cast<long long>(B) * (H / 2) * ((W / 2 + TT - 1) / TT);
+// V or dM, [16 P][T][N] bf16, as a 3-D map with boxes of 64 channels x BKP
+// tiles x 1 plane-frequency, 128-byte swizzle, zeros past T.
+bool make_map(CUtensorMap* map, const void* base, int planes, long long T, int N, int bkp) {
+  const long long dims[3] = {N, T, 16LL * planes}, strides[2] = {2LL * N, 2LL * T * N};
+  const int box[3] = {64, bkp, 1};
+  return rn::make_bf16_map(map, base, 3, dims, strides, box);
 }
 
-int plan_slices(int B, int H, int W, int C, int K) {
-  const long long tiles = static_cast<long long>(C / CT) * (K / KT);
-  long long n = (TARGET_BLOCKS + tiles - 1) / tiles;
-  const long long steps = steps_of(B, H, W);
-  if (n > steps) n = steps;
-  return static_cast<int>(n < 1 ? 1 : n);
+template <typename In, bool SPLIT>
+int launch_transforms(const void* x, const void* gy, bf16* v, bf16* dm, int B, int H, int W, int C,
+                      int K, cudaStream_t s) {
+  constexpr int CPT = (SPLIT || sizeof(In) == 4) ? 4 : 8;
+  const long long T = static_cast<long long>(B) * (H / 2) * (W / 2);
+  k6_input_transform<In, CPT, SPLIT><<<static_cast<unsigned>((T * (C / CPT) + 255) / 256), 256, 0,
+                                       s>>>(static_cast<const In*>(x), v, B, H, W, C);
+  k6_spread<In, CPT, SPLIT><<<static_cast<unsigned>((T * (K / CPT) + 255) / 256), 256, 0, s>>>(
+      static_cast<const In*>(gy), dm, B, H, W, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool TC>
-int launch(const void* x, const void* gy, float* dst, const Geom& g, cudaStream_t s) {
-  constexpr size_t smem = smem_bytes<T, TC>();
-  cudaError_t err = cudaFuncSetAttribute(wino_wgrad_kernel<T, TC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <int TN, bool SPLIT>
+int launch_gemm(const bf16* v, const bf16* dm, float* dst, const int* sched, long long T,
+                const Geom& g, int grid, cudaStream_t s) {
+  using Cf = Cfg<TN, SPLIT>;
+  CUtensorMap vmap, dmap;
+  if (!make_map(&vmap, v, Cf::P, T, g.C, Cf::BKP) || !make_map(&dmap, dm, Cf::P, T, g.K, Cf::BKP))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      k6_gemm<TN, SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cf::SMEM);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((g.C / CT) * (g.K / KT), g.nslices);
-  wino_wgrad_kernel<T, TC><<<grid, NT, smem, s>>>(static_cast<const T*>(x),
-                                                  static_cast<const T*>(gy), dst, g);
+  static const int pairs = rn::max_active_pairs(k6_gemm<TN, SPLIT>, THREADS, Cf::SMEM);
+  if (pairs < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  grid = grid < 2 * pairs ? grid : 2 * pairs;
+  k6_gemm<TN, SPLIT><<<grid, THREADS, Cf::SMEM, s>>>(vmap, dmap, dst, sched, g);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Slices of the tile rows, and so the partial-sum workspace the wrapper
-// allocates: nslices * 16 * C * K floats when nslices > 1, none otherwise.
-extern "C" int rn_wino_wgrad_slices(int B, int H, int W, int C, int K) {
-  return plan_slices(B, H, W, C, K);
-}
-
-// x [B, H, W, C], gy [B, H, W, K] (one storage type); fp32_ops: 1 for fp32
-// GEMM operands, 0 for the storage type's (bf16 storage only); part: the
-// workspace (unused for one slice); gu [16, C, K] fp32. H, W even; C and K
-// multiples of 32 (the wrapper's envelope guarantees them).
-extern "C" int rn_wino_wgrad(const void* x, const void* gy, void* part, void* gu, int dtype,
-                             int fp32_ops, int B, int H, int W, int C, int K, void* stream) {
+// x [B, H, W, C], gy [B, H, W, K] (one storage type, 16-byte aligned); H, W
+// even, C % 128 == 0, K % 128 == 0 (the wrapper's envelope guarantees
+// them). split: 1 for the hi / lo operand planes (fp32 operands; always
+// with fp32 storage), 0 for bf16 operands. Scratch from the wrapper: v
+// [P][16][T][C] and dm [P][16][T][K] bf16 (P = 1 + split), part [parts][16]
+// [C][K] fp32; out is gw [3, 3, C, K] fp32. sched (device int32), parts,
+// nitems and grid come from cuda_winograd: the schedule table
+// (wino_wgrad_table, nitems item rows, then chains in steps of bkp tiles,
+// which must be this form's BKP), the parts of T and the persistent CTAs,
+// an even count, cut to the clusters the card can hold at once.
+extern "C" int rn_wino_wgrad(const void* x, const void* gy, void* v, void* dm, void* part,
+                             void* out, const void* sched, int dtype, int split, int bkp, int B,
+                             int H, int W, int C, int K, int parts, int nitems, int grid,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H % 2 || W % 2 || C % CT || K % KT) return static_cast<int>(cudaErrorInvalidValue);
-  const int nslices = plan_slices(B, H, W, C, K);
-  const Geom g{H, W, C, K, steps_of(B, H, W), nslices};
-  float* dst = static_cast<float*>(nslices > 1 ? part : gu);
+  const long long T = static_cast<long long>(B) * (H / 2) * (W / 2);
+  if (H % 2 || W % 2 || C <= 0 || C % CB || K <= 0 || K % 128 || T <= 0 || T >= (1LL << 31) ||
+      (dtype == 0 && !split) || bkp != (split ? Cfg<256, true>::BKP : Cfg<256, false>::BKP) ||
+      parts < 1 || nitems < 1 || grid < 2 || grid % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bf16* vb = static_cast<bf16*>(v);
+  bf16* db = static_cast<bf16*>(dm);
   int rc;
   if (dtype == 0)
-    rc = launch<float, false>(x, gy, dst, g, s);
-  else if (fp32_ops)
-    rc = launch<__nv_bfloat16, false>(x, gy, dst, g, s);
+    rc = launch_transforms<float, true>(x, gy, vb, db, B, H, W, C, K, s);
+  else if (split)
+    rc = launch_transforms<bf16, true>(x, gy, vb, db, B, H, W, C, K, s);
   else
-    rc = launch<__nv_bfloat16, true>(x, gy, dst, g, s);
-  if (rc != 0 || nslices == 1) return rc;
-  const long long n = 16LL * C * K;
-  wino_wgrad_reduce_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(
-      static_cast<const float*>(part), static_cast<float*>(gu), n, nslices);
+    rc = launch_transforms<bf16, false>(x, gy, vb, db, B, H, W, C, K, s);
+  if (rc != 0) return rc;
+  const Geom g{C, K, nitems};
+  float* dst = static_cast<float*>(part);
+  const int* tab = static_cast<const int*>(sched);
+  const bool wide = K % 256 == 0;
+  if (split)
+    rc = wide ? launch_gemm<256, true>(vb, db, dst, tab, T, g, grid, s)
+              : launch_gemm<128, true>(vb, db, dst, tab, T, g, grid, s);
+  else
+    rc = wide ? launch_gemm<256, false>(vb, db, dst, tab, T, g, grid, s)
+              : launch_gemm<128, false>(vb, db, dst, tab, T, g, grid, s);
+  if (rc != 0) return rc;
+  const long long ck = static_cast<long long>(C) * K;
+  k6_fold<<<static_cast<unsigned>((ck + 255) / 256), 256, 0, s>>>(dst, static_cast<float*>(out),
+                                                                  ck, parts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,24 +1,33 @@
 """Fused Winograd F(2x2,3x3) conv for the wide 2D res stacks on the K3 CUDA
 kernel (``csrc/winograd.cu``), with its gradient: the data gradient on K3
 itself and, when :data:`WGRAD` is set, the transform-domain weight gradient
-on the K6 kernel (``csrc/winograd_wgrad.cu``).
+on the K6 kernels (``csrc/winograd_wgrad.cu``).
 
 Counterpart of ``rendernet_tpu/ops/pallas_winograd.py``. :func:`wino_conv2d`
 is the differentiable op (``_fwd`` / ``_bwd``, :455-500);
 :func:`wino_conv2d_forward` and :func:`wino_wgrad` are the two kernels'
 wrappers. The plain versions are ``ops.winograd.winograd3x3`` and
 ``ops.winograd.wino_wgrad_plain``.
+
+K6's GEMM is persistent (one CTA per SM, in clusters of two that share the
+cotangent operand's loads). Its schedule is planned here and handed to the
+kernel as a table (:func:`wino_wgrad_table`, built from
+:func:`wino_wgrad_plan`, :func:`wino_wgrad_item` and
+:func:`wino_wgrad_chains`), so the CPU tests
+(``tests/test_torch_wino_wgrad_layout.py``) hold the schedule the kernel runs.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from collections import Counter
 
 import torch
 
 from rendernet_tpu_torch.ops import _native
 from rendernet_tpu_torch.ops.conv_grad import flip_io, plain_conv_wgrad
-from rendernet_tpu_torch.ops.winograd import fold_weight_grad, winograd3x3, wino_wgrad_plain
+from rendernet_tpu_torch.ops.cuda_conv2d import tile_n
+from rendernet_tpu_torch.ops.winograd import winograd3x3, wino_wgrad_plain
 
 __all__ = [
     "WGRAD",
@@ -27,15 +36,23 @@ __all__ = [
     "wino_conv2d_plain",
     "wino_conv2d_supported",
     "v_scratch_bytes",
+    "wgrad_scratch_bytes",
+    "wgrad_split",
     "wino_wgrad",
+    "wino_wgrad_chains",
+    "wino_wgrad_item",
     "wino_wgrad_plain",
+    "wino_wgrad_plan",
+    "wino_wgrad_steps",
+    "wino_wgrad_table",
 ]
 
 # The backward's weight gradient, as ``pallas_winograd.WGRAD`` (:316):
 #   False  - the direct conv weight gradient (torch.nn.grad.conv2d_weight,
 #            cuDNN on the card; JAX leaves it to XLA the same way);
 #   True   - K6 with GEMM operands in the activations' dtype;
-#   "fp32" - K6 with fp32 GEMM operands (CUDA-core FMAs on the card).
+#   "fp32" - K6 with fp32 GEMM operands (on the card each operand is two bf16
+#            planes, hi and lo, and the GEMM adds three bf16 products).
 WGRAD = False
 
 # Launches since the last reset, in all and by (input shape, output
@@ -174,15 +191,149 @@ def wino_conv2d_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# K6's schedule (csrc/winograd_wgrad.cu, k6_gemm)
+# ---------------------------------------------------------------------------
+WGRAD_C_BLOCK = 128  # input channels (GEMM rows) per CTA: two warpgroups x 64
+MAX_CHAIN_TILES = 8192  # tiles per fp32 accumulator chain
+MAX_PART_BYTES = 512 << 20  # the workspace of partial sums, at most (beyond one part)
+# One CTA's step on a 132-SM H100 at the bf16 peak (989 TFLOP/s), in
+# microseconds per tile per output column per bf16 pass: the cost model
+# that sizes the parts.
+_TILE_US_PER_COLUMN = 2 * WGRAD_C_BLOCK / (989e6 / 132)
+_HBM_BYTES_PER_US = 3.35e6
+
+
+def wgrad_split(dtype: torch.dtype, fp32_operands) -> bool:
+    """Whether K6 takes each operand as two bf16 planes (hi, lo) for fp32
+    products: with fp32 operands, and always with fp32 storage."""
+    return dtype == torch.float32 or bool(fp32_operands)
+
+
+def _step_tiles(split: bool) -> int:
+    """Tiles per GEMM step: 64, or 32 in the split form (whose stage holds
+    both planes in the same 48 or 32 KB)."""
+    return 32 if split else 64
+
+
+def _items_per_part(c: int, k: int) -> int:
+    """Cluster work items per part: 16 frequencies x pairs of 128-channel C
+    blocks x output tiles."""
+    return 16 * -(-(c // WGRAD_C_BLOCK) // 2) * (k // tile_n(k))
+
+
+def wino_wgrad_steps(x_shape, split: bool) -> int:
+    """K6's GEMM steps over all T = B * H/2 * W/2 tiles, the last one
+    zero-filled past T."""
+    b, h, w, _ = x_shape
+    return -(-(b * (h // 2) * (w // 2)) // _step_tiles(split))
+
+
+@functools.lru_cache(maxsize=256)
+def wino_wgrad_plan(x_shape, k: int, split: bool, n_sm: int):
+    """K6's ``(parts, grid)``: the parts of T whose fp32 partial sums are
+    added in part order (a workspace of ``parts * 16 * C * K`` floats), and
+    the GEMM's persistent CTAs (two per cluster). Part p takes steps ``[S p
+    / parts, S (p + 1) / parts)`` of the S = :func:`wino_wgrad_steps`.
+    ``parts`` minimises a cost model on ``n_sm / 2`` clusters: waves of
+    items x steps per item, plus the bytes of partials the fold reads."""
+    c = x_shape[-1]
+    items = _items_per_part(c, k)
+    clusters = max(n_sm // 2, 1)
+    steps = wino_wgrad_steps(x_shape, split)
+    ws = 16 * c * k * 4
+    step_us = (3 if split else 1) * _step_tiles(split) * tile_n(k) * _TILE_US_PER_COLUMN
+    best = None
+    for parts in range(1, min(steps, 64) + 1):
+        if parts > 1 and parts * ws > MAX_PART_BYTES:
+            break
+        cost = -(-items * parts // clusters) * -(-steps // parts) * step_us
+        cost += parts * ws / _HBM_BYTES_PER_US
+        if best is None or cost < best[0]:
+            best = (cost, parts)
+    parts = best[1]
+    return parts, 2 * min(items * parts, clusters)
+
+
+def wino_wgrad_item(q: int, x_shape, k: int, split: bool, parts: int):
+    """K6's work item q: ``(part, frequency, C-block pair, n0, first step,
+    end step)``. Items run parts outermost, then frequency, then pairs of C
+    blocks, then output tiles, so the clusters at work at once hold the
+    (C, K) tiles of a few frequencies and walk T together. CTA ``rank`` (0
+    or 1) of the cluster that takes the item sums C block 2 (pair) + rank;
+    past the last one (an odd count, C / 128) that is a block of nothing,
+    whose channels lie past C."""
+    c = x_shape[-1]
+    bn = tile_n(k)
+    per_f = _items_per_part(c, k) // 16
+    p, r = divmod(q, 16 * per_f)
+    f, r = divmod(r, per_f)
+    cp, nt = divmod(r, k // bn)
+    steps = wino_wgrad_steps(x_shape, split)
+    return p, f, cp, nt * bn, steps * p // parts, steps * (p + 1) // parts
+
+
+def wino_wgrad_chains(s_begin: int, s_end: int, split: bool):
+    """The accumulator chains of one K6 work item: ``[(begin, end), ...]``
+    in steps, as equal as can be and at most MAX_CHAIN_TILES tiles each.
+    The first chain's sums are stored, each later chain's added to them in
+    order."""
+    n = s_end - s_begin
+    kk = -(-n // (MAX_CHAIN_TILES // _step_tiles(split)))
+    return [(s_begin + n * i // kk, s_begin + n * (i + 1) // kk) for i in range(kk)]
+
+
+WGRAD_ITEM_INTS = 6  # ints per item row of wino_wgrad_table
+
+
+@functools.lru_cache(maxsize=256)
+def wino_wgrad_table(x_shape, k: int, split: bool, parts: int) -> tuple:
+    """K6's schedule as ``k6_gemm`` reads it, int32: first a row per work
+    item q, ``(part, frequency, C-block pair, n0, first chain, end chain)``
+    (:func:`wino_wgrad_item`), then a ``(first step, end step)`` pair per
+    chain (:func:`wino_wgrad_chains`), item q's chains being ``[first
+    chain, end chain)``. The kernel only adds the CTA's rank to the C block
+    and multiplies steps by :func:`_step_tiles` tiles."""
+    n = _items_per_part(x_shape[-1], k) * parts
+    rows, chains = [], []
+    for q in range(n):
+        p, f, cp, n0, s0, s1 = wino_wgrad_item(q, x_shape, k, split, parts)
+        cq = wino_wgrad_chains(s0, s1, split)
+        rows += [p, f, cp, n0, len(chains) // 2, len(chains) // 2 + len(cq)]
+        chains += [s for ch in cq for s in ch]
+    return tuple(rows + chains)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(x_shape, k: int, split: bool, parts: int, device: torch.device):
+    return torch.tensor(wino_wgrad_table(x_shape, k, split, parts), dtype=torch.int32,
+                        device=device)
+
+
+def wgrad_scratch_bytes(x_shape, k: int, dtype: torch.dtype, fp32_operands, n_sm: int) -> int:
+    """Bytes of scratch one K6 call allocates: V ``[P, 16, T, C]`` and dM
+    ``[P, 16, T, K]`` in bf16 (P = 2 in the split form) and the parts'
+    fp32 workspace."""
+    b, h, w, c = x_shape
+    split = wgrad_split(dtype, fp32_operands)
+    t = b * (h // 2) * (w // 2)
+    parts, _ = wino_wgrad_plan(tuple(x_shape), k, split, n_sm)
+    return (2 if split else 1) * 16 * t * (c + k) * 2 + parts * 16 * c * k * 4
+
+
 def wino_wgrad(x: torch.Tensor, gy: torch.Tensor, fp32_operands: bool | None = None
                ) -> torch.Tensor:
     """The K6 wrapper: the weight gradient ``[3, 3, C, K]`` (fp32) of the
     SAME stride-1 3x3 conv of ``x`` ``[B,H,W,C]`` with output cotangent
-    ``gy`` ``[B,H,W,K]``, contracted in the Winograd domain (gU on the K6
-    kernel, the fold through G in PyTorch). ``fp32_operands`` defaults to
-    ``WGRAD == "fp32"``; with fp32 activations the operands are fp32 either
-    way. A CUDA tensor inside :func:`wino_conv2d_supported` runs K6 (any
-    other CUDA input raises); a CPU tensor runs ``wino_wgrad_plain``."""
+    ``gy`` ``[B,H,W,K]``, contracted in the Winograd domain. ``fp32_operands``
+    defaults to ``WGRAD == "fp32"``; with fp32 activations the operands are
+    fp32 either way. A CUDA tensor inside :func:`wino_conv2d_supported` runs
+    K6 (any other CUDA input raises): the input transform into a V scratch,
+    the cotangent spread into a dM scratch (both bf16, as hi / lo planes
+    for fp32 operands), the 16 GEMMs into fp32 parts on the schedule of
+    :func:`wino_wgrad_table`, and the parts' sum and fold; one launch is
+    counted per call. A CPU tensor runs
+    ``wino_wgrad_plain``."""
     if fp32_operands is None:
         fp32_operands = WGRAD == "fp32"
     if x.device.type == "cpu":
@@ -195,21 +346,27 @@ def wino_wgrad(x: torch.Tensor, gy: torch.Tensor, fp32_operands: bool | None = N
         raise ValueError(f"wino_wgrad: x {tuple(x.shape)}, gy {tuple(gy.shape)} is outside "
                          "the kernel's envelope; gate calls with wino_conv2d_supported")
     x, gy = _native.aligned(x), _native.aligned(gy)
+    split = wgrad_split(x.dtype, fp32_operands)
+    shape = tuple(x.shape)
+    parts, grid = wino_wgrad_plan(shape, k, split, _native.sm_count(x.device.index))
+    table = _device_table(shape, k, split, parts, x.device)
+    planes, t = 1 + split, b * (h // 2) * (wd // 2)
+    v = torch.empty((planes, 16, t, c), dtype=torch.bfloat16, device=x.device)
+    dm = torch.empty((planes, 16, t, k), dtype=torch.bfloat16, device=x.device)
+    part = torch.empty(parts * 16 * c * k, dtype=torch.float32, device=x.device)
+    out = torch.empty((3, 3, c, k), dtype=torch.float32, device=x.device)
     lib = _native.load("winograd_wgrad")
-    lib.rn_wino_wgrad_slices.argtypes = [ctypes.c_int] * 5
-    nslices = lib.rn_wino_wgrad_slices(b, h, wd, c, k)
-    part = torch.empty(nslices * 16 * c * k if nslices > 1 else 0, dtype=torch.float32,
-                       device=x.device)
-    gu = torch.empty((16, c, k), dtype=torch.float32, device=x.device)
-    lib.rn_wino_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    rc = lib.rn_wino_wgrad(x.data_ptr(), gy.data_ptr(), part.data_ptr(), gu.data_ptr(),
-                           _native.dtype_code(x.dtype), int(bool(fp32_operands)),
-                           b, h, wd, c, k, _native.stream_ptr(x))
+    lib.rn_wino_wgrad.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+    rc = lib.rn_wino_wgrad(x.data_ptr(), gy.data_ptr(), v.data_ptr(), dm.data_ptr(),
+                           part.data_ptr(), out.data_ptr(), table.data_ptr(),
+                           _native.dtype_code(x.dtype), int(split), _step_tiles(split), b, h, wd,
+                           c, k, parts, _items_per_part(c, k) * parts, grid,
+                           _native.stream_ptr(x))
     _native.check(lib, rc, "K6 winograd weight gradient")
     global wgrad_launches
     wgrad_launches += 1
     wgrad_launches_by_shape[(b, h, wd, c), k] += 1
-    return fold_weight_grad(gu)
+    return out
 
 
 def weight_grad(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:

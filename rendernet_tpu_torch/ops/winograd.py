@@ -29,8 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["input_transform", "transform_weights", "winograd3x3", "wino_wgrad_plain",
-           "fold_weight_grad"]
+__all__ = ["input_transform", "transform_weights", "winograd3x3", "cotangent_spread",
+           "wino_wgrad_plain", "fold_weight_grad"]
 
 # F(2x2, 3x3) transform matrices (Lavin & Gray, arXiv:1509.09308).
 _BT = np.array([
@@ -106,20 +106,29 @@ def winograd3x3(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out[:, :h, :ww, :].to(x.dtype)
 
 
+def cotangent_spread(gy: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """dM = A gy-tile A^T of every 2x2 block of the output cotangent ``gy``
+    ``[B,H,W,K]`` (H, W even), in fp32 then cast to ``dtype``: ``[16, B *
+    H/2 * W/2, K]``, tiles and frequencies in :func:`input_transform`'s
+    order. The products are exact (A holds 0 and +-1); the sums run over
+    (p1, p2), p1 outer, left to right, as in the K6 kernel's spread."""
+    k = gy.shape[-1]
+    g = gy.to(torch.float32)
+    gp = [g[:, p1::2, p2::2, :].reshape(-1, k) for p1 in range(2) for p2 in range(2)]
+    return torch.stack([
+        _lincomb(gp, [_AT[p1, k1] * _AT[p2, k2] for p1 in range(2) for p2 in range(2)])
+        for k1 in range(4) for k2 in range(4)]).to(dtype)
+
+
 def wino_wgrad_plain(x: torch.Tensor, gy: torch.Tensor, fp32_operands: bool = False) -> torch.Tensor:
     """Plain version of K6: the weight gradient ``[3, 3, C, K]`` (fp32) of the
     SAME stride-1 3x3 conv of ``x`` ``[B,H,W,C]`` (H, W even) with output
     cotangent ``gy`` ``[B,H,W,K]``, through the transform domain. GEMM
     operands in ``x.dtype``, or fp32 with ``fp32_operands``; everything else
     fp32 (``pallas_winograd._wgrad_kernel``'s rounding points)."""
-    k = gy.shape[-1]
     opdt = torch.float32 if fp32_operands else x.dtype
     vmat = input_transform(x, opdt)
-    g = gy.to(torch.float32)
-    gp = [g[:, p1::2, p2::2, :].reshape(-1, k) for p1 in range(2) for p2 in range(2)]
-    dm = torch.stack([
-        _lincomb(gp, [_AT[p1, k1] * _AT[p2, k2] for p1 in range(2) for p2 in range(2)])
-        for k1 in range(4) for k2 in range(4)]).to(opdt)
+    dm = cotangent_spread(gy, opdt)
     gu = torch.bmm(vmat.to(torch.float32).transpose(1, 2), dm.to(torch.float32))
     return fold_weight_grad(gu)
 

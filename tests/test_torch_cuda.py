@@ -162,15 +162,29 @@ def test_conv3d_wgrad_kernel(cuda, dtype, xs, co):
     _close(got, cuda_conv3d.nc_conv3d_wgrad_plain(x, gy), torch.float32)
 
 
+# K6 cases: batches 8, 16 and 24 with K = 128 (one 128-channel output tile)
+# and 384 (three), T = B * 3 * 35 tiles (not a multiple of either step's
+# 64 or 32 tiles); C = 384 (an odd count of 128-channel C blocks) with K =
+# 256 (the 256-wide tile). Forms: fp32 storage, bf16 operands, bf16 storage
+# with fp32 operands (the hi / lo planes).
+K6_CASES = [((b, 6, 70, 256), k) for b in (8, 16, 24) for k in (128, 384)] + [
+    ((8, 6, 70, 384), 256)]
+
+
 @pytest.mark.parametrize("dtype,fp32_ops", [(torch.float32, False), (torch.bfloat16, False),
                                             (torch.bfloat16, True)])
-def test_winograd_wgrad_kernel(cuda, dtype, fp32_ops):
+@pytest.mark.parametrize("xs,k", K6_CASES)
+def test_winograd_wgrad_kernel(cuda, dtype, fp32_ops, xs, k):
+    """K6 against its plain version, and run twice: the same bits (its parts
+    are added in a fixed order, its chains from the same threads)."""
     g = torch.Generator(device=cuda).manual_seed(4)
-    x = torch.randn(8, 6, 70, 256, generator=g, device=cuda).to(dtype)
-    gy = torch.randn(8, 6, 70, 128, generator=g, device=cuda).to(dtype)
-    before = cuda_winograd.wgrad_launches_by_shape[(8, 6, 70, 256), 128]
+    x = torch.randn(*xs, generator=g, device=cuda).to(dtype)
+    gy = torch.randn(*xs[:-1], k, generator=g, device=cuda).to(dtype)
+    before = cuda_winograd.wgrad_launches_by_shape[tuple(xs), k]
     got = cuda_winograd.wino_wgrad(x, gy, fp32_ops)
-    assert cuda_winograd.wgrad_launches_by_shape[(8, 6, 70, 256), 128] == before + 1
+    again = cuda_winograd.wino_wgrad(x, gy, fp32_ops)
+    assert cuda_winograd.wgrad_launches_by_shape[tuple(xs), k] == before + 2
+    assert torch.equal(got, again)
     _close(got, cuda_winograd.wino_wgrad_plain(x, gy, fp32_ops), torch.float32)
 
 
