@@ -6,11 +6,12 @@
 Phases, all of them on every run:
   1. build every CUDA kernel from ``rendernet_tpu_torch/csrc`` (one nvcc per
      source, in parallel), print the card's name and power limit, and count
-     the tensor-core and TMA instructions in the SASS of K3's, K6's, K2's,
-     K2w's, K5's and K5w's libraries (K3, K6, K5 or K5w without wgmma or
-     without TMA loads, or K2 / K2w without mma.sync or wgmma, is a
-     failure, as is a ptxas line saying it serializes K6's, K2's, K2w's,
-     K5's or K5w's tensor-core code);
+     the tensor-core, TMA and bulk-copy instructions in the SASS of K3's,
+     K6's, K2's, K2w's, K5's, K5w's, K1's and K4's libraries (K3, K6, K5 or
+     K5w without wgmma or without TMA loads, K2 / K2w without mma.sync or
+     wgmma, or K1 / K4 without bulk copies, is a failure, as is a ptxas
+     line saying it serializes K6's, K2's, K2w's, K5's or K5w's tensor-core
+     code);
   2. kernels: call each kernel's wrapper (K1 resample pass, K4 its adjoint,
      K2 conv3d, K2w its weight gradient, K3 Winograd, K6 the Winograd weight
      gradient, K5 the fused wide conv, K5w its weight gradient) at the shapes the serving path (batch 8), the training step
@@ -53,7 +54,11 @@ Phases, all of them on every run:
      a warm-up step, then 5 timed steps; (c) the ``reconstruct`` CLI with
      ``--random-weights --dump-every 2`` (2 epochs of 4 steps) on albedo
      and normal targets that the port renders at a known pose; (d) a
-     profile of one bf16 step.
+     profile of one bf16 step; (e) one profiled call of the resample warp
+     alone, at serving (bf16, batch 8, forward) and at recon (bf16 shape
+     and texture grids, forward and backward), its device time split into
+     K1, K4, the copies around them, the matmuls and reductions (the plan's
+     and ``pass_param_grad``'s) and the rest (``warp_profile`` lines).
   6. the fused wide-conv route (``layers.CUDA_CONV2D`` on, with
      ``WINOGRAD_2D``, which it takes precedence over): (a) is part of phase
      2: K5 (each epilogue: none, bias, bias+PReLU with and without the
@@ -69,11 +74,13 @@ Phases, all of them on every run:
      ``make_recon_step``s per dtype; (e) a profiled bf16 patch-128 step.
 The kernels' launch counters are zeroed just before each run of phases 3,
 4, 5 and 6 and read just after; every run's counts are checked, shape by
-shape, against the counts its graph implies. K3's phase 2 rows carry the
-bytes of its bf16 V scratch; the serving, training and recon
-profiles print K2's, K2w's, K3's, K6's, K5's and K5w's device time and
-share of busy time; a ``train_memory`` line gives K3's V scratch and K6's
-scratch per training call and each training run's peak memory.
+shape, against the counts its graph implies. K1's and K4's phase 2 rows
+name the path each launch took (``bulk`` or ``scalar``, from the
+wrappers' path counters); K3's carry the bytes of its bf16 V scratch; the
+serving, training and recon profiles print K1's, K4's, K2's, K2w's, K3's,
+K6's, K5's and K5w's device time and share of busy time; a
+``train_memory`` line gives K3's V scratch and K6's scratch per training
+call and each training run's peak memory.
 
 Prints a ``{"kernels": [...]}`` line with one row per kernel, dtype and
 main-path shape: a serving row's ``launches`` is per batch-8 forward of that
@@ -216,11 +223,13 @@ def bound(flops: float, nbytes: float, dtype: str):
 # and "wgrad_fp32": per step with WGRAD=True or "fp32"; "recon32" and
 # "recon16": per fp32 / bf16 inverse-rendering step of phase 5), "check"
 # for a checked and timed shape no run launches, None for a ragged shape.
-# Specs: pass (BC, R, L, out_lanes, db), where out_lanes < L is a pass
-# that emits a crop window (the patch-64 step's last pass on each cropped
-# axis); pass_bwd (BC, R, L, out_lanes, db, taps, alpha sign), K4 on the
-# pass's cotangent; conv3d / conv3d_wgrad / wino /
-# wino_wgrad (input shape, output channels); conv3d_dgrad / wino_dgrad
+# Specs: pass (BC, R, L, out_lanes, db[, alpha sign]), where out_lanes < L
+# is a pass that emits a crop window (the patch-64 step's last pass on each
+# cropped axis) and alpha < 0 a pass that folds a deferred quarter-turn
+# flip; pass_bwd (BC, R, L, out_lanes, db, taps, alpha sign), K4 on the
+# pass's cotangent (K1's and K4's launches count their shape, either
+# sign); conv3d / conv3d_wgrad / wino / wino_wgrad (input shape, output
+# channels); conv3d_dgrad / wino_dgrad
 # (cotangent shape, channels of the data gradient), which run the forward
 # kernel on the flipped, io-swapped weights of the conv, as the backward
 # does (a strided view the wrapper copies).
@@ -301,10 +310,17 @@ CASES = [
      "recon32"),
     ("K1", "recon texture pass [20,16384,128]", "pass", (20, 16384, 128, 128, 128), BF16,
      "recon16"),
+    ("K1", "recon texture pass [20,16384,128] alpha<0", "pass",
+     (20, 16384, 128, 128, 128, -1), F32, "recon32"),
+    ("K1", "recon texture pass [20,16384,128] alpha<0", "pass",
+     (20, 16384, 128, 128, 128, -1), BF16, "recon16"),
     *[("K4", f"recon {what} adjoint [{bc},16384,128] taps {taps}", "pass_bwd",
        (bc, 16384, 128, 128, 128, taps, 1), (dn,), run)
       for what, bc in (("shape", 5), ("texture", 20)) for taps in (3, 6)
       for dn, run in (("float32", "recon32"), ("bfloat16", "recon16"))],
+    *[("K4", f"recon texture adjoint [20,16384,128] taps {taps} alpha<0", "pass_bwd",
+       (20, 16384, 128, 128, 128, taps, -1), (dn,), run)
+      for taps in (3, 6) for dn, run in (("float32", "recon32"), ("bfloat16", "recon16"))],
     ("K4", "ragged adjoint [3,1000,100]->37 taps 4 alpha<0", "pass_bwd",
      (3, 1000, 100, 37, 40, 4, -1), BOTH, None),
     ("K2", "e_conv3 [8,64,64,32,16]->32", "conv3d", ((8, 64, 64, 32, 16), 32), BOTH, "serve"),
@@ -412,11 +428,13 @@ def make_case(torch, op, spec, dtype, gen):
         return t.movedim(-1, 1)
 
     if op == "pass":
-        bc, r, lanes, ol, db = spec
+        bc, r, lanes, ol, db = spec[:5]
+        sign = spec[5] if len(spec) > 5 else 1
         vol = rnd(bc, r, lanes)
         u = torch.rand(bc, 4, generator=gen, device=dev) * 2 - 1
-        params = torch.stack([1 + 0.4 * u[:, 0], 0.4 * u[:, 1], 0.4 * u[:, 2],
-                              20 * u[:, 3]], dim=-1)
+        delta = 20 * u[:, 3] if sign > 0 else lanes - 1 - 20 * u[:, 3]
+        params = torch.stack([sign * (1 + 0.4 * u[:, 0]), 0.4 * u[:, 1], 0.4 * u[:, 2],
+                              delta], dim=-1)
         inp, grid = _grid_sample_operands(torch, vol, params, db, ol)
         return (lambda: cuda_resample.interp_pass_fwd(vol, params, db, ol),
                 lambda: cuda_resample.interp_pass_plain(vol, params, db, ol),
@@ -592,7 +610,12 @@ def run_kernel_checks(torch, failures):
         for dname in dnames:
             dtype = getattr(torch, dname)
             kern, plain, lib, flops, nbytes, f32_out = make_case(torch, op, spec, dtype, gen)
+            by_path = path_counter(kid) if kid in ("K1", "K4") else None
+            before = dict(by_path or {})
             got = kern()
+            # K1's and K4's path ("bulk" or "scalar"), from the launch counter
+            path = ",".join(sorted(k for k, n in by_path.items()
+                                   if n > before.get(k, 0))) if by_path is not None else None
             ref = plain()
             torch.cuda.synchronize()
             got, ref = (x if isinstance(x, tuple) else (x,) for x in (got, ref))
@@ -618,6 +641,8 @@ def run_kernel_checks(torch, failures):
                        max_abs_ref=scale, tol=tol, ok=ok, ms=kms, plain_ms=pms,
                        library_ms=lms, bound_ms=bms, bound_by=by, run=run,
                        key=case_key(op, spec))
+            if path is not None:
+                row["path"] = path
             if lib_err is not None:
                 row["library_max_abs_err"] = lib_err
             if kid == "K3":
@@ -634,6 +659,13 @@ def run_kernel_checks(torch, failures):
 # ---------------------------------------------------------------------------
 # launch counters
 # ---------------------------------------------------------------------------
+def path_counter(kid):
+    """K1's or K4's launches by path (``cuda_resample.pass_plan``)."""
+    from rendernet_tpu_torch.ops import cuda_resample
+
+    return {"K1": cuda_resample.launches_by_path, "K4": cuda_resample.bwd_launches_by_path}[kid]
+
+
 def _counters():
     from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_resample, cuda_winograd
 
@@ -646,6 +678,8 @@ def reset_counts():
     for mod, p in _counters().values():
         setattr(mod, p + "launches", 0)
         getattr(mod, p + "launches_by_shape").clear()
+    for kid in ("K1", "K4"):
+        path_counter(kid).clear()
 
 
 def read_counts():
@@ -1615,18 +1649,17 @@ def run_conv2d(torch, failures, per_step):
     return out
 
 
-# Device kernels of K2, K2w, K3, K6, K5 and K5w in a profile, by substrings
-# of their (demangled) names.
-PROFILED = {"K2": ("conv3d_mma_kernel", "conv3d_core_kernel"), "K2w": ("conv3d_wgrad_",),
+# Device kernels of each kernel id in a profile, by substrings of their
+# (demangled) names.
+PROFILED = {"K1": ("k1_pass",), "K4": ("k4_adjoint",),
+            "K2": ("conv3d_mma_kernel", "conv3d_core_kernel"), "K2w": ("conv3d_wgrad_",),
             "K3": ("k3_",), "K6": ("k6_",), "K5": ("conv2d_wgmma_kernel", "conv2d_f32_kernel"),
             "K5w": ("wgrad_wgmma_kernel", "::wgrad_f32_kernel", "::wgrad_reduce_kernel")}
 
 
-def profile_run(torch, fn, top: int = 12, run: str | None = None):
-    """Device time by kernel name over one call of ``fn`` (torch.profiler),
-    the device's busy share of its wall time, and the device time and share
-    of the busy time of each kernel in PROFILED; ``run`` names the run in
-    the printed line."""
+def _profile(torch, fn):
+    """(device kernels as (name, calls, us), wall us) over one call of
+    ``fn`` after a warm-up call (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1647,17 +1680,99 @@ def profile_run(torch, fn, top: int = 12, run: str | None = None):
         if dev_us > 0:
             rows.append((evt.key, evt.count, dev_us))
     rows.sort(key=lambda r: -r[2])
+    return rows, wall_us
+
+
+def _part(rows, names, busy_us):
+    mine = [r for r in rows if any(n in r[0] for n in names)]
+    us = sum(r[2] for r in mine)
+    return {"ms": us / 1e3, "kernels": sum(r[1] for r in mine),
+            "busy_share": us / busy_us if busy_us else None}
+
+
+def profile_run(torch, fn, top: int = 12, run: str | None = None):
+    """Device time by kernel name over one call of ``fn``, the device's
+    busy share of its wall time, and the device time and share of the busy
+    time of each kernel in PROFILED; ``run`` names the run in the printed
+    line."""
+    rows, wall_us = _profile(torch, fn)
     busy_us = sum(r[2] for r in rows)
     res = {"run": run, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "device_idle_share": 1.0 - busy_us / wall_us if wall_us else None,
            "top": [{"kernel": k[:90], "count": c, "ms": us / 1e3} for k, c, us in rows[:top]]}
     for kid, names in PROFILED.items():
-        mine = [r for r in rows if any(n in r[0] for n in names)]
-        us = sum(r[2] for r in mine)
-        res[kid] = {"ms": us / 1e3, "kernels": sum(r[1] for r in mine),
-                    "busy_share": us / busy_us if busy_us else None}
+        res[kid] = _part(rows, names, busy_us)
     log("profile " + json.dumps(res))
     return res
+
+
+# The resample warp's device time by part, by substrings of kernel names
+# (lower case), first match wins: K1 and K4; the copies around them (the
+# transposes and reshapes between passes, _qturn_swap's torch.where, the
+# wrappers' .contiguous(), the input's pad and channel move); the matmuls
+# (pass_param_grad's two contractions, and the plan's 4x4 products and
+# solve); the reductions (pass_param_grad's sum; the plan's); the rest
+# (the plan's elementwise ops and its small solve).
+WARP_PARTS = (("K1", ("k1_pass",)), ("K4", ("k4_adjoint",)),
+              ("copies", ("copy", "where", "pad", "cat")),
+              ("matmuls", ("gemm", "gemv", "xmma", "cutlass", "splitk")),
+              ("reductions", ("reduce",)))
+
+
+def warp_profile(torch, run: str, fn) -> dict:
+    """One profiled call of a resample warp: busy and wall time, and the
+    device time of each WARP_PARTS part and of the rest."""
+    rows, wall_us = _profile(torch, fn)
+    busy_us = sum(r[2] for r in rows)
+    res = {"run": run, "wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+           "device_idle_share": 1.0 - busy_us / wall_us if wall_us else None}
+    left = rows
+    for part, names in WARP_PARTS:
+        mine = [r for r in left if any(n in r[0].lower() for n in names)]
+        left = [r for r in left if r not in mine]
+        res[part] = _part(mine, ("",), busy_us)
+    res["other"] = _part(left, ("",), busy_us)
+    res["top"] = [{"kernel": k[:90], "count": c, "ms": us / 1e3} for k, c, us in rows[:10]]
+    log("warp_profile " + json.dumps(res))
+    return res
+
+
+def warp_profiles(torch) -> list:
+    """The resample warp alone, bf16, as the main paths run it: serving's
+    batch-8 forward (bench_batch's voxels and poses, no gradient), and
+    recon's two warps, the shape grid [5, 64^3, 1] and the texture grid
+    [5, 64^3, 4], forward and backward at the first hypotheses' poses
+    (ReconConfig's initial latents)."""
+    import numpy as np
+
+    from rendernet_tpu_torch.ops.cuda_resample import rotate_resample_to_camera_multipass
+    from rendernet_tpu_torch.recon.inverse import ReconConfig, initial_latents
+
+    bf16 = torch.bfloat16
+    vox, _, pose = bench_batch(torch, np, 8)
+
+    def serve():
+        with torch.no_grad():
+            rotate_resample_to_camera_multipass(vox, pose, new_size=128, compute_dtype=bf16)
+
+    out = [warp_profile(torch, "serve bf16 batch 8, forward", serve)]
+    del vox, pose
+    cfg = ReconConfig(compute_dtype="bfloat16", light_elevation=RECON_LIGHT_ELEVATION)
+    rpose = initial_latents(cfg, device="cuda").pose
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    grids = [torch.rand(5, 64, 64, 64, c, generator=gen, device="cuda") for c in (1, 4)]
+    cots = [torch.randn(5, 128, 128, 128, c, generator=gen, device="cuda").to(bf16)
+            for c in (1, 4)]
+
+    def recon():
+        p = rpose.detach().requires_grad_()
+        leaves = [g.detach().requires_grad_() for g in grids]
+        outs = [rotate_resample_to_camera_multipass(g, p, new_size=128, compute_dtype=bf16)
+                for g in leaves]
+        torch.autograd.grad(outs, [p, *leaves], cots)
+
+    out.append(warp_profile(torch, "recon bf16 [5|20,16384,128], forward + backward", recon))
+    return out
 
 
 class plain_kernels:
@@ -1691,32 +1806,37 @@ SASS_NEEDS = {"winograd": ("HGMMA",), "winograd_wgrad": ("HGMMA",),
               "conv3d": ("HMMA", "HGMMA"), "conv3d_wgrad": ("HMMA", "HGMMA"),
               "conv2d": ("HGMMA",), "conv2d_wgrad": ("HGMMA",)}
 SASS_TMA = ("winograd", "winograd_wgrad", "conv2d", "conv2d_wgrad")
+# Libraries whose kernels move tiles with 1-D bulk copies (UBLKCP): K1, K4.
+SASS_BULK = ("resample", "resample_bwd")
 # Libraries whose ptxas report must not say that it serializes their
 # tensor-core code ("Potential Performance Loss": C7515 / C7518 and kin).
 NO_SERIALIZATION = ("winograd_wgrad", "conv3d", "conv3d_wgrad", "conv2d", "conv2d_wgrad")
 
 
 def kernel_sass(failures) -> None:
-    """Counts the tensor-core (HMMA, HGMMA) and TMA load (UTMALDG)
-    instructions in the SASS of K3's, K6's, K2's, K2w's, K5's and K5w's
-    libraries; each must issue one of its SASS_NEEDS names, and those of
-    SASS_TMA a TMA load. Skipped, and said so, where the toolkit has no
-    cuobjdump."""
+    """Counts the tensor-core (HMMA, HGMMA), TMA load (UTMALDG) and bulk
+    copy (UBLKCP) instructions in the SASS of the libraries of SASS_NEEDS
+    and SASS_BULK: each of SASS_NEEDS must issue one of its names, those of
+    SASS_TMA a TMA load, those of SASS_BULK (K1's, K4's) a bulk copy.
+    Skipped, and said so, where the toolkit has no cuobjdump."""
     from rendernet_tpu_torch.ops import _native
 
     tool = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         log("sass not inspected: no cuobjdump beside nvcc")
         return
-    for name, needs in SASS_NEEDS.items():
+    for name in (*SASS_NEEDS, *SASS_BULK):
         sass = subprocess.run([tool, "-sass", str(_native._target(name))],
                               capture_output=True, text=True).stdout
-        counts = {op: sass.count(op) for op in ("HMMA", "HGMMA", "UTMALDG")}
+        counts = {op: sass.count(op) for op in ("HMMA", "HGMMA", "UTMALDG", "UBLKCP")}
         log(f"sass [{name}] {json.dumps(counts)}")
-        if not any(counts[op] for op in needs):
+        needs = SASS_NEEDS.get(name, ())
+        if needs and not any(counts[op] for op in needs):
             failures.append(f"{name}'s library issues no tensor-core instruction ({needs})")
         if name in SASS_TMA and not counts["UTMALDG"]:
             failures.append(f"{name}'s library issues no TMA load (UTMALDG)")
+        if name in SASS_BULK and not counts["UBLKCP"]:
+            failures.append(f"{name}'s library issues no bulk copy (UBLKCP)")
 
 
 def main() -> int:
@@ -1766,6 +1886,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         main_out["recon"], recon_per_step = run_recon(torch, failures, tmp)
     per_step.update(recon_per_step)
+    main_out["recon"]["warp_profiles"] = warp_profiles(torch)
     log(f"phase 5 (inverse rendering) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     main_out["conv2d"] = run_conv2d(torch, failures, per_step)
@@ -1782,8 +1903,9 @@ def main() -> int:
             if launches == 0:
                 failures.append(f"{kid} {label}: not launched in its run ({r['run']})")
         src, replaces = REPO_SOURCES[kid]
+        path = f" ({r['path']} path)" if r.get("path") else ""
         kernels.append({
-            "name": f"{kid} {label} {dname}", "route": "cuda",
+            "name": f"{kid} {label} {dname}{path}", "route": "cuda",
             "source": src, "replaces": replaces, "launches": launches,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma + TMA kernels
 // (K3's GEMM in winograd.cu, K5 in conv2d.cu, K5w in conv2d_wgrad.cu, K6's
-// GEMM in winograd_wgrad.cu):
+// GEMM in winograd_wgrad.cu) and the resample passes' bulk-copy rings (K1,
+// K4 through resample_tile.cuh):
 // mbarriers for the full / empty ring between a TMA producer and wgmma
-// consumers, TMA tile loads, wgmma shared-memory descriptors for 128-byte-
+// consumers, TMA tile loads, 1-D bulk loads and stores, wgmma shared-memory
+// descriptors for 128-byte-
 // swizzled tiles in both majorities, the wgmma instructions themselves, and
 // the host-side tensor-map encoder, reached through the runtime's driver
 // entry point so that nothing links libcuda.
@@ -91,6 +93,11 @@ __device__ __forceinline__ void mbar_arrive_pair_lane0(uint32_t bar, uint32_t pe
       : "memory");
 }
 
+// One plain arrival of the calling thread on a barrier of this CTA.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
 // The producer's arrival: one arrive that also expects `bytes` of TMA
 // writes before the phase completes.
 __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
@@ -122,6 +129,49 @@ __device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const void* 
       ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar), "h"(mask)
       : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// 1-D bulk copies (no tensor map): `bytes` a multiple of 16, both addresses
+// 16-byte aligned
+// ---------------------------------------------------------------------------
+// Global -> shared, completing `bytes` on the barrier at `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Shared -> global, in the calling thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+// Closes the calling thread's current bulk group.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the calling thread's bulk groups still read
+// their shared source (their buffers may then be rewritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Waits until every bulk group of the calling thread has completed.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory before a later
+// bulk store (async proxy) reads them.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

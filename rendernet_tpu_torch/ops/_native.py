@@ -120,8 +120,11 @@ def dtype_code(dtype: torch.dtype) -> int:
     return codes[dtype]
 
 
-def stream_ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def stream_ptr(t: torch.Tensor) -> int:
+    """The current CUDA stream of ``t``'s device, as the raw handle (a
+    fraction of a microsecond; building a ``torch.cuda.Stream`` to read it
+    takes several, and the serving and recon paths are host-bound)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 @functools.lru_cache(maxsize=None)

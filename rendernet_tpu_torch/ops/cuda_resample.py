@@ -26,6 +26,11 @@ of the latter against the lane and row coordinates gives the gradient of
 the pass coefficients, which flows on through the plan (tan/sin of the
 residual angles, the solve for the scale offsets, the flip and crop folds)
 into the pose. The quarter-turn counts carry no gradient, as in JAX.
+
+K1 and K4 are persistent kernels over tiles of whole rows, launched with
+the plan :func:`pass_plan` makes from the shape: the bulk path (1-D bulk
+copies through a ring of shared stages) where rows are whole 16-byte
+vectors, else the scalar path of the same kernels.
 """
 from __future__ import annotations
 
@@ -33,7 +38,7 @@ import ctypes
 import functools
 import math
 from collections import Counter
-from typing import List, Sequence, Tuple
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,19 +55,23 @@ __all__ = [
     "interp_pass_bwd",
     "interp_pass_bwd_plain",
     "pass_param_grad",
+    "pass_plan",
     "rotate_resample_multipass",
     "rotate_resample_to_camera_multipass",
     "rotate_resample_camera_patch_multipass",
 ]
 
-# Launches since the last reset, in all and by shape: K1 (``launches``, by
-# (BC, R, L, out_lanes), so that a window-emitting pass is told from a full
-# one) and K4 (``bwd_launches``, by (BC, R, L, out_lanes, taps)). Each
-# wrapper adds one per launch; the CPU path launches nothing.
+# Launches since the last reset, in all, by shape and by path: K1
+# (``launches``, by (BC, R, L, out_lanes), so that a window-emitting pass is
+# told from a full one) and K4 (``bwd_launches``, by (BC, R, L, out_lanes,
+# taps)); by path "bulk" or "scalar" (:func:`pass_plan`). Each wrapper adds
+# one per launch; the CPU path launches nothing.
 launches = 0
 launches_by_shape: Counter = Counter()
+launches_by_path: Counter = Counter()
 bwd_launches = 0
 bwd_launches_by_shape: Counter = Counter()
+bwd_launches_by_path: Counter = Counter()
 
 # Static adjoint band (``pallas_resample.py:78-104``): input lane i is
 # touched by the output lanes l with |alpha*l + o - i| < 1, an open interval
@@ -268,13 +277,123 @@ def interp_pass_plain(
     return ((1.0 - w) * g0 * m0 + w * g1 * m1).to(vol.dtype)
 
 
+# The kernels' launch plan. K1 and K4 are persistent kernels over tiles of
+# whole rows of one bc (``csrc/resample_tile.cuh``); this function is the
+# one place their geometry is chosen, and the kernels decode it.
+PASS_THREADS = 256  # kThreads of resample_tile.cuh: the consumer threads of a CTA
+PASS_BULK_THREADS = 288  # kBulkThreads: with the bulk path's producer warp
+PASS_PAD = 8  # kPad of resample_tile.cuh: zeros on each side of a staged input row
+PASS_MAX_LANES = 6144  # one fp32 row of K4's stage in a ring of two fits a CTA
+SMEM_PER_CTA = 232448  # an H100 CTA's dynamic shared memory (227 KB)
+SMEM_PER_SM = 233472  # an H100 SM's shared memory (228 KB), 1 KB of it per CTA
+# Sizes chosen on an H100 (the fastest of a sweep of 8-64 KB stages, 2 or 3
+# stages and 2-8 CTAs per SM at the main path's shapes, timed as CUDA-graph
+# replays): a tile's inputs and outputs aim at STAGE_BYTES (K1, K4), the
+# bulk path's ring has PASS_STAGES stages, at most MAX_CTAS_PER_SM CTAs.
+STAGE_BYTES = {False: 16384, True: 32768}
+PASS_STAGES = 2
+MAX_CTAS_PER_SM = 4
+
+
+class PassPlan(NamedTuple):
+    """K1's or K4's launch: ``path`` "bulk" (rows are whole 16-byte vectors:
+    1-D bulk copies through a ring of ``stages`` shared stages) or "scalar"
+    (one stage, ordinary loads and stores); ``rows`` per tile; tiles are
+    numbered bc-major, ``tiles_per_bc`` per bc, and CTA i of ``grid`` takes
+    tiles i, i + grid, ...; ``smem`` dynamic shared bytes per CTA."""
+
+    path: str
+    rows: int
+    stages: int
+    tiles_per_bc: int
+    tiles: int
+    grid: int
+    smem: int
+
+
+def _round128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def pass_smem(rows: int, lanes: int, ol: int, item: int, adjoint: bool, bulk: bool,
+              stages: int) -> int:
+    """Shared bytes of a CTA, laid out as the kernels lay them out: 128
+    bytes of ring barriers, then ``stages`` stages of a header (alpha,
+    1/alpha, two unused floats, o_row per row; fp32), the input rows padded
+    with PASS_PAD zeros on both sides (v; for K4 also g) in the stored type
+    and, on the bulk path, the output tiles (K1's out; K4's gv, and gp in
+    fp32), each piece on a 128-byte boundary (``k1_stage_bytes``,
+    ``k4_stage_bytes``)."""
+    def padded(width):
+        return _round128(rows * (width + 2 * PASS_PAD) * item)
+
+    stage = _round128(16 + 4 * rows) + padded(lanes)
+    if adjoint:
+        stage += padded(ol)
+        if bulk:
+            stage += _round128(rows * lanes * item) + _round128(rows * ol * 4)
+    elif bulk:
+        stage += _round128(rows * ol * item)
+    return 128 + stages * stage
+
+
+@functools.lru_cache(maxsize=None)
+def pass_plan(bc: int, r: int, lanes: int, ol: int, dtype: torch.dtype, sm_count: int,
+              adjoint: bool = False) -> PassPlan:
+    """The launch plan of K1 (``adjoint`` False) or K4 on ``[BC, R, L]`` rows
+    emitting ``ol`` lanes, in storage ``dtype``, on a card of ``sm_count``
+    SMs. The bulk path needs rows of L and of ``ol`` values to be whole
+    16-byte vectors (the wrappers align the base pointers); rows per tile:
+    the largest power of two whose inputs and outputs fit STAGE_BYTES (at
+    least one row, at most R); as many CTAs per SM as their
+    shared memory and 2048 threads allow, up to MAX_CTAS_PER_SM, and no
+    more CTAs than tiles."""
+    item = {torch.float32: 4, torch.bfloat16: 2}[dtype]
+    bulk = lanes * item % 16 == 0 and ol * item % 16 == 0
+    stages = PASS_STAGES if bulk else 1
+    row_bytes = (2 * lanes + ol) * item + 4 * ol if adjoint else (lanes + ol) * item
+    rows = 1 << max(0, (STAGE_BYTES[adjoint] // row_bytes).bit_length() - 1)  # a power of 2
+    rows = min(rows, r)
+    smem = pass_smem(rows, lanes, ol, item, adjoint, bulk, stages)
+    if smem > SMEM_PER_CTA:
+        raise ValueError(f"resample pass: {lanes} lanes do not fit a CTA's shared memory")
+    tiles_per_bc = -(-r // rows)
+    tiles = bc * tiles_per_bc
+    threads = PASS_BULK_THREADS if bulk else PASS_THREADS
+    per_sm = max(1, min(MAX_CTAS_PER_SM, SMEM_PER_SM // (smem + 1024), 2048 // threads))
+    return PassPlan("bulk" if bulk else "scalar", rows, stages, tiles_per_bc, tiles,
+                    min(tiles, per_sm * sm_count), smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_args(plan: PassPlan) -> tuple:
+    """The plan as the C entries take it (path 1 bulk, 0 scalar)."""
+    return (int(plan.path == "bulk"), plan.rows, plan.stages, plan.tiles_per_bc, plan.tiles,
+            plan.grid, plan.smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(name: str):
+    """The K1 / K4 library, its entry's argument types set once."""
+    lib = _native.load(name)
+    if name == "resample":
+        lib.rn_resample_pass.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
+                                         + [ctypes.c_void_p])
+    else:
+        lib.rn_resample_pass_bwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+                                             + [ctypes.c_void_p])
+    return lib
+
+
 def _check_pass(what: str, vol: torch.Tensor, params: torch.Tensor, db: int, ol: int) -> None:
     bc, r, lanes = vol.shape
     if vol.device.type != "cuda" or params.device != vol.device:
         raise ValueError(f"{what}: vol and params must be on one CUDA device")
-    if params.shape != (bc, 4) or not 0 < ol <= lanes or r % db or bc > 65535:
+    if (params.shape != (bc, 4) or not 0 < ol <= lanes or r % db or lanes > PASS_MAX_LANES
+            or bc * r >= 2 ** 31):
         raise ValueError(f"{what}: bad shapes vol {tuple(vol.shape)}, "
-                         f"params {tuple(params.shape)}, db {db}, out_lanes {ol}")
+                         f"params {tuple(params.shape)}, db {db}, out_lanes {ol} "
+                         f"(lanes <= {PASS_MAX_LANES})")
 
 
 def interp_pass_fwd(
@@ -288,18 +407,19 @@ def interp_pass_fwd(
     bc, r, lanes = vol.shape
     ol = lanes if out_lanes is None else int(out_lanes)
     _check_pass("interp_pass_fwd", vol, params, db, ol)
-    vol = vol.contiguous()
+    vol = _native.aligned(vol)
     params = params.to(torch.float32).contiguous()
     out = torch.empty((bc, r, ol), dtype=vol.dtype, device=vol.device)
-    lib = _native.load("resample")
-    lib.rn_resample_pass.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    plan = pass_plan(bc, r, lanes, ol, vol.dtype, _native.sm_count(vol.device.index))
+    lib = _lib("resample")
     rc = lib.rn_resample_pass(
         vol.data_ptr(), params.data_ptr(), out.data_ptr(), _native.dtype_code(vol.dtype),
-        bc, r, lanes, ol, db, _native.stream_ptr(vol))
+        r, lanes, ol, db, *_plan_args(plan), _native.stream_ptr(vol))
     _native.check(lib, rc, "K1 resample pass")
     global launches
     launches += 1
     launches_by_shape[(bc, r, lanes, ol)] += 1
+    launches_by_path[plan.path] += 1
     return out
 
 
@@ -369,24 +489,26 @@ def interp_pass_bwd(
     bc, r, lanes = vol.shape
     ol = lanes if out_lanes is None else int(out_lanes)
     _check_pass("interp_pass_bwd", vol, params, db, ol)
-    if tuple(g.shape) != (bc, r, ol) or g.device != vol.device or lanes > 6144 or taps < 1:
+    if tuple(g.shape) != (bc, r, ol) or g.device != vol.device or taps < 1:
         raise ValueError(f"interp_pass_bwd: bad cotangent {tuple(g.shape)} for vol "
-                         f"{tuple(vol.shape)}, out_lanes {ol}, taps {taps} (lanes <= 6144)")
+                         f"{tuple(vol.shape)}, out_lanes {ol}, taps {taps}")
     vol = _native.aligned(vol)
     g = _native.aligned(g.to(vol.dtype))
     params = params.to(torch.float32).contiguous()
     gv = torch.empty_like(vol)
     gp = torch.empty((bc, r, ol), dtype=torch.float32, device=vol.device)
-    lib = _native.load("resample_bwd")
-    lib.rn_resample_pass_bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
+    plan = pass_plan(bc, r, lanes, ol, vol.dtype, _native.sm_count(vol.device.index),
+                     adjoint=True)
+    lib = _lib("resample_bwd")
     rc = lib.rn_resample_pass_bwd(
         vol.data_ptr(), g.data_ptr(), params.data_ptr(), gv.data_ptr(), gp.data_ptr(),
-        _native.dtype_code(vol.dtype), bc, r, lanes, ol, db, taps, _native.stream_ptr(vol))
+        _native.dtype_code(vol.dtype), r, lanes, ol, db, taps, *_plan_args(plan),
+        _native.stream_ptr(vol))
     _native.check(lib, rc, "K4 resample pass adjoint")
     global bwd_launches
     bwd_launches += 1
     bwd_launches_by_shape[(bc, r, lanes, ol, taps)] += 1
+    bwd_launches_by_path[plan.path] += 1
     return gv, gp
 
 

@@ -43,9 +43,11 @@ def test_resample_pass_kernel(cuda, dtype):
     params = torch.stack([1 + 0.4 * u[:, 0], 0.4 * u[:, 1], 0.4 * u[:, 2], 20 * u[:, 3]], -1)
     before = cuda_resample.launches
     before_shape = cuda_resample.launches_by_shape[(3, 1000, 100, 37)]
+    before_path = cuda_resample.launches_by_path["scalar"]
     got = cuda_resample.apply_interp_pass(vol, params, 40, 37)
     assert cuda_resample.launches == before + 1
     assert cuda_resample.launches_by_shape[(3, 1000, 100, 37)] == before_shape + 1
+    assert cuda_resample.launches_by_path["scalar"] == before_path + 1  # rows of 100 values
     _close(got, cuda_resample.interp_pass_plain(vol, params, 40, 37), dtype)
 
 
@@ -106,12 +108,44 @@ def test_resample_pass_adjoint_kernel(cuda, dtype, case):
     params = torch.stack([alpha, 0.4 * u[:, 1], 0.4 * u[:, 2], delta], -1)
     cot = torch.randn(bc, r, ol, generator=g, device=cuda).to(dtype)
     key = (bc, r, lanes, ol, taps)
+    path = "scalar" if case == "ragged" else "bulk"
     before = cuda_resample.bwd_launches_by_shape[key]
+    before_path = cuda_resample.bwd_launches_by_path[path]
     gv, gp = cuda_resample.interp_pass_bwd(vol, params, cot, db, taps, ol)
     assert cuda_resample.bwd_launches_by_shape[key] == before + 1
+    assert cuda_resample.bwd_launches_by_path[path] == before_path + 1
     want_gv, want_gp = cuda_resample.interp_pass_bwd_plain(vol, params, cot, db, taps, ol)
     _close(gv, want_gv, dtype)
     _close(gp, want_gp, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ol", [128, 64])
+@pytest.mark.parametrize("sign", [1, -1])
+def test_resample_bulk_path(cuda, dtype, ol, sign):
+    """K1 and K4 (the compiled 3- and 6-tap bands and a 4-tap band read at
+    run time) on their bulk path, rows of 128 values with a full and a
+    64-lane window, alpha of both signs (negative: a folded quarter-turn
+    flip): equal to their plain versions bit for bit, each launch counted on
+    the bulk path."""
+    bc, r, lanes, db = 4, 256, 128, 16
+    g = torch.Generator(device=cuda).manual_seed(9)
+    vol = torch.randn(bc, r, lanes, generator=g, device=cuda).to(dtype)
+    u = torch.rand(bc, 4, generator=g, device=cuda) * 2 - 1
+    delta = 20 * u[:, 3] if sign > 0 else lanes - 1 - 20 * u[:, 3]
+    params = torch.stack([sign * (1 + 0.4 * u[:, 0]), 0.4 * u[:, 1], 0.4 * u[:, 2], delta], -1)
+    cot = torch.randn(bc, r, ol, generator=g, device=cuda).to(dtype)
+    assert cuda_resample.pass_plan(bc, r, lanes, ol, dtype, 132).path == "bulk"
+    before = cuda_resample.launches_by_path["bulk"]
+    got = cuda_resample.interp_pass_fwd(vol, params, db, ol)
+    assert cuda_resample.launches_by_path["bulk"] == before + 1
+    assert torch.equal(got, cuda_resample.interp_pass_plain(vol, params, db, ol))
+    for taps in (3, 4, 6):
+        before = cuda_resample.bwd_launches_by_path["bulk"]
+        gv, gp = cuda_resample.interp_pass_bwd(vol, params, cot, db, taps, ol)
+        assert cuda_resample.bwd_launches_by_path["bulk"] == before + 1
+        want_gv, want_gp = cuda_resample.interp_pass_bwd_plain(vol, params, cot, db, taps, ol)
+        assert torch.equal(gv, want_gv) and torch.equal(gp, want_gp)
 
 
 def test_multipass_gradients_match_plain(cuda, monkeypatch):
