@@ -72,8 +72,31 @@ Phases, all of them on every run:
      ``PRELU_SAVE_PRE`` off and one with remat; (d) the recon latent
      gradients with phase 5's limits and controls, then 5 timed
      ``make_recon_step``s per dtype; (e) a profiled bf16 patch-128 step.
-The kernels' launch counters are zeroed just before each run of phases 3,
-4, 5 and 6 and read just after; every run's counts are checked, shape by
+  7. the texture/face path at ``TextureFaceConfig()`` (tex_base 32, enc
+     8/16/16, res 10/10/5, base 32, new_size 128; multipass; the 2D stacks
+     on K3): phase 2 holds every kernel at the texture shapes (K2 / K2w at
+     16 -> 16 channels, K3 at 512 and 256, K6 at both, K1 / K4 at BC = 4B,
+     K5 / K5w at 512 and 256 with the flag); (a) one bf16
+     ``texture_face_forward`` at batch 8, both heads' logits against the
+     all-plain forward's, timed; (b) one texture step's gradients
+     (``texture_loss``, batch 8, patch 128) in fp32 (TF32 off) and bf16
+     against the all-plain step's: the trunk and heads per parameter by
+     max (TEX_GRAD_TOL), the texture decoder by norm (TEX_DECODER_TOL),
+     with a control that halves K4's voxel cotangent and must fail; (c, d)
+     five timed bf16 steps at batch 24 per patch (128, 64), one step with
+     ``WGRAD=True``, one with ``CUDA_CONV2D``, a profiled patch-128 step;
+  8. the training CLIs on the card: ``make_synthetic_shader_tar`` renders
+     3 procedural models from 8 poses at img_res 512, ``pack-tar`` packs
+     the PNGs, the loader alone is timed (images/s, which decoder ran),
+     ``train-shader --max-steps 6`` runs a full-width bf16 multipass
+     config at batch 8 whose curriculum crosses from patch 32 to 64, a
+     second run resumes at step 6 and stops at 8 (params on the card,
+     ``resumed_at_step`` 6 in ``metrics.jsonl``, every image decoded by
+     the native decoder, K1 / K2 / K3 launches as ``step_launches`` for
+     the patches taken), then ``train-texture --max-steps 2`` on a
+     synthetic face dataset at img_res 512.
+The kernels' launch counters are zeroed just before each run of phases 3
+to 8 and read just after; every run's counts are checked, shape by
 shape, against the counts its graph implies. K1's and K4's phase 2 rows
 name the path each launch took (``bulk`` or ``scalar``, from the
 wrappers' path counters); K3's carry the bytes of its bf16 V scratch; the
@@ -90,7 +113,10 @@ of the run named in the row (the bf16 patch-128 or patch-64 steps, the
 fp32 patch-128 gradient check, or the WGRAD steps for K6); a recon row's is
 per inverse-rendering step of its dtype; phase 6's K5 / K5w rows count the
 flag-on run named in the row the same way (per forward, step or recon step;
-the z-recompute row per step with PRELU_SAVE_PRE off). The ragged shapes and the fp32
+the z-recompute row per step with PRELU_SAVE_PRE off); phase 7's rows count
+the texture run named in the row (``tex`` rows per bf16 batch-24 step,
+``texfwd`` per bf16 batch-8 forward, ``texgrad32`` per fp32 gradient-check
+step, ``texwgrad`` / ``tex2d`` per step with WGRAD / the flag). The ragged shapes and the fp32
 batch-24 checks are printed on ``ragged`` and ``check`` lines of their own.
 The last line is ``{"ok": true, "device": {...}}``. Exits non-zero,
 printing no result, when there is no CUDA card, when the port is missing,
@@ -292,6 +318,73 @@ def _conv2d_cases():
 
 
 CONV2D_CASES = _conv2d_cases()
+
+
+def _texture_cases():
+    """Phase 7's shapes: the texture/face path at ``TextureFaceConfig()``
+    (enc 8/16/16, res2 512 wide, res3 256). Runs: "texfwd" per bf16
+    batch-8 ``texture_face_forward``; "texgrad32" per fp32 gradient-check
+    step (batch 8, patch 128); "tex" / "tex64" per bf16 step at batch 24,
+    patch 128 / 64; "texwgrad" per step with WGRAD=True; "tex2d" per step
+    with CUDA_CONV2D. The shape grid warps at BC = B, the texture grid at
+    BC = 4B, and only the texture grid's warp runs K4."""
+    x8, x24, x24p = (8, 64, 64, 32, 16), (24, 64, 64, 32, 16), (24, 32, 32, 32, 16)
+    full = lambda bc: (bc, 16384, 128, 128, 128)  # noqa: E731
+    cases = [
+        ("K1", "tex fwd texture pass [32,16384,128]", "pass", full(32), BF16, "texfwd"),
+        ("K1", "tex texture pass [32,16384,128]", "pass", full(32), F32, "texgrad32"),
+        ("K1", "tex shape pass [24,16384,128]", "pass", full(24), BF16, "tex"),
+        ("K1", "tex texture pass [96,16384,128]", "pass", full(96), BF16, "tex"),
+        ("K1", "tex64 texture window pass [96,16384,128]->64", "pass", (96, 16384, 128, 64, 128),
+         BF16, "tex64"),
+        ("K1", "tex64 texture window pass [96,8192,128]->64", "pass", (96, 8192, 128, 64, 128),
+         BF16, "tex64"),
+        *[("K4", f"tex texture adjoint [{bc},16384,128] taps {taps}", "pass_bwd",
+           full(bc) + (taps, 1), dn, run)
+          for bc, dn, run in ((96, BF16, "tex"), (32, F32, "texgrad32")) for taps in (3, 6)],
+        ("K4", "tex64 texture adjoint [96,16384,128]->64 taps 6", "pass_bwd",
+         (96, 16384, 128, 64, 128, 6, 1), BF16, "tex64"),
+        ("K4", "tex64 texture adjoint [96,8192,128]->64 taps 6", "pass_bwd",
+         (96, 8192, 128, 64, 128, 6, 1), BF16, "tex64"),
+        ("K2", "tex e_conv3/res1 [8,64,64,32,16]->16", "conv3d", (x8, 16), BF16, "texfwd"),
+        ("K2", "tex e_conv3/res1 fwd+dgrad [8,64,64,32,16]->16", "conv3d", (x8, 16), F32,
+         "texgrad32"),
+        ("K2", "tex e_conv3/res1 fwd+dgrad [24,64,64,32,16]->16", "conv3d", (x24, 16), BF16,
+         "tex"),
+        ("K2", "tex64 e_conv3/res1 fwd+dgrad [24,32,32,32,16]->16", "conv3d", (x24p, 16), BF16,
+         "tex64"),
+        ("K2w", "tex e_conv3/res1 [8,64,64,32,16]->16", "conv3d_wgrad", (x8, 16), F32,
+         "texgrad32"),
+        ("K2w", "tex e_conv3/res1 [24,64,64,32,16]->16", "conv3d_wgrad", (x24, 16), BF16, "tex"),
+        ("K2w", "tex64 e_conv3/res1 [24,32,32,32,16]->16", "conv3d_wgrad", (x24p, 16), BF16,
+         "tex64"),
+    ]
+    for c, stack in ((512, "res2"), (256, "res3")):
+        cases += [
+            ("K3", f"tex {stack} [8,64,64,{c}]->{c}", "wino", ((8, 64, 64, c), c), BF16, "texfwd"),
+            ("K3", f"tex {stack} fwd+dgrad [8,64,64,{c}]->{c}", "wino_dgrad", ((8, 64, 64, c), c),
+             F32, "texgrad32"),
+            ("K3", f"tex {stack} fwd+dgrad [24,64,64,{c}]->{c}", "wino_dgrad",
+             ((24, 64, 64, c), c), BF16, "tex"),
+            ("K3", f"tex64 {stack} fwd+dgrad [24,32,32,{c}]->{c}", "wino_dgrad",
+             ((24, 32, 32, c), c), BF16, "tex64"),
+            ("K6", f"tex {stack} [24,64,64,{c}]->{c} WGRAD=True", "wino_wgrad",
+             ((24, 64, 64, c), c, False), BF16, "texwgrad"),
+        ]
+        xh = (64, 64, 24, c)
+        cases += [
+            ("K5", f"tex2d {stack} prelu+pre {list(xh)}->{c}", "conv2d", (xh, c, "bias+prelu+pre"),
+             BF16, "tex2d"),
+            ("K5", f"tex2d {stack} res {list(xh)}->{c}", "conv2d", (xh, c, "bias+res"), BF16,
+             "tex2d"),
+            ("K5", f"tex2d {stack}_skip fwd + dgrad {list(xh)}->{c}", "conv2d_dgrad", (xh, c),
+             BF16, "tex2d"),
+            ("K5w", f"tex2d {stack} {list(xh)}->{c}", "conv2d_wgrad", (xh, c), BF16, "tex2d"),
+        ]
+    return cases
+
+
+TEX_CASES = _texture_cases()
 X3 = {8: (8, 64, 64, 32, 32), 24: (24, 64, 64, 32, 32)}
 X3P = (24, 32, 32, 32, 32)  # res1 at patch 64
 XR = (5, 64, 64, 32, 16)  # the inverse renderer's e_conv3 and res1 input
@@ -389,6 +482,7 @@ CASES = [
     ("K6", "ragged [8,6,70,256]->128 fp32 operands", "wino_wgrad",
      ((8, 6, 70, 256), 128, True), BF16, None),
     *CONV2D_CASES,
+    *TEX_CASES,
 ]
 
 # Serving launches per batch-8 forward at each serving shape (phase 3).
@@ -1649,6 +1743,498 @@ def run_conv2d(torch, failures, per_step):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the texture/face path
+# ---------------------------------------------------------------------------
+# The texture forward with kernels vs with their plain versions (bf16,
+# batch 8): max abs difference of each head's logits (before the sigmoid)
+# as a fraction of the plain forward's logit spread, the worse head; the
+# plain forward's sigmoid outputs must spread at least TEX_MIN_SPREAD.
+# Readings on an H100: 0.0149 / 0.0188 (Image / Normal head) of spreads of
+# 0.219 / 0.179; the limits are ~2.7x and ~0.4x of them.
+TEX_FORWARD_TOL = 0.05
+TEX_MIN_SPREAD = 0.08
+# One texture step's gradients with kernels vs with their plain versions.
+# The trunk's and heads' parameters as phase 4's (GRAD_TOL: per parameter
+# max |g - g_plain| / max |g_plain|, the worst one). The texture decoder's
+# gradients are sums over the 64^3 x 4 grid's cotangent that cancel, like
+# recon's latent gradients, and their largest entries are single values
+# out of up to 26 M (e_tex_fc1's weight), so they are held by norm, per
+# parameter: ||g - g_plain|| / ||g_plain||, the worst one. They reach the
+# decoder only through K4's voxel cotangent, so halving it on the warp's
+# last pass (the control) puts every decoder parameter 0.5 off by norm,
+# which each decoder limit must reject.
+# Readings on an H100: trunk and heads 6.4e-4 (res3_5's first conv) fp32,
+# 0.057 (res1_10's) bf16; decoder by norm 3.2e-3 fp32, 0.275 bf16 (both
+# e_tex_fc1's bias: bf16 roundings in the trunk reach the texture grid's
+# cotangent, a residue of sums that cancel, as in recon's bf16 check);
+# the control 0.4950-0.4999 (e_tex_conv2's alpha the least). The fp32
+# decoder limit is 3x its reading; the bf16 one sits between the reading
+# and the control, which it rejects by 1.24x, as phase 5's bf16 limits do.
+TEX_GRAD_TOL = GRAD_TOL
+TEX_DECODER_TOL = {"float32": 1e-2, "bfloat16": 0.4}
+TEX_STEPS = 5
+
+
+def texture_step_launches(b, patch, wgrad=False, conv2d=False, forward=False):
+    """Launches per texture step (or, with ``forward``, per
+    ``texture_face_forward``) that the graph implies at
+    ``TextureFaceConfig()``: two warps of 8 K1 passes, the shape grid at BC
+    = B and the texture grid at BC = 4B (at a patch, the last pass on each
+    cropped axis emits the window, as the shader step's); K4 on the texture
+    warp only (five 3-tap shear passes and three 6-tap scale passes; at a
+    patch the windowed scale passes take the window's shapes); e_conv3, the
+    20 res1 convs and res1_skip on K2 at 16 -> 16 channels, forward and
+    data gradient (44), K2w once each; the 21 res2 (512) and 11 res3 (256)
+    convs on K3 forward and data gradient, K6 once each with WGRAD; with
+    ``conv2d`` the 2D stacks take the fused route (k5_launches)."""
+    n = 128
+
+    def warp(bc):
+        if patch == n:
+            return {(bc, n * n, n, n): 8}
+        return {(bc, n * n, n, n): 6, (bc, n * n, n, patch): 1, (bc, n * patch, n, patch): 1}
+
+    bt = 4 * b
+    if patch == n:
+        k4 = {(bt, n * n, n, n, 3): 5, (bt, n * n, n, n, 6): 3}
+    else:
+        k4 = {(bt, n * n, n, n, 3): 5, (bt, n * n, n, n, 6): 1, (bt, n * n, n, patch, 6): 1,
+              (bt, n * patch, n, patch, 6): 1}
+    s = patch // 2
+    x16, r2, r3 = (b, s, s, 32, 16), (b, s, s, 512), (b, s, s, 256)
+    g = 1 if forward else 2
+    k5, k5w = k5_launches(b, s, (512, 256), (10, 5), grad=not forward) if conv2d else ({}, {})
+    return {"K1": {**warp(b), **warp(bt)}, "K4": {} if forward else k4,
+            "K2": {(x16, 16): 22 * g}, "K2w": {} if forward else {(x16, 16): 22},
+            "K3": {} if conv2d else {(r2, 512): 21 * g, (r3, 256): 11 * g},
+            "K6": {(r2, 512): 21, (r3, 256): 11} if wgrad and not conv2d else {},
+            "K5": k5, "K5w": {} if forward else k5w}
+
+
+def texture_batch(torch, np, b, seed=0):
+    """Procedural voxels, disc albedo and normal targets (3 channels), seeded
+    texture codes and random poses, on the card."""
+    rng = np.random.default_rng(seed)
+    vox = np.repeat(procedural_voxel().astype(np.float32)[None, :, :, :, None], b, axis=0)
+    img = np.concatenate([disc_images(np, b, 512, seed + c) for c in range(3)], axis=-1)
+    nrm = np.concatenate([disc_images(np, b, 512, seed + 10 + c) for c in range(3)], axis=-1)
+    codes = rng.standard_normal((b, 199)).astype(np.float32)
+    pose = np.stack([rng.uniform(0, 6.28, b), rng.uniform(-1, 1, b), np.ones(b)],
+                    axis=1).astype(np.float32)
+    return tuple(torch.from_numpy(a).cuda() for a in (vox, img, nrm, codes, pose))
+
+
+def texture_net(torch):
+    """The seeded full-width network, its PReLU alphas drawn away from 0 so
+    that the negative slope counts."""
+    from rendernet_tpu_torch.models.texture_face import TextureFaceConfig, init_texture_face_params
+
+    net = init_texture_face_params(0, TextureFaceConfig(), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("alpha"):
+                p.uniform_(0.05, 0.3, generator=gen)
+    return net
+
+
+def texture_forward_check(torch, np, failures, per_step):
+    """(a) One bf16 ``texture_face_forward`` at batch 8, its launches, both
+    heads' logits against the all-plain forward's, and its time."""
+    from rendernet_tpu_torch.models.texture_face import texture_face_forward
+
+    net = texture_net(torch)
+    vox, _, _, codes, pose = texture_batch(torch, np, 8)
+    logits = []
+    heads = [net.encoder["Image"]["e_conv10_1"]["conv2d_transpose"],
+             net.encoder["Normal"]["e_conv10_2"]["e_conv10_2"]]
+    hooks = [h.register_forward_hook(lambda mod, args, y: logits.append(y.float()))
+             for h in heads]
+
+    def fwd():
+        return texture_face_forward(net, vox, codes, pose, compute_dtype=torch.bfloat16,
+                                    resample="multipass")
+
+    with torch.no_grad():
+        reset_counts()
+        albedo, normal = fwd()
+        torch.cuda.synchronize()
+        totals, by_shape = read_counts()
+        per_step["texfwd"] = check_step_counts(failures, "texture forward", by_shape, 1,
+                                               texture_step_launches(8, 128, forward=True))
+        got = list(logits)
+        logits.clear()
+        with plain_kernels():
+            reset_counts()
+            ref_out = [t.float() for t in fwd()]
+            ref = list(logits)
+            if any(read_counts()[0].values()):
+                failures.append("texture forward: the plain forward launched a kernel")
+        logits.clear()
+        errs = [float((a - b).abs().max()) / float(b.max() - b.min()) for a, b in zip(got, ref)]
+        spreads = [float(t.max() - t.min()) for t in ref_out]
+        res = {"launches": totals, "logit_rel_err": errs, "output_spread": spreads,
+               "tol": TEX_FORWARD_TOL, "min_spread": TEX_MIN_SPREAD,
+               "shapes": [list(albedo.shape), list(normal.shape)]}
+        for h in hooks:
+            h.remove()
+        res["forward_ms"] = time_ms(torch, fwd, 3)
+        with plain_kernels():
+            res["plain_forward_ms"] = time_ms(torch, fwd, 2)
+    log("texfwd " + json.dumps(res))
+    if [list(albedo.shape), list(normal.shape)] != [[8, 512, 512, 3]] * 2 or not all(
+            bool(torch.isfinite(t).all()) for t in (albedo, normal)):
+        failures.append(f"texture forward: shapes {res['shapes']} or non-finite values")
+    if not max(errs) <= TEX_FORWARD_TOL:
+        failures.append(f"texture forward's logits differ from the plain forward's by {errs} "
+                        f"of their spread (limit {TEX_FORWARD_TOL})")
+    if not min(spreads) >= TEX_MIN_SPREAD:
+        failures.append(f"texture plain forward's outputs spread only {spreads}")
+    return res
+
+
+def texture_gradient_check(torch, np, failures, per_step):
+    """(b) One texture step's gradients (``texture_loss``) at batch 8, patch
+    128, fp32 and bf16, with the kernels and with every kernel replaced by
+    its plain version, parameter by parameter; the control halves K4's
+    voxel cotangent on the texture warp's last pass and must fail the
+    gate."""
+    from rendernet_tpu_torch.models.texture_face import TextureFaceConfig
+    from rendernet_tpu_torch.train.config import TrainConfig
+    from rendernet_tpu_torch.train.steps import texture_loss
+
+    net = texture_net(torch)
+    batch = texture_batch(torch, np, 8, seed=1)
+    names = [n for n, _ in net.named_parameters()]
+    params = [p for _, p in net.named_parameters()]
+    mcfg = TextureFaceConfig()
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        cfg = TrainConfig(batch_size=8, compute_dtype=dname, resample="multipass",
+                          is_greyscale=False)
+
+        def grads():
+            loss = texture_loss(net, mcfg, cfg, 128, *batch)
+            return float(loss.detach()), torch.autograd.grad(loss, params)
+
+        def rel_errs(g, gp):
+            """(max-relative errors of the trunk's and heads' parameters,
+            norm-relative errors of the decoder's)."""
+            net_errs, dec_errs = {}, {}
+            for n, a, b in zip(names, g, gp):
+                a, b = a.float(), b.float()
+                if n.startswith("texture_encoder."):
+                    dec_errs[n] = float((a - b).norm() / b.norm())
+                else:
+                    net_errs[n] = float((a - b).abs().max() / b.abs().max())
+            return net_errs, dec_errs
+
+        def worst(errs):
+            k = max(errs, key=errs.get)
+            return k, errs[k]
+
+        what = f"texture {dname} gradient check"
+        reset_counts()
+        loss, g = grads()
+        torch.cuda.synchronize()
+        totals, by_shape = read_counts()
+        ps = check_step_counts(failures, what, by_shape, 1, texture_step_launches(8, 128))
+        if dname == "float32":
+            per_step["texgrad32"] = ps
+        with plain_kernels():
+            reset_counts()
+            loss_p, gp = grads()
+            if any(read_counts()[0].values()):
+                failures.append(f"{what}: the plain step launched a kernel")
+        for n, a, b in zip(names, g, gp):
+            ref = float(b.float().abs().max())
+            if not (ref > 0 and math.isfinite(ref)) or not bool(torch.isfinite(a).all()):
+                failures.append(f"{what}: gradient of {n}: plain max {ref}, or non-finite")
+        net_errs, dec_errs = rel_errs(g, gp)
+        (wn, we), (dn, de) = worst(net_errs), worst(dec_errs)
+        with k4_fault("gv_half"):
+            c_net, c_dec = rel_errs(grads()[1], gp)
+        (cn, ce) = min(c_dec.items(), key=lambda kv: kv[1])
+        res = {"patch": 128, "loss": loss, "plain_loss": loss_p, "worst_param": wn,
+               "worst_rel_err": we, "tol": TEX_GRAD_TOL[dname],
+               "median_rel_err": sorted(net_errs.values())[len(net_errs) // 2],
+               "decoder_worst_param": dn, "decoder_worst_norm_rel_err": de,
+               "decoder_tol": TEX_DECODER_TOL[dname],
+               "decoder_max_rel_err": worst({n: float((a.float() - b.float()).abs().max()
+                                                      / b.float().abs().max())
+                                             for n, a, b in zip(names, g, gp)
+                                             if n in dec_errs}),
+               "control_k4_gv_half": {"decoder_least_norm_rel_err": [cn, ce],
+                                      "net_worst_rel_err": worst(c_net)},
+               "params": len(names), "launches": totals}
+        out[dname] = res
+        log(f"texgrad {dname} " + json.dumps(res))
+        if not we <= TEX_GRAD_TOL[dname]:
+            failures.append(f"{what}: gradients differ from the all-plain step's: {wn} "
+                            f"{we:.3e} > {TEX_GRAD_TOL[dname]}")
+        if not de <= TEX_DECODER_TOL[dname]:
+            failures.append(f"{what}: the decoder's gradients differ from the all-plain step's "
+                            f"by norm: {dn} {de:.3e} > {TEX_DECODER_TOL[dname]}")
+        if ce <= TEX_DECODER_TOL[dname]:
+            failures.append(f"{what}: the control (K4's gv halved) passed the decoder's gate "
+                            f"at {cn} ({ce:.3e})")
+        del g, gp
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def texture_training(torch, np, failures, per_step):
+    """(c, d) TEX_STEPS timed bf16 steps at batch 24 per patch (128, 64),
+    their launches checked per step; one step each with WGRAD=True and with
+    CUDA_CONV2D, counted; a profiled patch-128 step."""
+    from rendernet_tpu_torch.models.texture_face import TextureFaceConfig
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.ops import cuda_winograd
+    from rendernet_tpu_torch.train.config import TrainConfig
+    from rendernet_tpu_torch.train.steps import create_texture_state, make_texture_train_step
+
+    b = 24
+    cfg = TrainConfig(batch_size=b, img_res=512, new_size=128, compute_dtype="bfloat16",
+                      is_greyscale=False, e_eta=1e-5, moment_dtype="bfloat16",
+                      resample="multipass")
+    mcfg = TextureFaceConfig()
+    batch = texture_batch(torch, np, b, seed=2)
+    state, tx = create_texture_state(0, mcfg, cfg, device="cuda")
+    out = {}
+    for patch, run in ((128, "tex"), (64, "tex64")):
+        step = make_texture_train_step(mcfg, cfg, tx, patch)
+        state, out[patch], per_step[run] = timed_steps(
+            torch, failures, state, step, batch, TEX_STEPS, texture_step_launches(b, patch),
+            f"texture patch {patch} steps", "textrain",
+            {"patch": patch, "batch": b, "dtype": "bfloat16"})
+    step = make_texture_train_step(mcfg, cfg, tx, 128)
+    for run, kw in (("texwgrad", {"wgrad": True}), ("tex2d", {"conv2d": True})):
+        cuda_winograd.WGRAD = run == "texwgrad"
+        layers.CUDA_CONV2D = run == "tex2d"
+        try:
+            state, _ = step(state, *batch, 1)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            state, loss = step(state, *batch, 1)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            totals, by_shape = read_counts()
+            per_step[run] = check_step_counts(failures, f"texture {run} step", by_shape, 1,
+                                              texture_step_launches(b, 128, **kw))
+        finally:
+            cuda_winograd.WGRAD, layers.CUDA_CONV2D = False, False
+        out[run] = {"ms": ms, "loss": float(loss), "launches": totals}
+        log(f"textrain {run} " + json.dumps(out[run]))
+        if not math.isfinite(float(loss)):
+            failures.append(f"texture {run} step: non-finite loss")
+    holder = [state]
+
+    def one_step():
+        holder[0], _ = step(holder[0], *batch, 1)
+
+    out["profile"] = profile_run(torch, one_step, run="texture bf16 patch 128 batch 24")
+    return out
+
+
+def run_texture(torch, failures, per_step):
+    """Phase 7: the texture/face path at TextureFaceConfig(), multipass, the
+    2D stacks on K3 (WINOGRAD_2D, as bench.py's configuration)."""
+    import numpy as np
+
+    from rendernet_tpu_torch.nn import layers
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    layers.WINOGRAD_2D = True
+    out = {}
+    try:
+        for name, fn in (("forward", texture_forward_check), ("gradient_check",
+                                                             texture_gradient_check),
+                         ("training", texture_training)):
+            t0 = time.perf_counter()
+            out[name] = fn(torch, np, failures, per_step)
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"phase 7 {name} took {time.perf_counter() - t0:.1f} s")
+    finally:
+        layers.WINOGRAD_2D = False
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the training CLIs on the card
+# ---------------------------------------------------------------------------
+CLI_BATCH = 8
+
+
+def shader_dataset(torch, tmp):
+    """pack-tar's input: 3 procedural voxel models (the sphere and box, and
+    two mirror images of it) rendered by ``make_synthetic_shader_tar`` on
+    the card from 8 poses each at img_res 512, unpacked into a directory of
+    PNGs; returns (PNG dir, model dir)."""
+    import tarfile
+
+    import numpy as np
+
+    from rendernet_tpu_torch.data.synthetic import make_synthetic_shader_tar
+    from rendernet_tpu_torch.io.binvox import save_binvox
+
+    base = procedural_voxel()
+    paths = []
+    for i, v in enumerate((base, base[::-1], base[:, :, ::-1])):
+        paths.append(os.path.join(tmp, f"proc{i}.binvox"))
+        save_binvox(np.ascontiguousarray(v), paths[-1])
+    poses = [(az, th) for az in (30, 120, 210, 300) for th in (60, 100)]
+    tar, model_dir = make_synthetic_shader_tar(os.path.join(tmp, "synth"), paths, poses,
+                                               img_res=512, device="cuda")
+    png_dir = os.path.join(tmp, "pngs")
+    with tarfile.open(tar) as tf:
+        tf.extractall(png_dir, filter="data")
+    return png_dir, model_dir
+
+
+def run_cli(torch, failures, per_step, tmp):
+    """Phase 8: pack-tar, train-shader (6 steps over a curriculum that
+    crosses from patch 32 to 64, then a resumed run to step 8, full width,
+    bf16, multipass, the 2D stacks on K3), train-texture (2 steps on a
+    synthetic face dataset), all on the card."""
+    import numpy as np
+
+    from rendernet_tpu_torch.cli.__main__ import main as cli_main
+    from rendernet_tpu_torch.data.loaders import data_loader
+    from rendernet_tpu_torch.data.synthetic import synthetic_face_dataset
+    from rendernet_tpu_torch.io import native, native_img
+    from rendernet_tpu_torch.io.binvox import save_binvox
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.train.config import TrainConfig
+    from rendernet_tpu_torch.train.loop import train_shader
+    from rendernet_tpu_torch.utils import image
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"native_decoders": {"png": native_img.available(), "binvox": native.available()}}
+    if not native_img.available():
+        failures.append(f"the native PNG decoder did not build: {native_img.error()}")
+    t0 = time.perf_counter()
+    png_dir, model_dir = shader_dataset(torch, tmp)
+    out["dataset_s"] = time.perf_counter() - t0
+    tar = os.path.join(tmp, "images.tar")
+    rc = cli_main(["pack-tar", "--images_path", png_dir, "--save_path", tar])
+    n_png = len([f for f in os.listdir(png_dir) if f.endswith(".png")])
+    out["pack_tar"] = {"rc": rc, "pngs": n_png}
+    if rc != 0 or n_png != 24:
+        failures.append(f"pack-tar: rc {rc}, {n_png} PNGs")
+
+    # the loader alone: every image and voxel grid of the tar, decoded
+    before = dict(image.decoded_by)
+    t0 = time.perf_counter()
+    n_img = sum(len(c[0]) for c in data_loader(tar, model_dir, batch_size=CLI_BATCH,
+                                               flatten=True, img_res=512))
+    load_s = time.perf_counter() - t0
+    decoded = {k: v - before.get(k, 0) for k, v in image.decoded_by.items()}
+    out["loader"] = {"images": n_img, "s": load_s, "images_per_s": n_img / load_s,
+                     "decoded_by": decoded}
+    log("cli_loader " + json.dumps(out["loader"]))
+    if decoded.get("python") or not decoded.get("native"):
+        failures.append(f"the loader decoded {decoded}: not all by the native decoder")
+
+    run_dir = os.path.join(tmp, "shader_run")
+    cfg_path = os.path.join(tmp, "shader.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"image_path": tar, "model_path": model_dir, "batch_size": CLI_BATCH,
+                   "img_res": 512, "new_size": 128, "compute_dtype": "bfloat16",
+                   "resample": "multipass", "moment_dtype": "bfloat16", "curriculum_epochs": 1,
+                   "max_epochs": 4, "sample_save": run_dir, "sample_every_steps": 1000,
+                   "checkpoint_secs": 100000, "e_eta": 1e-5}, f)
+    layers.WINOGRAD_2D = True
+    try:
+        before = dict(image.decoded_by)
+        reset_counts()
+        t0 = time.perf_counter()
+        rc = cli_main(["train-shader", cfg_path, "--max-steps", "6"])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        _, by_shape = read_counts()
+        want = {}
+        for patch, n in ((32, 3), (64, 3)):  # 24 images: 3 steps an epoch
+            for kid, exp in step_launches(CLI_BATCH, patch).items():
+                for k, v in exp.items():
+                    want.setdefault(kid, {})[k] = want.get(kid, {}).get(k, 0) + n * v
+        check_step_counts(failures, "train-shader CLI", {k: by_shape[k] for k in ("K1", "K2",
+                                                                               "K3")},
+                          1, {k: want[k] for k in ("K1", "K2", "K3")})
+        reset_counts()
+        marks = []
+        t0 = time.perf_counter()
+        state = train_shader(TrainConfig.from_json(cfg_path), max_steps=8,
+                             progress=lambda step, loss: marks.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        _, by_shape = read_counts()
+        check_step_counts(failures, "resumed train-shader", {k: by_shape[k] for k in
+                                                             ("K1", "K2", "K3")}, 2,
+                          {k: step_launches(CLI_BATCH, 32)[k] for k in ("K1", "K2", "K3")})
+    finally:
+        layers.WINOGRAD_2D = False
+    decoded = {k: v - before.get(k, 0) for k, v in image.decoded_by.items()}
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    on_card = all(p.is_cuda for p in state.params.parameters())
+    files = sorted(os.listdir(run_dir))
+    # steps/s: the CLI run's 6 steps over its wall time, start-up, data and
+    # checkpoint write included; and between the resumed run's two steps
+    # (host marks; the guard reads each loss one step late)
+    out["train_shader"] = {"rc": rc, "first_run_s": first_s, "steps_per_s": 6 / first_s,
+                           "resumed_run_s": resume_s,
+                           "resumed_step_s": marks[1] - marks[0] if len(marks) == 2 else None,
+                           "step": state.step, "params_on_card": on_card, "files": files,
+                           "metrics": metrics, "decoded_by": decoded}
+    log("cli_shader " + json.dumps(out["train_shader"]))
+    if (rc != 0 or state.step != 8 or not on_card
+            or {"resumed_at_step": 6} not in metrics
+            or not {"config.json", "metrics.jsonl", "tb", "3d2d_renderer"} <= set(files)):
+        failures.append(f"train-shader CLI: rc {rc}, step {state.step}, params on the card "
+                        f"{on_card}, metrics {metrics}, files {files}")
+    if decoded.get("python") or not decoded.get("native"):
+        failures.append(f"train-shader decoded {decoded}: not all by the native decoder")
+
+    # train-texture on a synthetic face dataset at img_res 512
+    base = procedural_voxel()
+    paths = []
+    for i, v in enumerate((base, base[::-1])):
+        paths.append(os.path.join(tmp, f"face{i}.binvox"))
+        save_binvox(np.ascontiguousarray(v), paths[-1])
+    ftar, fmod, ftex, fnrm = synthetic_face_dataset(os.path.join(tmp, "face"), paths,
+                                                    img_res=512, device="cuda")
+    trun = os.path.join(tmp, "texture_run")
+    tcfg_path = os.path.join(tmp, "texture.json")
+    with open(tcfg_path, "w") as f:
+        json.dump({"image_path": ftar, "model_path": fmod, "texture_path": ftex,
+                   "normal_path": fnrm, "batch_size": 2, "img_res": 512, "new_size": 128,
+                   "compute_dtype": "bfloat16", "resample": "multipass",
+                   "is_greyscale": False, "max_epochs": 2, "sample_save": trun,
+                   "sample_every_steps": 1, "checkpoint_secs": 100000}, f)
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(["train-texture", tcfg_path, "--max-steps", "2"])
+    torch.cuda.synchronize()
+    tex_s = time.perf_counter() - t0
+    totals, _ = read_counts()
+    with open(os.path.join(trun, "metrics.jsonl")) as f:
+        tmetrics = [json.loads(line) for line in f]
+    out["train_texture"] = {"rc": rc, "s": tex_s, "launches": totals, "metrics": tmetrics,
+                            "files": sorted(os.listdir(trun))}
+    log("cli_texture " + json.dumps(out["train_texture"]))
+    losses = [m["loss"] for m in tmetrics if "loss" in m]
+    if (rc != 0 or len(losses) != 2 or not all(math.isfinite(x) for x in losses)
+            or not (totals["K1"] and totals["K4"] and totals["K2"] and totals["K2w"])):
+        failures.append(f"train-texture CLI: rc {rc}, losses {losses}, launches {totals}")
+    return out
+
+
 # Device kernels of each kernel id in a profile, by substrings of their
 # (demangled) names.
 PROFILED = {"K1": ("k1_pass",), "K4": ("k4_adjoint",),
@@ -1891,6 +2477,13 @@ def main() -> int:
     t0 = time.perf_counter()
     main_out["conv2d"] = run_conv2d(torch, failures, per_step)
     log(f"phase 6 (the fused wide-conv route) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    main_out["texture"] = run_texture(torch, failures, per_step)
+    log(f"phase 7 (the texture path) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        main_out["cli"] = run_cli(torch, failures, per_step, tmp)
+    log(f"phase 8 (the training CLIs) took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for (kid, label, dname), r in rows.items():

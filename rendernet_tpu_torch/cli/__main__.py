@@ -6,7 +6,10 @@ import sys
 
 COMMANDS = {
     "render": "rendernet_tpu_torch.cli.demo",
+    "train-shader": "rendernet_tpu_torch.cli.train_shader",
+    "train-texture": "rendernet_tpu_torch.cli.train_texture",
     "reconstruct": "rendernet_tpu_torch.cli.reconstruct",
+    "pack-tar": "rendernet_tpu_torch.cli.pack_tar",
 }
 
 

@@ -5,11 +5,14 @@ Counterpart of ``rendernet_tpu/io/binvox.py``: the run-length-encoded
 the ASCII header, payload bytes come in (value, count) pairs; the flat voxel
 order on disk is x-major, then z, then y ("xzy"), and reading transposes it
 to ``data[x, y, z]``. Runs are expanded with ``np.repeat`` and re-encoded
-with one diff/cumsum pass.
+with one diff/cumsum pass. :func:`decode_bytes` prefers the native codec
+(``io/native.py``, ``native/voxio.cc``) and falls back to numpy, as the JAX
+package's does (``binvox.py:36-46``).
 """
 from __future__ import annotations
 
 import dataclasses
+import io as _io
 from typing import BinaryIO, Sequence
 
 import numpy as np
@@ -21,7 +24,21 @@ __all__ = [
     "write",
     "save_binvox",
     "load_binvox",
+    "decode_bytes",
 ]
+
+
+def decode_bytes(buf: bytes) -> np.ndarray:
+    """Decode binvox bytes to a dense ``[x, y, z]`` bool array, with the
+    native codec where it builds, else the numpy one."""
+    from rendernet_tpu_torch.io import native
+
+    if native.available():
+        try:
+            return native.decode(buf)
+        except ValueError:
+            pass  # malformed for the strict native parser; let numpy try
+    return read_as_3d_array(_io.BytesIO(buf)).data
 
 
 @dataclasses.dataclass

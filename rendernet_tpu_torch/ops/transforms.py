@@ -1,7 +1,8 @@
 """Pose matrices and voxel-grid axis transforms (PyTorch).
 
-Counterpart of ``rendernet_tpu/ops/transforms.py:31-127`` (the pose matrix,
-the grid-to-grid backward map and the camera axis alignment). Everything runs
+Counterpart of ``rendernet_tpu/ops/transforms.py:31-140`` (the pose matrix,
+the grid-to-grid backward map, the camera axis alignment and the
+silhouette). Everything runs
 in float32 on the device of ``view_params``.
 """
 from __future__ import annotations
@@ -10,7 +11,8 @@ import math
 
 import torch
 
-__all__ = ["rotation_around_grid_centroid", "grid_to_grid_matrix", "voxel_to_image_axes"]
+__all__ = ["rotation_around_grid_centroid", "grid_to_grid_matrix", "voxel_to_image_axes",
+           "silhouette"]
 
 
 def rotation_around_grid_centroid(view_params: torch.Tensor) -> torch.Tensor:
@@ -59,3 +61,9 @@ def grid_to_grid_matrix(
 def voxel_to_image_axes(voxels: torch.Tensor) -> torch.Tensor:
     """``[B, A1, A2, D, C]``: swap axes 1 and 2, then flip the new axis 1."""
     return torch.flip(torch.transpose(voxels, 1, 2), dims=(1,))
+
+
+def silhouette(voxels: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """Max-projection along the depth axis: ``[B, H, W, D, C]`` ->
+    ``[B, H, W, C]``."""
+    return torch.amax(voxels, dim=axis)

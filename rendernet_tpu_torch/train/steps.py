@@ -1,17 +1,20 @@
-"""Train and eval steps of the shader workload.
+"""Train and eval steps of the shader and texture/face workloads.
 
-Counterpart of the shader parts of ``rendernet_tpu/train/steps.py``
-(:55-305). Loss semantics mirror the reference graphs: greyscale is the
-summed-per-image BCE, mean over the batch (RenderNet_Shader.py:160-161, with
-the 1e-6 log guards); RGB is the mean squared error (:163).
+Counterpart of ``rendernet_tpu/train/steps.py``. Loss semantics mirror the
+reference graphs: greyscale is the summed-per-image BCE, mean over the
+batch (RenderNet_Shader.py:160-161, with the 1e-6 log guards); RGB is the
+mean squared error (:163); the texture/face loss is MSE(albedo) +
+MSE(normal) (RenderNet_Texture_Face_Normal.py:182-183).
 
 The JAX package jits one pure step per patch size and donates the state.
 Here a step is eager PyTorch: the parameters are the network's own tensors,
 updated in place, and the optimizer state is replaced each step; nothing in
 a step reads the device from the host, so consecutive steps queue on the
-card. The resample runs outside autograd (the shader step differentiates
-neither voxels nor pose), and at a patch size below ``new_size`` the crop is
-fused into it as in JAX.
+card. The shape grid's resample runs outside autograd (no step
+differentiates voxels or pose), and at a patch size below ``new_size`` the
+crop is fused into it as in JAX. The texture step's decoded texture grid is
+warped under autograd, so its gradient reaches the decoder through K4's
+voxel cotangent.
 """
 from __future__ import annotations
 
@@ -22,6 +25,12 @@ import numpy as np
 import torch
 
 from rendernet_tpu_torch.models.shader import ShaderConfig, ShaderRenderNet, init_shader_params
+from rendernet_tpu_torch.models.texture_face import (
+    TextureFaceConfig,
+    TextureFaceRenderNet,
+    init_texture_face_params,
+    texture_decoder,
+)
 from rendernet_tpu_torch.ops.crops import crop_image, random_crop_offsets
 from rendernet_tpu_torch.ops.cuda_resample import (
     rotate_resample_camera_patch_multipass,
@@ -39,6 +48,9 @@ __all__ = [
     "create_shader_state",
     "make_shader_train_step",
     "make_shader_eval_step",
+    "create_texture_state",
+    "make_texture_train_step",
+    "texture_loss",
     "shader_loss_from_images",
     "step_seeds",
 ]
@@ -49,9 +61,18 @@ class TrainState:
     """``params`` is the network (its parameters are updated in place);
     ``opt_state`` the optimizer's state; ``step`` a host int."""
 
-    params: ShaderRenderNet
+    params: ShaderRenderNet | TextureFaceRenderNet
     opt_state: object
     step: int = 0
+
+
+# Texture step: resample the channel-concatenated shape + texture grid in
+# ONE warp when their resolutions match (the warp is linear and per
+# channel, so the result is the same), as JAX's module switch of the same
+# name (steps.py:59-68). Off by default, as in JAX: the fused form drags
+# the shape channel into the differentiated warp, whose adjoint (K4) then
+# runs on 5 channels instead of 4.
+FUSE_TEXTURE_RESAMPLE = False
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -68,9 +89,9 @@ def _resample_method(cfg: TrainConfig, device: torch.device) -> str:
     return cfg.resample
 
 
-@torch.no_grad()
 def _resample_full(voxels, poses, cfg: TrainConfig):
-    """Full camera-aligned grid via the configured resample."""
+    """Full camera-aligned grid via the configured resample (differentiable
+    where grad mode is on)."""
     if _resample_method(cfg, voxels.device) == "multipass":
         return rotate_resample_to_camera_multipass(
             voxels, poses, new_size=cfg.new_size, max_scale=cfg.pose_scale_limit,
@@ -78,7 +99,6 @@ def _resample_full(voxels, poses, cfg: TrainConfig):
     return rotate_resample_to_camera(voxels, poses, new_size=cfg.new_size)
 
 
-@torch.no_grad()
 def _resample_patch(voxels, poses, offsets, patch_size: int, cfg: TrainConfig):
     """Cropped camera-aligned patch; both paths fuse the crop into the
     resample (the exact path gathers only the window; the multipass path's
@@ -127,6 +147,53 @@ def step_seeds(rng: int, step: int) -> Tuple[int, int]:
     return int(crop), int(drop)
 
 
+def _step_offsets(state: TrainState, rng: int, patch_size: int, cfg: TrainConfig, offsets):
+    """(crop offsets or None, dropout seed) of one step (:func:`step_seeds`)."""
+    crop_seed, drop_seed = step_seeds(rng, state.step)
+    if patch_size != cfg.new_size and offsets is None:
+        offsets = random_crop_offsets(torch.Generator().manual_seed(crop_seed),
+                                      cfg.new_size, patch_size)
+    return offsets, drop_seed
+
+
+def _apply_step(state: TrainState, tx: GradientTransformation, batch: int, accum: int,
+                micro_loss) -> Tuple[TrainState, torch.Tensor]:
+    """One update from ``micro_loss(slice) -> loss`` over ``accum``
+    microbatches of a batch of ``batch``: their fp32 gradients summed and
+    averaged, as JAX's ``_accumulated_value_and_grad``."""
+    net = state.params
+    params = dict(net.named_parameters())
+    if batch % accum:
+        raise ValueError(f"batch size {batch} not divisible by grad_accum={accum}")
+    mb = batch // accum
+    loss_sum, grad_sum = None, None
+    for i in range(accum):
+        loss = micro_loss(slice(i * mb, (i + 1) * mb))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        if accum == 1:
+            loss_sum, grad_sum = loss.detach(), grads
+            break
+        grads = [g.to(torch.float32) for g in grads]
+        if grad_sum is None:
+            loss_sum, grad_sum = loss.detach().to(torch.float32), grads
+        else:
+            loss_sum = loss_sum + loss.detach()
+            grad_sum = [s + g for s, g in zip(grad_sum, grads)]
+    if accum > 1:
+        scale = 1.0 / accum
+        loss_sum = loss_sum * scale
+        grad_sum = [g * scale for g in grad_sum]
+    updates, opt_state = tx.update(dict(zip(params, grad_sum)), state.opt_state, params)
+    apply_updates(params, updates)
+    return TrainState(net, opt_state, state.step + 1), loss_sum
+
+
+def _no_distribution(cfg: TrainConfig, mesh) -> None:
+    if mesh is not None or cfg.allreduce_dtype == "bfloat16":
+        raise NotImplementedError("distributed training (a mesh, the bf16 all-reduce) "
+                                  "is not ported yet")
+
+
 def make_shader_train_step(model_cfg: ShaderConfig, cfg: TrainConfig,
                            tx: GradientTransformation, patch_size: int, mesh=None):
     """Build the training step for one patch size:
@@ -143,22 +210,20 @@ def make_shader_train_step(model_cfg: ShaderConfig, cfg: TrainConfig,
     the crop and the dropout seed shared, as in JAX. A ``mesh`` or the bf16
     all-reduce belong to distributed training, which is not ported yet.
     """
-    if mesh is not None or cfg.allreduce_dtype == "bfloat16":
-        raise NotImplementedError("distributed training (a mesh, the bf16 all-reduce) "
-                                  "is not ported yet")
+    _no_distribution(cfg, mesh)
     cdt = _dtype(cfg.compute_dtype)
     greyscale = cfg.is_greyscale
-    accum = cfg.grad_accum_steps
 
     def loss_fn(net, voxels, images, poses, offsets, drop_seed):
         voxels = voxels.to(torch.float32)
         images = _as_f32_image(images)
-        if patch_size == cfg.new_size:
-            vox_c = _resample_full(voxels, poses, cfg)
-            img_c = images
-        else:
-            vox_c = _resample_patch(voxels, poses, offsets, patch_size, cfg)
-            img_c = crop_image(images, offsets, patch_size, images.shape[1] // cfg.new_size)
+        with torch.no_grad():
+            if patch_size == cfg.new_size:
+                vox_c = _resample_full(voxels, poses, cfg)
+                img_c = images
+            else:
+                vox_c = _resample_patch(voxels, poses, offsets, patch_size, cfg)
+                img_c = crop_image(images, offsets, patch_size, images.shape[1] // cfg.new_size)
         gen = None
         if model_cfg.keep_prob < 1.0:
             gen = torch.Generator(device=voxels.device).manual_seed(drop_seed)
@@ -167,38 +232,10 @@ def make_shader_train_step(model_cfg: ShaderConfig, cfg: TrainConfig,
 
     def step(state: TrainState, voxels, images, poses, rng: int,
              offsets: Optional[Sequence[int]] = None):
-        net = state.params
-        params = dict(net.named_parameters())
-        crop_seed, drop_seed = step_seeds(rng, state.step)
-        if patch_size != cfg.new_size and offsets is None:
-            offsets = random_crop_offsets(torch.Generator().manual_seed(crop_seed),
-                                          cfg.new_size, patch_size)
-        b = voxels.shape[0]
-        if b % accum:
-            raise ValueError(f"batch size {b} not divisible by grad_accum={accum}")
-        mb = b // accum
-        loss_sum, grad_sum = None, None
-        for i in range(accum):
-            sl = slice(i * mb, (i + 1) * mb)
-            loss = loss_fn(net, voxels[sl], images[sl], poses[sl], offsets, drop_seed)
-            grads = torch.autograd.grad(loss, list(params.values()))
-            if accum == 1:
-                loss_sum, grad_sum = loss.detach(), grads
-                break
-            grads = [g.to(torch.float32) for g in grads]
-            if grad_sum is None:
-                loss_sum, grad_sum = loss.detach().to(torch.float32), grads
-            else:
-                loss_sum = loss_sum + loss.detach()
-                grad_sum = [s + g for s, g in zip(grad_sum, grads)]
-        if accum > 1:
-            scale = 1.0 / accum
-            loss_sum = loss_sum * scale
-            grad_sum = [g * scale for g in grad_sum]
-        grads = dict(zip(params, grad_sum))
-        updates, opt_state = tx.update(grads, state.opt_state, params)
-        apply_updates(params, updates)
-        return TrainState(net, opt_state, state.step + 1), loss_sum
+        offsets, drop_seed = _step_offsets(state, rng, patch_size, cfg, offsets)
+        return _apply_step(state, tx, voxels.shape[0], cfg.grad_accum_steps,
+                           lambda sl: loss_fn(state.params, voxels[sl], images[sl], poses[sl],
+                                              offsets, drop_seed))
 
     return step
 
@@ -212,5 +249,89 @@ def make_shader_eval_step(model_cfg: ShaderConfig, cfg: TrainConfig):
     def step(net: ShaderRenderNet, voxels, poses):
         cam = _resample_full(voxels.to(torch.float32), poses, cfg)
         return net(cam.to(cdt), cfg=model_cfg)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# texture / face workload
+# ---------------------------------------------------------------------------
+def create_texture_state(seed, model_cfg: TextureFaceConfig, cfg: TrainConfig,
+                         device=None) -> Tuple[TrainState, GradientTransformation]:
+    """A fresh texture/face network (decoder and renderer) on ``device``, the
+    optimizer and its state; see :func:`create_shader_state`."""
+    net = init_texture_face_params(seed, model_cfg, device=device)
+    tx = make_optimizer(cfg.e_eta, cfg.decay_steps, cfg.decay_rate,
+                        skip_nonfinite=cfg.skip_nonfinite_updates,
+                        moment_dtype=cfg.moment_dtype)
+    return TrainState(net, tx.init(dict(net.named_parameters()))), tx
+
+
+def texture_loss(net: TextureFaceRenderNet, model_cfg: TextureFaceConfig, cfg: TrainConfig,
+                 patch_size: int, voxels, images, normals, textures, poses,
+                 offsets: Optional[Sequence[int]] = None,
+                 drop_seed: int = 0) -> torch.Tensor:
+    """The texture step's loss (``loss_fn`` of JAX's
+    ``make_texture_train_step``, :330-370): decode the texture grid in the
+    compute dtype, cast it to float32 and warp it under autograd (K1
+    forward, K4 backward); warp the shape grid outside autograd; at
+    ``patch_size < new_size`` crop both warps, the images and the normals
+    at ``offsets``; concatenate, run the two heads and return MSE(albedo)
+    + MSE(normal). With :data:`FUSE_TEXTURE_RESAMPLE` the two grids share
+    one differentiated warp where their resolutions match."""
+    cdt = _dtype(cfg.compute_dtype)
+    voxels = voxels.to(torch.float32)
+    images = _as_f32_image(images)
+    normals = _as_f32_image(normals)
+    tex_grid = texture_decoder(net, textures.to(cdt)).to(torch.float32)
+    fused = FUSE_TEXTURE_RESAMPLE and voxels.shape[1:4] == tex_grid.shape[1:4]
+
+    def warp(grid):
+        if patch_size == cfg.new_size:
+            return _resample_full(grid, poses, cfg)
+        return _resample_patch(grid, poses, offsets, patch_size, cfg)
+
+    if fused:
+        both_c = warp(torch.cat([voxels, tex_grid], dim=4))
+    else:
+        with torch.no_grad():
+            shape_c = warp(voxels)
+        both_c = torch.cat([shape_c, warp(tex_grid)], dim=4)
+    if patch_size == cfg.new_size:
+        img_c, nrm_c = images, normals
+    else:
+        factor = images.shape[1] // cfg.new_size
+        img_c = crop_image(images, offsets, patch_size, factor)
+        nrm_c = crop_image(normals, offsets, patch_size, factor)
+    gen = None
+    if model_cfg.keep_prob < 1.0:
+        gen = torch.Generator(device=voxels.device).manual_seed(drop_seed)
+    albedo, normal = net(both_c.to(cdt), train=True, generator=gen, cfg=model_cfg)
+    return (shader_loss_from_images(albedo, img_c, greyscale=False)
+            + shader_loss_from_images(normal, nrm_c, greyscale=False))
+
+
+def make_texture_train_step(model_cfg: TextureFaceConfig, cfg: TrainConfig,
+                            tx: GradientTransformation, patch_size: int, mesh=None):
+    """Build the texture/face training step for one patch size:
+
+        step(state, voxels [B,64,64,64,1], images [B,512,512,3],
+             normals [B,512,512,3] (both in [0,1] or uint8),
+             textures [B,texture_dim], poses [B,3], rng: int, offsets=None)
+        -> (state, loss)
+
+    Crops, dropout seeds, grad accumulation and the unported distributed
+    options as :func:`make_shader_train_step`; the loss is
+    :func:`texture_loss`."""
+    _no_distribution(cfg, mesh)
+
+    def step(state: TrainState, voxels, images, normals, textures, poses, rng: int,
+             offsets: Optional[Sequence[int]] = None):
+        offsets, drop_seed = _step_offsets(state, rng, patch_size, cfg, offsets)
+        return _apply_step(
+            state, tx, voxels.shape[0], cfg.grad_accum_steps,
+            lambda sl: texture_loss(state.params, model_cfg, cfg, patch_size, voxels[sl],
+                                    images[sl], normals[sl], textures[sl], poses[sl],
+                                    offsets, drop_seed))
 
     return step

@@ -1,19 +1,28 @@
 """Host-side image encode/decode/save, counterpart of
 ``rendernet_tpu/utils/image.py``.
 
-PNGs are encoded and decoded with the standard library (zlib) so that
-rendering and reconstruction need no imaging package; GIF sweeps use PIL,
-imported only when asked for.
+PNGs are encoded with the standard library (zlib), so that rendering and
+reconstruction need no imaging package; GIF sweeps use PIL, imported only
+when asked for. :func:`decode_image` takes the native decoder
+(``native/imgio.cc`` through ``io/native_img.py``) where it builds, as the
+JAX package's does (``image.py:26-35``), and otherwise the pure-Python one
+below, whose average and Paeth filters run byte by byte (seconds for a
+512x512 RGB image that PIL wrote); :data:`decoded_by` counts which one ran.
 """
 from __future__ import annotations
 
 import struct
 import zlib
+from collections import Counter
 from typing import Optional
 
 import numpy as np
 
-__all__ = ["to_uint8", "encode_png", "decode_image", "save_image", "save_gif"]
+__all__ = ["to_uint8", "encode_png", "decode_image", "decode_png_python", "save_image",
+           "save_gif", "decoded_by"]
+
+# Images decoded by each decoder ("native", "python") since import.
+decoded_by: Counter = Counter()
 
 
 def to_uint8(img: np.ndarray, scale: Optional[float] = None) -> np.ndarray:
@@ -103,9 +112,24 @@ def _unfilter(data: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode_image(buf: bytes) -> np.ndarray:
+    """Decode PNG bytes to an HW (grey) or HWC uint8 array: the native
+    decoder where it builds and takes the image, else
+    :func:`decode_png_python`."""
+    from rendernet_tpu_torch.io import native_img
+
+    img = native_img.decode_png(buf)
+    if img is not None:
+        decoded_by["native"] += 1
+        return img
+    decoded_by["python"] += 1
+    return decode_png_python(buf)
+
+
+def decode_png_python(buf: bytes) -> np.ndarray:
     """Decode PNG bytes to an HW (grey) or HWC (grey+alpha, RGB, RGBA) uint8
-    array: 8-bit, non-interlaced, every filter type (what ``encode_png``
-    and common PNG writers produce). Raises on anything else."""
+    array in pure Python: 8-bit, non-interlaced, every filter type (what
+    ``encode_png`` and common PNG writers produce). Raises on anything
+    else."""
     if buf[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError("not a PNG file")
     pos, header, idat = 8, None, []

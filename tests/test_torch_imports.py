@@ -35,6 +35,10 @@ def test_importing_every_module_pulls_in_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("cli.demo", "cli.__main__", "cli.reconstruct", "compat.jax_params",
+                "cli._train_common", "cli.train_shader", "cli.train_texture", "cli.pack_tar",
+                "data", "data.loaders", "data.pose", "data.prefetch", "data.synthetic",
+                "io._native_load", "io.native", "io.native_img", "io.tar_archive",
+                "models.texture_face", "train.checkpoint", "train.loop", "utils.tb",
                 "compat.tf_import", "io.binvox", "models.decoders", "recon", "recon.inverse",
                 "models.shader", "nn.init", "nn.layers", "ops._native", "ops.conv_grad", "ops.crops",
                 "ops.cuda_conv2d", "ops.cuda_conv3d", "ops.cuda_resample", "ops.cuda_winograd", "ops.phong",

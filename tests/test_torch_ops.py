@@ -228,7 +228,8 @@ _WINO_EDGES = [
     ((8, 64, 64, 256), (3, 3, 256, 256), (2, 2)),       # strided
 ]
 _WINO_SWEEPS = {f"{h}x{w}x{c}": [((b, h, w, c), (3, 3, c, c), (1, 1)) for b in range(8, 65)]
-                for h, w, c in ((64, 64, 1024), (64, 64, 512), (32, 32, 1024), (32, 32, 512))}
+                for h, w, c in ((64, 64, 1024), (64, 64, 512), (32, 32, 1024), (32, 32, 512),
+                                (64, 64, 256), (32, 32, 256))}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
