@@ -95,8 +95,31 @@ Phases, all of them on every run:
      the native decoder, K1 / K2 / K3 launches as ``step_launches`` for
      the patches taken), then ``train-texture --max-steps 2`` on a
      synthetic face dataset at img_res 512.
+  9. the exact conv rewrites that JAX leaves to XLA (plain PyTorch, no
+     kernel of their own) and the frozen artifact: (a) every conv and
+     deconv of the shader, texture and recon networks at full width is
+     recorded with its route (``routes`` lines; PHASE_CONV3D "all" and
+     DEPTH_PACK on), and each phase-space conv (e_conv1 / e_conv2), K=4
+     sub-pixel deconv and depth-packed conv is held against its plain form
+     (output and both gradients, REWRITE_TOL) in bf16 at the training
+     batch and fp32 at the gradient checks', both forms timed forward +
+     backward (``rewrite`` lines); where K2 takes every conv the depth
+     packing could (``depth_pack: route unreached``), the packing is timed
+     at res1's shape against the plain conv and K2; (b) the PHASE_CONV3D
+     A/B (off / True / "all", a warm-up and AB_STEPS steps each, median;
+     ``ab`` and ``ab_phase`` lines) runs in phase 4 on the shader's
+     patch-128 step and in phase 7 on the texture's, every arm's launches
+     checked, and phase 7 profiles one texture step with a range around
+     each conv and deconv outside the res blocks, forward and backward,
+     naming its cuDNN dgrad calls by layer (``named_profile``); (c)
+     ``freeze_shader_render`` of a seeded ``ShaderConfig()`` at batch 1
+     (checked on the card), loaded in a fresh process that must
+     import no model code, against the live exact fp32 forward
+     (FROZEN_TOL), both timed; then the render CLI with ``--frozen`` and
+     with the reference weight directory that ``convert npz-to-refdir``
+     writes, each image against the flat-npz render's (``frozen`` line).
 The kernels' launch counters are zeroed just before each run of phases 3
-to 8 and read just after; every run's counts are checked, shape by
+to 8 (and of each A/B arm) and read just after; every run's counts are checked, shape by
 shape, against the counts its graph implies. K1's and K4's phase 2 rows
 name the path each launch took (``bulk`` or ``scalar``, from the
 wrappers' path counters); K3's carry the bytes of its bf16 V scratch; the
@@ -124,6 +147,7 @@ or when any check fails.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -133,6 +157,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 
 # Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3.
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -862,7 +887,7 @@ def run_main_path(torch, failures, tmp):
     pose = torch.from_numpy(np.stack(
         [rng.uniform(0, 6.28, 8), rng.uniform(-1, 1, 8), np.ones(8)], axis=1
     ).astype(np.float32)).cuda()
-    layers.WINOGRAD_2D = True
+    layers.WINOGRAD_2D = "pallas"
     with torch.no_grad():
         reset_counts()
         img = shader_forward(net, vox, pose, compute_dtype=torch.bfloat16, resample="multipass")
@@ -1159,7 +1184,7 @@ def run_training(torch, failures):
     from rendernet_tpu_torch.train.config import TrainConfig
     from rendernet_tpu_torch.train.steps import create_shader_state, make_shader_train_step
 
-    layers.WINOGRAD_2D = True  # bench.py's configuration: the 2D stacks on K3
+    layers.WINOGRAD_2D = "pallas"  # bench.py's configuration: the 2D stacks on K3
     out, per_step = {}, {}
     g = gradient_check(torch, np, failures)
     out["gradient_check"] = [v["result"] for v in g.values()]
@@ -1216,7 +1241,14 @@ def run_training(torch, failures):
                                                           for m in extra}}}))
     out["extra_modes"] = extra
 
-    step = make_shader_train_step(mcfg, cfg, tx, 128)
+    # (e) the A/B of the rewrites on both patches' steps (phase 9's (b))
+    out["ab_phase"] = {}
+    for patch in (64, 128):
+        step = make_shader_train_step(mcfg, cfg, tx, patch)
+        state, out["ab_phase"][patch] = phase_ab(
+            torch, failures, state, step, (vox, img, pose), step_launches(b, patch),
+            f"shader patch {patch} steps", {"path": "shader", "patch": patch, "batch": b,
+                                            "dtype": "bfloat16"})
     holder = [state]
 
     def one_step():
@@ -1519,6 +1551,11 @@ def run_recon(torch, failures, tmp):
     target = torch.rand(5, 512, 512, 3, generator=gen, device="cuda")
 
     out["steps"] = timed_recon_steps(torch, failures, model, target, per_step, "recon")
+    # the A/B of the sub-pixel deconvs (phase 9's (b)): the same steps with
+    # every K=4 deconv on cuDNN's transposed conv (launches checked)
+    with cudnn_deconvs():
+        out["steps_cudnn_deconv"] = timed_recon_steps(torch, failures, model, target, {},
+                                                      "recon_cudnn_deconv")
 
     # the CLI, as a user runs it: bf16 on the card, 2 epochs of 4 steps, a
     # dump every 2 steps (one mid-epoch and one end-of-epoch forward each)
@@ -1726,7 +1763,7 @@ def run_conv2d(torch, failures, per_step):
 
     gc.collect()
     torch.cuda.empty_cache()
-    layers.CUDA_CONV2D, layers.WINOGRAD_2D = True, True
+    layers.CUDA_CONV2D, layers.WINOGRAD_2D = True, "pallas"
     out = {}
     try:
         for name, run in (("serving", lambda: conv2d_serving(torch, np, failures, per_step)),
@@ -2030,12 +2067,30 @@ def texture_training(torch, np, failures, per_step):
         log(f"textrain {run} " + json.dumps(out[run]))
         if not math.isfinite(float(loss)):
             failures.append(f"texture {run} step: non-finite loss")
+    # the A/B of the rewrites on both patches' steps (phase 9's (b))
+    out["ab_phase"] = {}
+    for patch in (64, 128):
+        step = make_texture_train_step(mcfg, cfg, tx, patch)
+        state, out["ab_phase"][patch] = phase_ab(
+            torch, failures, state, step, batch, texture_step_launches(b, patch),
+            f"texture patch {patch} steps", {"path": "texture", "patch": patch, "batch": b,
+                                             "dtype": "bfloat16"})
     holder = [state]
 
     def one_step():
         holder[0], _ = step(holder[0], *batch, 1)
 
     out["profile"] = profile_run(torch, one_step, run="texture bf16 patch 128 batch 24")
+    # the same step with a range around each conv and deconv outside the
+    # res blocks (whose convs run on K2 / K3), forward and backward, so
+    # that its cuDNN dgrad calls are named by layer
+    net = holder[0].params
+    in_blocks = {f"{n}.{c}" for n, m in net.named_modules() if isinstance(m, layers.ResBlock)
+                 for c, _ in m.named_children()}
+    named = {n: m for n, m in net.named_modules()
+             if isinstance(m, (layers.Conv, layers.ConvTranspose)) and n not in in_blocks}
+    out["named_profile"] = named_profile(torch, one_step, named,
+                                         "texture bf16 patch 128 batch 24")
     return out
 
 
@@ -2048,7 +2103,7 @@ def run_texture(torch, failures, per_step):
 
     gc.collect()
     torch.cuda.empty_cache()
-    layers.WINOGRAD_2D = True
+    layers.WINOGRAD_2D = "pallas"
     out = {}
     try:
         for name, fn in (("forward", texture_forward_check), ("gradient_check",
@@ -2149,7 +2204,7 @@ def run_cli(torch, failures, per_step, tmp):
                    "resample": "multipass", "moment_dtype": "bfloat16", "curriculum_epochs": 1,
                    "max_epochs": 4, "sample_save": run_dir, "sample_every_steps": 1000,
                    "checkpoint_secs": 100000, "e_eta": 1e-5}, f)
-    layers.WINOGRAD_2D = True
+    layers.WINOGRAD_2D = "pallas"
     try:
         before = dict(image.decoded_by)
         reset_counts()
@@ -2233,6 +2288,455 @@ def run_cli(torch, failures, per_step, tmp):
             or not (totals["K1"] and totals["K4"] and totals["K2"] and totals["K2w"])):
         failures.append(f"train-texture CLI: rc {rc}, losses {losses}, launches {totals}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the exact conv rewrites (phase-space conv, sub-pixel deconvs,
+# depth-packed conv) against their plain forms, and the frozen artifact
+# ---------------------------------------------------------------------------
+# A rewrite on seeded inputs: the output and both gradients, each within
+# this fraction of its reference's max. fp32 (TF32 off): the reference is
+# the plain form, which sums the same products in other orders (weight
+# gradients, sums over up to 4e8 products: WGRAD_TOL). bf16: the reference
+# is the plain form computed in fp32 on the same bf16 values, since each
+# bf16 result rounds once (2^-8 relative), but cuDNN's own bf16 plain form
+# may round more than once: its data gradient of the 1-channel e_conv1 sat
+# 1.7% of its max from that reference on an H100, the phase form's one
+# ulp. The plain bf16 form's error against the reference is printed beside
+# it.
+REWRITE_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7}
+# The arms of the A/B (phases 4, 5 and 7), each a warm-up and AB_STEPS
+# timed steps (median): PHASE_CONV3D off, True (the fan-in gate) and
+# "all"; and "all" with the K=4 deconvs on cuDNN's transposed conv
+# (``layers._plain_conv_transpose``, the form the sub-pixel ones replace;
+# patched here only, the port has no switch for it).
+PHASE_ARMS = (("off", False, False), ("gate", True, False), ("all", "all", False),
+              ("all_cudnn_deconv", "all", True))
+AB_STEPS = 3
+
+
+class cudnn_deconvs:
+    """Every K=4 transposed conv on ``_plain_conv_transpose`` (cuDNN)."""
+
+    def __enter__(self):
+        from rendernet_tpu_torch.nn import layers
+
+        self.route = layers._deconv_route
+        layers._deconv_route = lambda ks, stride: None
+
+    def __exit__(self, *exc):
+        from rendernet_tpu_torch.nn import layers
+
+        layers._deconv_route = self.route
+# The frozen artifact (fp32, exact resample) against the live exact forward
+# on the card, max abs difference of the [0, 1] image: the same aten ops, in
+# another process whose cuDNN may pick other algorithms (TF32 off in both),
+# ~4e-6 of a logit spread of ~1 through the sigmoid (slope <= 1/4).
+FROZEN_TOL = 2e-5
+
+
+def phase_ab(torch, failures, state, step, batch, expected, what, info):
+    """The arms of PHASE_ARMS on one training step (``step`` at one patch,
+    ``batch``), in order, each with its launches checked against
+    ``expected`` (the rewrites add none); returns (state, {arm: median
+    ms})."""
+    from rendernet_tpu_torch.nn import layers
+
+    saved, medians = layers.PHASE_CONV3D, {}
+    try:
+        for arm, value, cudnn in PHASE_ARMS:
+            layers.PHASE_CONV3D = value
+            with cudnn_deconvs() if cudnn else contextlib.nullcontext():
+                state, res, _ = timed_steps(torch, failures, state, step, batch, AB_STEPS,
+                                            expected, f"{what} {arm}", "ab", dict(info, arm=arm))
+            medians[arm] = res["median_ms"]
+    finally:
+        layers.PHASE_CONV3D = saved
+    log("ab_phase " + json.dumps(dict(info, median_ms=medians)))
+    return state, medians
+
+
+def named_profile(torch, fn, modules, run):
+    """One profiled call of ``fn`` with a ``record_function`` range around
+    the forward and the backward of each of ``modules`` ({name: module}):
+    each range's device time and the cuDNN dgrad kernels in it, and every
+    dgrad kernel of the call (name, calls, ms)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    opened, handles = {}, []
+
+    def enter(key):
+        opened[key] = record_function(key)
+        opened[key].__enter__()
+
+    def leave(key):
+        rf = opened.pop(key, None)
+        if rf is not None:
+            rf.__exit__(None, None, None)
+
+    for name, mod in modules.items():
+        f, b = f"fwd {name}", f"bwd {name}"
+        handles += [mod.register_forward_pre_hook(lambda m, a, k=f: enter(k)),
+                    mod.register_forward_hook(lambda m, a, y, k=f: leave(k)),
+                    mod.register_full_backward_pre_hook(lambda m, g, k=b: enter(k)),
+                    mod.register_full_backward_hook(lambda m, gi, go, k=b: leave(k))]
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+
+    def kernels(evt):
+        out = list(getattr(evt, "kernels", []))
+        for child in getattr(evt, "cpu_children", []):
+            out += kernels(child)
+        return out
+
+    ranges = {}
+    for evt in prof.events():
+        if "CPU" not in str(getattr(evt, "device_type", "CPU")):
+            continue  # the device's copy of a range carries no kernels
+        if evt.name.startswith(("fwd ", "bwd ")) and evt.name.split(" ", 1)[1] in modules:
+            ks = kernels(evt)
+            r = ranges.setdefault(evt.name, {"calls": 0, "device_ms": 0.0, "dgrad": {}})
+            r["calls"] += 1
+            r["device_ms"] += sum(k.duration for k in ks) / 1e3
+            for k in ks:
+                if "dgrad" in k.name.lower():
+                    d = r["dgrad"].setdefault(k.name[:80], [0, 0.0])
+                    d[0] += 1
+                    d[1] += k.duration / 1e3
+    dgrad = {}
+    for evt in prof.key_averages():
+        if "CUDA" in str(getattr(evt, "device_type", "")) and "dgrad" in evt.key.lower():
+            us = getattr(evt, "self_device_time_total", None)
+            us = getattr(evt, "self_cuda_time_total", 0.0) if us is None else us
+            dgrad[evt.key[:80]] = [evt.count, us / 1e3]
+    named = sum(d[1] for r in ranges.values() for d in r["dgrad"].values())
+    res = {"run": run, "ranges": ranges, "dgrad_kernels": dgrad,
+           "dgrad_ms": sum(d[1] for d in dgrad.values()), "dgrad_ms_named": named}
+    log("named_profile " + json.dumps(res))
+    return res
+
+
+def record_routes(torch, fn):
+    """The convs and deconvs ``fn`` runs: (kind, input shape, kernel shape,
+    stride, route) in call order, from ``layers._kernel_for`` and
+    ``layers._deconv_route``."""
+    from rendernet_tpu_torch.nn import layers
+
+    log_, kernel_for, deconv_route = [], layers._kernel_for, layers._deconv_route
+    convt = layers.conv_transpose_op
+
+    def conv_route(x, w_shape, stride, ndim):
+        route = kernel_for(x, w_shape, stride, ndim)
+        log_.append(("conv", tuple(x.shape), tuple(w_shape), tuple(stride), route))
+        return route
+
+    def deconv(x, w, stride, ndim):
+        log_.append(("deconv", tuple(x.shape), tuple(w.shape), tuple(stride),
+                     deconv_route(w.shape[:ndim], tuple(stride))))
+        return convt(x, w, stride, ndim)
+
+    layers._kernel_for, layers.conv_transpose_op = conv_route, deconv
+    try:
+        with torch.no_grad():
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        layers._kernel_for, layers.conv_transpose_op = kernel_for, convt
+    return log_
+
+
+def model_routes(torch, np):
+    """Every conv and deconv of the three families at full width on the
+    card, with PHASE_CONV3D "all" and DEPTH_PACK on (so every conv the
+    rewrites could take shows it): the shader and the texture network at
+    batch 1 (the rows scale the batch), the recon step's forward as it runs
+    (5 hypotheses, decoders at batch 1). Returns {family: [record]}."""
+    from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params
+    from rendernet_tpu_torch.models.texture_face import texture_decoder
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.recon.inverse import ReconConfig, initial_latents, recon_forward
+
+    saved = layers.PHASE_CONV3D, layers.DEPTH_PACK
+    layers.PHASE_CONV3D, layers.DEPTH_PACK = "all", True
+    out = {}
+    try:
+        net = init_shader_params(0, ShaderConfig(), device="cuda")
+        out["shader"] = record_routes(torch, lambda: net(
+            torch.zeros(1, 128, 128, 128, 1, device="cuda")))
+        del net
+        tex = texture_net(torch)
+        out["texture"] = record_routes(torch, lambda: (
+            texture_decoder(tex, torch.zeros(1, 199, device="cuda")),
+            tex(torch.zeros(1, 128, 128, 128, 5, device="cuda"))))
+        del tex
+        model = recon_model(torch)
+        cfg = ReconConfig(compute_dtype="bfloat16", light_elevation=RECON_LIGHT_ELEVATION)
+        lat = initial_latents(cfg, device="cuda")
+        out["recon"] = record_routes(torch, lambda: recon_forward(model, lat, cfg))
+        del model
+    finally:
+        layers.PHASE_CONV3D, layers.DEPTH_PACK = saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fam, recs in out.items():
+        census = {}
+        for kind, *_, route in recs:
+            census[f"{kind}:{route}"] = census.get(f"{kind}:{route}", 0) + 1
+        log(f"routes {fam} " + json.dumps(census))
+    return out
+
+
+def rewrite_row(torch, failures, label, fast, plain, x_shape, w_shape, dname, grads="xw"):
+    """A rewrite (``fast``) against its plain form on seeded inputs at one
+    shape: the output and the gradients named in ``grads`` (x: data, w:
+    weights) within REWRITE_TOL of the reference (WGRAD_TOL for fp32
+    weight gradients), and both forms' ms for forward + backward (CUDA
+    events)."""
+    dtype = getattr(torch, dname)
+    gen = torch.Generator(device="cuda").manual_seed(zlib.crc32(label.encode()))
+    x = torch.randn(x_shape, generator=gen, device="cuda").to(dtype)
+    fan_in = math.prod(w_shape[:-1])
+    w = (torch.randn(w_shape, generator=gen, device="cuda") / math.sqrt(fan_in)).to(dtype)
+    x.requires_grad_("x" in grads)
+    w.requires_grad_("w" in grads)
+    wrt = [t for t in (x, w) if t.requires_grad]
+    y0 = plain(x, w)
+    g = torch.randn(y0.shape, generator=gen, device="cuda").to(dtype)
+
+    def run(fn):
+        y = fn(x, w)
+        return (y.detach(),) + torch.autograd.grad(y, wrt, g)
+
+    got, plain_out = run(fast), run(plain)
+    if dname == "float32":
+        ref = plain_out
+    else:  # the plain form in fp32 on the same bf16 values
+        x32, w32 = (t.detach().float().requires_grad_(t.requires_grad) for t in (x, w))
+        y32 = plain(x32, w32)
+        ref = (y32.detach(),) + torch.autograd.grad(
+            y32, [t for t in (x32, w32) if t.requires_grad], g.float())
+        del x32, w32, y32
+    errs, ok = [], True
+    for part, a, p, b in zip(["y"] + [t for t in "xw" if t in grads], got, plain_out, ref):
+        scale = max(float(b.float().abs().max()), 1e-30)
+        err = float((a.float() - b.float()).abs().max())
+        tol = (WGRAD_TOL if part == "w" and dname == "float32" else REWRITE_TOL[dname]) * scale
+        e = {"part": part, "max_abs_err": err, "max_abs_ref": scale, "tol": tol}
+        if dname != "float32":
+            e["plain_max_abs_err"] = float((p.float() - b.float()).abs().max())
+        errs.append(e)
+        ok = ok and err <= tol and bool(torch.isfinite(a.float()).all())
+    del got, plain_out, ref, y0
+    row = {"rewrite": label, "dtype": dname, "x": list(x_shape), "w": list(w_shape),
+           "ms": time_ms(torch, lambda: run(fast), 5),
+           "plain_ms": time_ms(torch, lambda: run(plain), 5), "errors": errs, "ok": ok}
+    log("rewrite " + json.dumps(row))
+    if not ok:
+        failures.append(f"rewrite {label} {dname}: {errs}")
+    del x, w, g
+    torch.cuda.empty_cache()
+    return row
+
+
+def _batched(shape, b):
+    return (b,) + tuple(shape[1:])
+
+
+def rewrite_rows(torch, failures, routes):
+    """(a) Each phase-space conv (shader and texture e_conv1 / e_conv2),
+    sub-pixel deconv and, where one runs, depth-packed conv of the three
+    families against its plain form: the shader's and texture's at the
+    bf16 steps' batch 24 and the fp32 gradient checks' batch 8, recon's at
+    its own batches. The texture's e_conv1 also as phase_dgrad_conv3d (its
+    data gradient through the phase adjoint). Where K2 takes every conv
+    the depth packing could, that is printed, and the packing is timed at
+    res1's shape against the plain conv and K2."""
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.ops import cuda_conv3d, phase_conv
+
+    batches = {"shader": {"bfloat16": 24, "float32": 8}, "texture": {"bfloat16": 24,
+                                                                     "float32": 8}}
+    rows, seen = [], set()
+    for fam, recs in routes.items():
+        for kind, xs, ws, stride, route in recs:
+            for dname in ("bfloat16", "float32"):
+                b = batches.get(fam, {}).get(dname)
+                x_shape = _batched(xs, b) if b else xs
+                ndim = len(stride)
+                key = (kind, x_shape, ws, stride, dname)
+                if key in seen or route not in ("phase", "s1_k4", "s2_k4", "depth_pack"):
+                    continue
+                seen.add(key)
+                label = f"{fam} {kind} {route} {list(x_shape)} @ {list(ws)} s{list(stride)}"
+                if route == "phase":
+                    fast = lambda x, w, s=stride: phase_conv.phase_conv3d(x, w, s)  # noqa: E731
+                    plain = lambda x, w, s=stride: layers._plain_conv(x, w, s, 3)  # noqa: E731
+                elif route == "depth_pack":
+                    f = layers._depth_pack_factor(x_shape, ws, stride)
+                    fast = lambda x, w, f=f: layers._depth_packed_conv(x, w, f)  # noqa: E731
+                    plain = lambda x, w: layers._plain_conv(x, w, (1, 1, 1), 3)  # noqa: E731
+                else:
+                    fast = (layers._deconv_s1_k4 if route == "s1_k4" else layers._deconv_s2_k4)
+                    fast = lambda x, w, fn=fast, n=ndim: fn(x, w, n)  # noqa: E731
+                    plain = lambda x, w, s=stride, n=ndim: layers._plain_conv_transpose(  # noqa
+                        x, w, s, n)
+                rows.append(rewrite_row(torch, failures, label, fast, plain, x_shape, ws, dname))
+                if route == "phase" and xs[-1] == 5:  # the texture's e_conv1: its dgrad alone
+                    rows.append(rewrite_row(
+                        torch, failures, f"{fam} phase_dgrad {list(x_shape)} @ {list(ws)}",
+                        lambda x, w, s=stride: phase_conv.phase_dgrad_conv3d(x, w, s),
+                        lambda x, w, s=stride: layers._plain_conv(x, w, s, 3),
+                        x_shape, ws, dname, grads="x"))
+    reached = any(r[-1] == "depth_pack" for recs in routes.values() for r in recs)
+    if not reached:
+        log("depth_pack: route unreached on the card: K2 takes every stride-1 odd-kernel 3D "
+            "conv of the three families (DEPTH_PACK on, K2 checked first)")
+        for dname, b in (("bfloat16", 24), ("float32", 8)):
+            xs, ws = X3[b], (3, 3, 3, 32, 32)
+            f = layers._depth_pack_factor(xs, ws, (1, 1, 1))
+            row = rewrite_row(torch, failures, f"res1 depth_pack f={f} (K2 off) {list(xs)}",
+                              lambda x, w, f=f: layers._depth_packed_conv(x, w, f),
+                              lambda x, w: layers._plain_conv(x, w, (1, 1, 1), 3), xs, ws, dname)
+            x = torch.randn(xs, device="cuda").to(getattr(torch, dname)).requires_grad_()
+            w = torch.randn(ws, device="cuda").to(x.dtype).requires_grad_()
+            g = torch.randn(xs[:-1] + (32,), device="cuda").to(x.dtype)
+            row["k2_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+                cuda_conv3d.nc_conv3d(x, w), (x, w), g), 5)
+            log("depth_pack_k2 " + json.dumps({"dtype": dname, "x": list(xs),
+                                               "k2_ms": row["k2_ms"]}))
+            rows.append(row)
+            del x, w, g
+    return rows, reached
+
+
+FROZEN_LOAD = r"""
+import json, sys, time
+import numpy as np, torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+from rendernet_tpu_torch.compat.frozen import load_frozen
+mod = load_frozen(sys.argv[1])  # the card by default
+data = np.load(sys.argv[2])
+vox, pose = (torch.from_numpy(data[k]).cuda() for k in ("vox", "pose"))
+with torch.no_grad():
+    out = mod(vox, pose)
+    torch.cuda.synchronize()
+    for _ in range(2):
+        mod(vox, pose)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(5):
+        mod(vox, pose)
+    b.record()
+    b.synchronize()
+np.save(sys.argv[3], out.float().cpu().numpy())
+print(json.dumps({"models_imported": sorted(m for m in sys.modules
+                                            if m.startswith("rendernet_tpu_torch.models")),
+                  "platforms": list(mod.platforms), "in_shapes": mod.in_shapes,
+                  "device": str(out.device), "ms": a.elapsed_time(b) / 5}))
+"""
+
+
+def run_frozen(torch, failures, tmp):
+    """(c) ``freeze_shader_render`` of a seeded ``ShaderConfig()`` (batch
+    1, checked on the card), loaded in a fresh process that imports no model
+    code, against the live exact fp32 forward (FROZEN_TOL), both timed;
+    then the render CLI with ``--frozen`` and with the reference directory
+    ``convert npz-to-refdir`` writes, each image against the flat-npz
+    render's."""
+    import numpy as np
+
+    from rendernet_tpu_torch.cli.__main__ import main as cli_main
+    from rendernet_tpu_torch.compat.frozen import freeze_shader_render, save_frozen
+    from rendernet_tpu_torch.io.binvox import save_binvox
+    from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
+    from rendernet_tpu_torch.train.checkpoint import save_params_npz
+    from rendernet_tpu_torch.utils.image import decode_image
+
+    net = init_shader_params(0, ShaderConfig(), device="cuda")
+    npz, art = os.path.join(tmp, "shader.npz"), os.path.join(tmp, "shader.pt2")
+    save_params_npz(npz, net)
+    t0 = time.perf_counter()
+    frozen = freeze_shader_render(net, batch=1, platforms=("cuda",))
+    save_frozen(frozen, art)
+    out = {"freeze_s": time.perf_counter() - t0, "artifact_mib": os.path.getsize(art) / 2 ** 20}
+    del frozen
+    rng = np.random.default_rng(5)
+    vox = procedural_voxel().astype(np.float32)[None, :, :, :, None]
+    pose = np.array([[rng.uniform(0, 6.28), rng.uniform(-1, 1), 1.0]], np.float32)
+    np.savez(os.path.join(tmp, "in.npz"), vox=vox, pose=pose)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FROZEN_LOAD, art, os.path.join(tmp, "in.npz"),
+                           os.path.join(tmp, "out.npy")], capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(
+                              __file__))), timeout=600)
+    out["load_process_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        failures.append(f"frozen load process failed: {proc.stderr[-2000:]}")
+        return out
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    frozen_img = np.load(os.path.join(tmp, "out.npy"))
+    v, q = torch.from_numpy(vox).cuda(), torch.from_numpy(pose).cuda()
+    with torch.no_grad():
+        live = shader_forward(net, v, q, resample="exact").float().cpu().numpy()
+        live_ms = time_ms(torch, lambda: shader_forward(net, v, q, resample="exact"), 5)
+    err = float(np.abs(frozen_img - live).max())
+    out.update(frozen=info, frozen_ms=info["ms"], live_ms=live_ms, max_abs_err=err,
+               tol=FROZEN_TOL, output_spread=float(live.max() - live.min()))
+    if (info["models_imported"] or info["platforms"] != ["cuda"]
+            or not info["device"].startswith("cuda") or frozen_img.shape != (1, 512, 512, 1)):
+        failures.append(f"frozen artifact: load process {info}")
+    if not err <= FROZEN_TOL:
+        failures.append(f"frozen artifact differs from the live exact forward by {err:.3e}")
+    del net
+    torch.cuda.empty_cache()
+
+    vox_path = os.path.join(tmp, "sphere_box.binvox")
+    save_binvox(procedural_voxel(), vox_path)
+    refdir = os.path.join(tmp, "refdir")
+    rc_ref = cli_main(["convert", "npz-to-refdir", npz, refdir])
+    images, rcs = {}, {"npz-to-refdir": rc_ref}
+    for tag, extra in (("npz", ["--weights", npz]), ("refdir", ["--weights", refdir]),
+                       ("frozen", ["--frozen", art])):
+        rdir = os.path.join(tmp, f"render_{tag}")
+        rcs[tag] = cli_main(["render", "--voxel_path", vox_path, "--render_dir", rdir,
+                             "--out_channels", "1", *extra])
+        names = sorted(os.listdir(rdir))
+        with open(os.path.join(rdir, names[0]), "rb") as f:
+            images[tag] = decode_image(f.read()).astype(np.int16)
+    diffs = {t: int(np.abs(images[t] - images["npz"]).max()) for t in ("refdir", "frozen")}
+    out["cli"] = {"rcs": rcs, "max_abs_level_diff": diffs,
+                  "npz_image_spread": int(images["npz"].max() - images["npz"].min())}
+    log("frozen " + json.dumps(out))
+    # the weight directory holds the same fp32 values: the same image; the
+    # frozen program may round a pixel to the next of 255 levels
+    if any(rcs.values()) or diffs["refdir"] != 0 or diffs["frozen"] > 1:
+        failures.append(f"render CLI with --weights <refdir> / --frozen: {out['cli']}")
+    return out
+
+
+def run_rewrites(torch, failures, tmp):
+    """Phase 9: (a) the rewrite rows, (c) the frozen artifact and its CLIs;
+    (b), the PHASE_CONV3D A/B, runs inside phases 4 and 7 on their
+    states."""
+    import numpy as np
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows, reached = rewrite_rows(torch, failures, model_routes(torch, np))
+    log(f"phase 9 rewrites took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    frozen = run_frozen(torch, failures, tmp)
+    log(f"phase 9 frozen took {time.perf_counter() - t0:.1f} s")
+    return {"rows": len(rows), "depth_pack_reached": reached, "frozen": frozen}
 
 
 # Device kernels of each kernel id in a profile, by substrings of their
@@ -2484,6 +2988,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         main_out["cli"] = run_cli(torch, failures, per_step, tmp)
     log(f"phase 8 (the training CLIs) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        main_out["rewrites"] = run_rewrites(torch, failures, tmp)
+    log(f"phase 9 (the exact rewrites, the frozen artifact) took "
+        f"{time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for (kid, label, dname), r in rows.items():

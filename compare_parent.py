@@ -121,7 +121,7 @@ def _e2e(torch, np, cs, conv2d: bool, wgrad: bool) -> dict:
     from rendernet_tpu_torch.train.config import TrainConfig
     from rendernet_tpu_torch.train.steps import create_shader_state, make_shader_train_step
 
-    layers.WINOGRAD_2D, layers.CUDA_CONV2D = True, conv2d
+    layers.WINOGRAD_2D, layers.CUDA_CONV2D = "pallas", conv2d
     res = {"conv2d": conv2d}
     try:
         net = init_shader_params(0, ShaderConfig(), device="cuda")

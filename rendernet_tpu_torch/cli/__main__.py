@@ -10,6 +10,7 @@ COMMANDS = {
     "train-texture": "rendernet_tpu_torch.cli.train_texture",
     "reconstruct": "rendernet_tpu_torch.cli.reconstruct",
     "pack-tar": "rendernet_tpu_torch.cli.pack_tar",
+    "convert": "rendernet_tpu_torch.cli.convert",
 }
 
 

@@ -5,9 +5,10 @@ normal map for an (azimuth, elevation, radius) pose with the shader net,
 Phong-composite it on the host and save a PNG; ``--rotate`` sweeps the
 azimuth over 0..355 degrees in steps of 5, ``--sweep_batch`` frames per
 forward. Weights come from a flat ``.npz`` of the JAX package's parameter
-paths (``--weights``); without them a seeded random network runs. Runs on
-the CUDA card unless ``--device cpu``. (The JAX CLI's ``--frozen`` and
-reference weight directories are not ported yet.)
+paths or a reference-format directory of ``*.txt.npz`` files
+(``--weights``); without them a seeded random network runs. ``--frozen``
+runs a ``torch.export`` artifact from ``convert freeze`` instead, with no
+model code. Runs on the CUDA card unless ``--device cpu``.
 """
 from __future__ import annotations
 
@@ -49,7 +50,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gif", type=str, default="",
                    help="with --rotate: also write the sweep as a GIF here (needs PIL)")
     p.add_argument("--weights", type=str, default="",
-                   help=".npz of the JAX package's flat parameter paths")
+                   help=".npz of the JAX package's flat parameter paths, or a reference "
+                        "*.txt.npz weight dir")
+    p.add_argument("--frozen", type=str, default="",
+                   help="frozen torch.export artifact from `convert freeze` (no model code "
+                        "or weights needed: the reference's frozen-.pb demo path, "
+                        "RenderNet_demo.py:23-30)")
     p.add_argument("--out_channels", type=int, default=None,
                    help="shader head channels (3 = normal-map demo net; default 3)")
     p.add_argument("--arch", type=str, default="",
@@ -81,29 +87,23 @@ def main(argv=None):
     import torch
 
     from rendernet_tpu_torch import resolve_device
-    from rendernet_tpu_torch.compat.jax_params import load_jax_params, load_params_npz
     from rendernet_tpu_torch.io.binvox import load_binvox
-    from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
-    from rendernet_tpu_torch.nn import layers
     from rendernet_tpu_torch.ops.phong import np_generate_light_pos, np_phong_composite
     from rendernet_tpu_torch.utils.image import save_gif, save_image, to_uint8
 
     device = resolve_device(args.device)
-    if args.fast:
-        layers.WINOGRAD_2D = True
+    if args.frozen:
+        from rendernet_tpu_torch.compat.frozen import load_frozen
 
-    arch = _load_arch(args.arch, ShaderConfig) if args.arch else {}
-    if ("out_channels" in arch and args.out_channels is not None
-            and arch["out_channels"] != args.out_channels):
-        raise SystemExit(f"--out_channels {args.out_channels} conflicts with the --arch "
-                         f"file's out_channels={arch['out_channels']}; drop one")
-    out_channels = 3 if args.out_channels is None else args.out_channels
-    cfg = ShaderConfig(**{"out_channels": out_channels, **arch})
-    net = init_shader_params(0, cfg, device=device)
-    if args.weights:
-        load_jax_params(net, load_params_npz(args.weights))
+        if args.weights:
+            print("NOTE: --frozen overrides --weights (the artifact's baked-in params are used)")
+        if args.resample != "exact":
+            print("NOTE: --frozen ignores --resample (the artifact's pipeline was fixed at "
+                  "freeze time)")
+        # its state holds the weights; no model code is imported
+        render = frozen = load_frozen(args.frozen, device=device)
     else:
-        print("NOTE: no --weights given; rendering with a seeded random net")
+        render = _live_renderer(args, device)
 
     os.makedirs(args.render_dir, exist_ok=True)
     voxel = load_binvox(args.voxel_path).reshape(1, 64, 64, 64, 1)
@@ -119,8 +119,7 @@ def main(argv=None):
             vox_cache[len(azimuths)] = torch.from_numpy(
                 np.repeat(voxel, len(azimuths), axis=0)).to(device)
         with torch.no_grad():
-            maps = shader_forward(net, vox_cache[len(azimuths)], poses,
-                                  resample=args.resample).cpu().numpy()
+            maps = render(vox_cache[len(azimuths)], poses).cpu().numpy()
         if maps.shape[-1] == 1:
             imgs = maps[:, :, :, 0]
         else:
@@ -139,7 +138,9 @@ def main(argv=None):
         return out
 
     if args.rotate:
-        bs = max(1, args.sweep_batch)
+        # a frozen artifact has a fixed batch (`convert freeze --batch`);
+        # live nets batch the sweep by --sweep_batch
+        bs = frozen.in_shapes[0][0] if args.frozen else max(1, args.sweep_batch)
         azimuths = [float(a) for a in np.arange(0.0, 360.0, 5.0)]
         frames = []
         for start in range(0, len(azimuths), bs):
@@ -153,8 +154,43 @@ def main(argv=None):
             save_gif([to_uint8(f, 255.0) for f in frames], args.gif)
             print(args.gif)
     else:
-        render_batch([args.azimuth], [0])
+        chunk, counts = [args.azimuth], [0]
+        if args.frozen:  # pad to the artifact's fixed batch
+            n = frozen.in_shapes[0][0]
+            chunk, counts = chunk + [args.azimuth] * (n - 1), counts + [None] * (n - 1)
+        render_batch(chunk, counts)
     return 0
+
+
+def _live_renderer(args, device):
+    """``(voxels, poses) -> normal maps`` of the shader net (``--arch``,
+    ``--out_channels``) with ``--weights`` (a flat ``.npz`` or a reference
+    weight directory) or, without them, seeded random weights."""
+    from rendernet_tpu_torch.compat.jax_params import (jax_params_from_module, load_jax_params,
+                                                       load_params_npz)
+    from rendernet_tpu_torch.compat.tf_import import (load_reference_weight_dir,
+                                                      params_from_weight_dict)
+    from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
+    from rendernet_tpu_torch.nn import layers
+
+    if args.fast:
+        layers.WINOGRAD_2D = "pallas"
+    arch = _load_arch(args.arch, ShaderConfig) if args.arch else {}
+    if ("out_channels" in arch and args.out_channels is not None
+            and arch["out_channels"] != args.out_channels):
+        raise SystemExit(f"--out_channels {args.out_channels} conflicts with the --arch "
+                         f"file's out_channels={arch['out_channels']}; drop one")
+    out_channels = 3 if args.out_channels is None else args.out_channels
+    cfg = ShaderConfig(**{"out_channels": out_channels, **arch})
+    net = init_shader_params(0, cfg, device=device)
+    if args.weights and os.path.isdir(args.weights):
+        load_jax_params(net, params_from_weight_dict(
+            jax_params_from_module(net), load_reference_weight_dir(args.weights), strict=False))
+    elif args.weights:
+        load_jax_params(net, load_params_npz(args.weights))
+    else:
+        print("NOTE: no --weights given; rendering with a seeded random net")
+    return lambda vox, poses: shader_forward(net, vox, poses, resample=args.resample)
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ __all__ = [
     "torch_name_to_tf",
     "load_jax_params",
     "jax_params_from_module",
+    "jax_params_from_state_dict",
     "load_params_npz",
     "save_params_npz",
 ]
@@ -69,10 +70,15 @@ def load_jax_params(net: nn.Module, flat: Dict[str, np.ndarray]) -> nn.Module:
 
 def jax_params_from_module(net: nn.Module) -> Dict[str, np.ndarray]:
     """The JAX flat param dict (TF paths, JAX layouts) of ``net``."""
+    return jax_params_from_state_dict(net.state_dict())
+
+
+def jax_params_from_state_dict(state: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The JAX flat param dict of a network's state dict (a checkpoint's)."""
     return {
         torch_name_to_tf(name):
             (to_jax_layout(t) if t.dim() >= 2 else t).detach().cpu().contiguous().numpy()
-        for name, t in net.state_dict().items()
+        for name, t in state.items()
     }
 
 

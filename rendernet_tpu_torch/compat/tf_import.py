@@ -1,6 +1,6 @@
 """The reference's weight-directory format (numpy only).
 
-The port's copy of ``rendernet_tpu/compat/tf_import.py:36-94``. The
+The port's copy of ``rendernet_tpu/compat/tf_import.py``. The
 reference keeps pretrained weights as one ``<key>.txt.npz`` per tensor in a
 directory (array under ``arr_0``), keyed by the TF scope path with the top
 scope dropped and '/' replaced by '_' (``tools/model_util.py:26-39``:
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import glob
 import os
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 
@@ -21,6 +21,8 @@ __all__ = [
     "load_reference_weight_dir",
     "npz_key_for_path",
     "params_from_weight_dict",
+    "weight_dict_from_params",
+    "export_reference_weight_dir",
 ]
 
 Params = Dict[str, np.ndarray]
@@ -75,3 +77,20 @@ def params_from_weight_dict(template: Params, weight_dict: Dict[str, np.ndarray]
     if strict and missing:
         raise KeyError(f"weight dict missing {len(missing)} keys, e.g. {missing[:5]}")
     return out
+
+
+def weight_dict_from_params(params: Params) -> Dict[str, np.ndarray]:
+    """A flat parameter dict -> the reference's keyed weight dict."""
+    return {npz_key_for_path(p): np.asarray(v) for p, v in params.items()}
+
+
+def export_reference_weight_dir(params: Params, out_dir: str,
+                                keys: Optional[Iterable[str]] = None) -> None:
+    """Write a flat parameter dict as a reference weight directory: one
+    ``<key>.txt.npz`` per tensor, under ``arr_0`` (``tf_import.py:100-110``);
+    with ``keys``, only those."""
+    os.makedirs(out_dir, exist_ok=True)
+    for key, arr in weight_dict_from_params(params).items():
+        if keys is not None and key not in keys:
+            continue
+        np.savez(os.path.join(out_dir, key + ".txt.npz"), arr)

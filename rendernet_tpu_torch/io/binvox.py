@@ -1,10 +1,11 @@
-"""Binvox voxel-file I/O (numpy), the port's own copy of the dense codec.
+"""Binvox voxel-file I/O (numpy), the port's own copy of the codec.
 
 Counterpart of ``rendernet_tpu/io/binvox.py``: the run-length-encoded
 ``.binvox`` format (https://www.patrickmin.com/binvox/binvox.html). After
 the ASCII header, payload bytes come in (value, count) pairs; the flat voxel
-order on disk is x-major, then z, then y ("xzy"), and reading transposes it
-to ``data[x, y, z]``. Runs are expanded with ``np.repeat`` and re-encoded
+order on disk is x-major, then z, then y ("xzy"), and reading with
+``fix_coords`` (the default) transposes it to ``data[x, y, z]``. Models are
+dense 3-D arrays or sparse ``(3, N)`` coordinate arrays. Runs are expanded with ``np.repeat`` and re-encoded
 with one diff/cumsum pass. :func:`decode_bytes` prefers the native codec
 (``io/native.py``, ``native/voxio.cc``) and falls back to numpy, as the JAX
 package's does (``binvox.py:36-46``).
@@ -21,9 +22,13 @@ __all__ = [
     "Voxels",
     "read_header",
     "read_as_3d_array",
+    "read_as_coord_array",
+    "dense_to_sparse",
+    "sparse_to_dense",
     "write",
     "save_binvox",
     "load_binvox",
+    "loads",
     "decode_bytes",
 ]
 
@@ -43,14 +48,28 @@ def decode_bytes(buf: bytes) -> np.ndarray:
 
 @dataclasses.dataclass
 class Voxels:
-    """A dense binvox model: ``data`` is a 3-D bool array indexed
-    ``[x, y, z]``; ``dims``/``translate``/``scale`` relate voxel indices to
-    model coordinates."""
+    """A binvox model (``binvox.py:49-79``): ``data`` is a 3-D bool array
+    (dense) or a ``(3, N)`` coordinate array (sparse);
+    ``dims``/``translate``/``scale`` relate voxel indices to model
+    coordinates; ``axis_order`` says whether axis 1 is y (``"xyz"``) or z
+    (``"xzy"``, the order on disk)."""
 
     data: np.ndarray
     dims: Sequence[int]
     translate: Sequence[float]
     scale: float
+    axis_order: str = "xyz"
+
+    def __post_init__(self) -> None:
+        if self.axis_order not in ("xyz", "xzy"):
+            raise ValueError(f"unsupported axis order: {self.axis_order!r}")
+
+    def clone(self) -> "Voxels":
+        return Voxels(self.data.copy(), list(self.dims), list(self.translate), self.scale,
+                      self.axis_order)
+
+    def write(self, fp: BinaryIO) -> None:
+        write(self, fp)
 
 
 def read_header(fp: BinaryIO) -> tuple[list[int], list[float], float]:
@@ -82,8 +101,9 @@ def read_header(fp: BinaryIO) -> tuple[list[int], list[float], float]:
     return dims, translate, scale
 
 
-def read_as_3d_array(fp: BinaryIO) -> Voxels:
-    """Read a binvox stream into a dense ``[x, y, z]`` bool array."""
+def read_as_3d_array(fp: BinaryIO, fix_coords: bool = True) -> Voxels:
+    """Read a binvox stream into a dense bool array: ``[x, y, z]`` with
+    ``fix_coords``, else in the on-disk order ``[x, z, y]``."""
     dims, translate, scale = read_header(fp)
     raw = np.frombuffer(fp.read(), dtype=np.uint8)
     flat = np.repeat(raw[::2], raw[1::2]).astype(bool)
@@ -92,8 +112,42 @@ def read_as_3d_array(fp: BinaryIO) -> Voxels:
         raise IOError(
             f"binvox payload decodes to {flat.size} voxels, expected {n_expected}"
         )
-    data = np.transpose(flat.reshape(dims), (0, 2, 1))
-    return Voxels(data, dims, translate, scale)
+    data = flat.reshape(dims)
+    if fix_coords:
+        return Voxels(np.transpose(data, (0, 2, 1)), dims, translate, scale, "xyz")
+    return Voxels(data, dims, translate, scale, "xzy")
+
+
+def read_as_coord_array(fp: BinaryIO, fix_coords: bool = True) -> Voxels:
+    """Read a binvox stream into a sparse ``(3, N)`` coordinate array:
+    rows (x, y, z) with ``fix_coords``, else (x, z, y)
+    (``binvox.py:136-148``)."""
+    vox = read_as_3d_array(fp, fix_coords=True)
+    x, y, z = np.nonzero(vox.data)
+    data, order = (np.vstack((x, y, z)), "xyz") if fix_coords else (np.vstack((x, z, y)), "xzy")
+    return Voxels(np.ascontiguousarray(data), vox.dims, vox.translate, vox.scale, order)
+
+
+def dense_to_sparse(voxel_data: np.ndarray, dtype=np.int64) -> np.ndarray:
+    """Dense 3-D array -> ``(3, N)`` nonzero coordinates, in their order."""
+    if voxel_data.ndim != 3:
+        raise ValueError("voxel_data should be a 3-D array")
+    return np.asarray(np.nonzero(voxel_data), dtype)
+
+
+def sparse_to_dense(voxel_data: np.ndarray, dims, dtype=bool) -> np.ndarray:
+    """``(3, N)`` coordinates -> a dense array of ``dims`` (an int for a
+    cube), dropping coordinates out of range."""
+    if voxel_data.ndim != 2 or voxel_data.shape[0] != 3:
+        raise ValueError("voxel_data should be a (3, N) array")
+    if np.isscalar(dims):
+        dims = [int(dims)] * 3
+    dims = [int(d) for d in dims]
+    xyz = voxel_data.astype(np.int64)
+    valid = ~np.any((xyz < 0) | (xyz >= np.asarray(dims).reshape(3, 1)), axis=0)
+    out = np.zeros(dims, dtype=dtype)
+    out[tuple(xyz[:, valid])] = True
+    return out
 
 
 def _encode_rle(flat: np.ndarray) -> bytes:
@@ -117,13 +171,19 @@ def _encode_rle(flat: np.ndarray) -> bytes:
 
 
 def write(model: Voxels, fp: BinaryIO) -> None:
-    """Write a dense model in binary binvox format."""
+    """Write a model in binary binvox format, in its ``axis_order`` (a
+    sparse model is densified first)."""
+    data = model.data
+    if data.ndim == 2:
+        data = sparse_to_dense(data, model.dims)
     fp.write(b"#binvox 1\n")
     fp.write(("dim " + " ".join(map(str, model.dims)) + "\n").encode())
     fp.write(("translate " + " ".join(map(str, model.translate)) + "\n").encode())
     fp.write(f"scale {model.scale}\n".encode())
     fp.write(b"data\n")
-    fp.write(_encode_rle(np.transpose(model.data, (0, 2, 1)).reshape(-1)))
+    if model.axis_order == "xyz":
+        data = np.transpose(data, (0, 2, 1))
+    fp.write(_encode_rle(data.reshape(-1)))
 
 
 def save_binvox(data: np.ndarray, fname: str) -> None:
@@ -136,3 +196,8 @@ def load_binvox(path: str, dtype=np.float32) -> np.ndarray:
     """Path -> dense ``[x, y, z]`` array of the given dtype."""
     with open(path, "rb") as f:
         return read_as_3d_array(f).data.astype(dtype)
+
+
+def loads(buf: bytes) -> Voxels:
+    """Parse a binvox byte string into a dense model."""
+    return read_as_3d_array(_io.BytesIO(buf))

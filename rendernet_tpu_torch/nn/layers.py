@@ -21,6 +21,13 @@ The fused wide-conv route (:data:`CUDA_CONV2D`, mirroring
 every block as two fused K5 calls (``ops/cuda_conv2d.py``), and other
 eligible 3x3 stride-1 2D convs (the stacks' skip convs) take the NHWC K5 op.
 
+The exact rewrites that JAX leaves to XLA, in plain PyTorch: the
+phase-space strided conv (``ops/phase_conv.py``, :data:`PHASE_CONV3D`), the
+depth-packed 3D conv (:data:`DEPTH_PACK`) and the sub-pixel forms of the
+K=4 transposed convs, which :func:`conv_transpose_op` takes on every device
+as JAX does. Their inner convs are plain (:func:`conv_grad.plain_conv`),
+never a kernel, so they add no launch.
+
 For the inverse renderer's pretrained-style networks: :class:`FullyConnected`
 and the ``relu`` res block (no alpha), whose ReLU is ``torch.maximum``: it
 splits the gradient 0.5/0.5 at an exact zero as ``jnp.maximum`` does
@@ -28,21 +35,27 @@ splits the gradient 0.5/0.5 at an exact zero as ``jnp.maximum`` does
 """
 from __future__ import annotations
 
-import math
+import functools
+import itertools
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
 from rendernet_tpu_torch.nn import init
-from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_winograd
-from rendernet_tpu_torch.ops.conv_grad import flip_io, plain_conv_wgrad
+from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_winograd, phase_conv, winograd
+from rendernet_tpu_torch.ops.conv_grad import (conv_wgrad, flip_io, gather_taps, plain_conv,
+                                               plain_conv_wgrad, same_pads)
 
 __all__ = [
     "CUDA_CONV2D",
     "CUDA_CONV3D",
+    "DEPTH_PACK",
+    "PHASE_CONV3D",
+    "PHASE_MAX_FANIN",
     "WINOGRAD_2D",
     "to_jax_layout",
     "to_torch_layout",
@@ -67,9 +80,39 @@ __all__ = [
 # never.
 CUDA_CONV3D = "auto"
 
-# K3 (ops/cuda_winograd.py) for the wide 3x3 stride-1 2D convs inside its
-# envelope, mirroring layers.WINOGRAD_2D = "pallas". Off by default; the
-# render CLI's --fast turns it on.
+# The depth-packed 3D conv (``layers.py:150-152,211-282``): a stride-1
+# odd-kernel 3D conv with co < 128 computes f depth-consecutive outputs
+# per position as one conv of depth stride f and f*co output channels.
+# "auto": off for CPU tensors (JAX's "auto" is the TPU backend) and off for
+# CUDA tensors: K2 is checked first and takes every such conv of the
+# models on the card, so no path reaches it, and at res1's shape with K2
+# off it loses to the plain conv (H100 80GB HBM3, 700 W, chip_smoke.py
+# phase 9, fwd + bwd: 32.77 against 2.91 ms in bf16 at batch 24, 20.54
+# against 14.13 in fp32 at batch 8; K2 1.89 / 9.33). True / False force it.
+DEPTH_PACK = "auto"
+
+# The phase-space rewrite of the strided 3D convs (``ops/phase_conv.py``;
+# ``layers.py:160-175``): False, True (only where the phase-folded fan-in
+# ci * prod(stride) <= PHASE_MAX_FANIN: the shader's e_conv1 and e_conv2,
+# the texture's and recon's e_conv2), "all" (every strided 3D conv that
+# divides evenly) or "auto": off for CPU tensors, as JAX off the TPU, and
+# "all" for CUDA tensors. On the card the fan-in gate is a measured
+# negative (JAX's TPU gate does not carry over): in chip_smoke.py's A/B
+# (H100 80GB HBM3, 700 W; batch 24, bf16, patch 128, median of 3 steps)
+# the texture step took 315.60 ms off, 317.59 with the gate and 298.65 with
+# "all", whose phase form of the 5-channel e_conv1 replaces cuDNN's 22.9 ms
+# data gradient; the shader step 452.76 / 442.28 / 438.02 (its two strided
+# convs pass the gate, so True and "all" route alike). PERF.md has the
+# rows and the final run's arms.
+PHASE_CONV3D = "auto"
+PHASE_MAX_FANIN = 16
+
+# Winograd F(2x2, 3x3) for the wide 3x3 stride-1 2D convs, JAX's three
+# values (``layers.py:176-192,327-340``): "pallas" runs K3
+# (ops/cuda_winograd.py) inside its envelope; True or "xla" runs the plain
+# Winograd expression (ops/winograd.py) inside ``winograd3x3_supported``
+# (cin, cout >= 256, any batch), differentiated by autograd; False never.
+# Off by default; the render CLI's --fast sets "pallas".
 WINOGRAD_2D = False
 
 # K5/K5w (ops/cuda_conv2d.py) for the wide 3x3 stride-1 2D convs inside
@@ -82,6 +125,16 @@ CUDA_CONV2D = False
 
 def _conv2d_on(x: torch.Tensor) -> bool:
     return x.is_cuda if CUDA_CONV2D == "auto" else bool(CUDA_CONV2D)
+
+
+def _phase_mode(x: torch.Tensor):
+    if PHASE_CONV3D == "auto":
+        return "all" if x.is_cuda else False
+    return PHASE_CONV3D
+
+
+def _depth_pack_on() -> bool:
+    return DEPTH_PACK != "auto" and bool(DEPTH_PACK)
 
 
 def to_jax_layout(w: torch.Tensor) -> torch.Tensor:
@@ -101,65 +154,202 @@ def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + alpha.to(x.dtype) * torch.clamp_max(x, 0.0)
 
 
-def _same_pads(size: int, k: int, s: int):
-    """TF SAME padding: the odd extra pad goes on the high side."""
-    total = max((math.ceil(size / s) - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
-
-
 def _plain_conv(x: torch.Tensor, w: torch.Tensor, stride, ndim: int) -> torch.Tensor:
-    pads = [_same_pads(x.shape[1 + i], w.shape[i], stride[i]) for i in range(ndim)]
-    xc = x.movedim(-1, 1)
-    if any(lo != hi for lo, hi in pads):
-        xc = F.pad(xc, [p for lo_hi in reversed(pads) for p in lo_hi])
-        padding = 0
-    else:
-        padding = [lo for lo, _ in pads]
-    conv = F.conv2d if ndim == 2 else F.conv3d
-    y = conv(xc, to_torch_layout(w), stride=tuple(stride), padding=padding)
-    return y.movedim(1, -1)
+    """The SAME conv as one plain conv (JAX's ``lax.conv_general_dilated``)."""
+    pads = [same_pads(x.shape[1 + i], w.shape[i], stride[i]) for i in range(ndim)]
+    return plain_conv(x, w, stride, pads)
+
+
+def _depth_pack_factor(x_shape, w_shape, stride) -> int:
+    """Pack factor f for the stride-1 odd-kernel 3D conv, or 1 where it is
+    ineligible (``layers.py:211-230``): the largest f in (8, 4, 2) with
+    f*co and f*ci <= 128 that divides the depth (and is below it)."""
+    if len(w_shape) != 5 or any(s != 1 for s in stride):
+        return 1
+    kh, kw, kd, ci, co = w_shape
+    if kh % 2 == 0 or kw % 2 == 0 or kd % 2 == 0 or co >= 128:
+        return 1
+    d = x_shape[3]
+    for f in (8, 4, 2):
+        if co * f <= 128 and ci * f <= 128 and d % f == 0 and d > f:
+            return f
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_index(kd: int, f: int) -> np.ndarray:
+    """The packed kernel's depth taps: slot z of output block j holds tap
+    z - j, or none (-1); ``[(kd + f - 1) * f]``."""
+    z, j = np.meshgrid(np.arange(kd + f - 1), np.arange(f), indexing="ij")
+    return np.where((z - j >= 0) & (z - j < kd), z - j, -1).reshape(-1)
+
+
+def _packed_kernel(w: torch.Tensor, f: int) -> torch.Tensor:
+    """``[kh,kw,kd,ci,co] -> [kh,kw,kd+f-1,ci,f*co]``: the kernel at ``f``
+    depth offsets in disjoint output-channel blocks; linear in ``w``."""
+    kh, kw, kd, ci, co = w.shape
+    taps = gather_taps(w.movedim(2, 0), _pack_index(kd, f))
+    taps = taps.reshape(kd + f - 1, f, kh, kw, ci, co).permute(2, 3, 0, 4, 1, 5)
+    return taps.reshape(kh, kw, kd + f - 1, ci, f * co)
+
+
+def _depth_pads(w_shape):
+    kh, kw, kd = w_shape[:3]
+    return [(kh // 2,) * 2, (kw // 2,) * 2, (kd // 2, kd - 1 - kd // 2)]
+
+
+def _depth_packed_expr(x: torch.Tensor, w: torch.Tensor, f: int) -> torch.Tensor:
+    """The SAME stride-1 3D conv, depth-packed (``layers.py:233-255``): a
+    depth-stride-``f`` conv with the packed kernel emits ``f`` depth
+    positions per step; ``[*, D/f, f*co] -> [*, D, co]`` is a reshape."""
+    y = plain_conv(x, _packed_kernel(w, f), (1, 1, f), _depth_pads(w.shape))
+    b, a1, a2, dp, _ = y.shape
+    return y.reshape(b, a1, a2, dp * f, w.shape[-1])
+
+
+def _depth_packed_wgrad(x: torch.Tensor, gy: torch.Tensor, w_shape, f: int) -> torch.Tensor:
+    """Weight gradient of :func:`_depth_packed_expr`: the packed conv's own
+    (f*co output channels), pulled back through the packing (the f
+    blocks' slices summed in block order)."""
+    kh, kw, kd, ci, co = w_shape
+    b, h, wd, d, _ = gy.shape
+    gwp = conv_wgrad(x, gy.reshape(b, h, wd, d // f, f * co), (kh, kw, kd + f - 1, ci, f * co),
+                     (1, 1, f), _depth_pads(w_shape))
+    g6 = gwp.reshape(kh, kw, kd + f - 1, ci, f, co)
+    gw = g6[:, :, 0:kd, :, 0]
+    for j in range(1, f):
+        gw = gw + g6[:, :, j:j + kd, :, j]
+    return gw
+
+
+class _DepthPackedConv(torch.autograd.Function):
+    """``layers.py:258-282``: the data gradient is the depth-packed conv of
+    the cotangent with the flipped, io-swapped kernel; the weight gradient
+    is :func:`_depth_packed_wgrad`."""
+
+    @staticmethod
+    def forward(ctx, x, w, f):
+        ctx.f = f
+        ctx.save_for_backward(x, w)
+        return _depth_packed_expr(x, w, f)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        gy = gy.to(x.dtype)
+        gx = _depth_packed_expr(gy, flip_io(w), ctx.f).to(x.dtype) \
+            if ctx.needs_input_grad[0] else None
+        gw = _depth_packed_wgrad(x, gy, w.shape, ctx.f).to(w.dtype) \
+            if ctx.needs_input_grad[1] else None
+        return gx, gw, None
+
+
+def _depth_packed_conv(x: torch.Tensor, w: torch.Tensor, f: int) -> torch.Tensor:
+    return _DepthPackedConv.apply(x, w, f)
 
 
 def _kernel_for(x: torch.Tensor, w_shape, stride, ndim: int):
-    """Which kernel runs this conv (``layers.py:285-346``): ``"conv3d"``
-    (K2) for the 3x3x3 stride-1 convs inside its envelope, ``"conv2d"``
-    (K5) for the wide 3x3 stride-1 2D ones with :data:`CUDA_CONV2D` on,
-    ``"wino"`` (K3) for those with :data:`WINOGRAD_2D` on, else None (the
-    plain conv). The forward and both gradients route alike."""
+    """Which route runs this conv, in the order of JAX's ``_conv_op``
+    (``layers.py:285-346``): ``"conv3d"`` (K2) for the 3x3x3 stride-1 convs
+    inside its envelope; ``"phase"`` (``ops/phase_conv.py``) for the
+    strided 3D convs with :data:`PHASE_CONV3D` on, inside the fan-in gate
+    unless it is "all"; ``"depth_pack"`` with :data:`DEPTH_PACK` on;
+    ``"conv2d"`` (K5) for the wide 3x3 stride-1 2D convs with
+    :data:`CUDA_CONV2D` on; ``"wino"`` (K3) for those with
+    :data:`WINOGRAD_2D` "pallas", ``"wino_xla"`` (the plain Winograd
+    expression) with any other true value; else None (the plain conv).
+    The forward and both gradients route alike."""
     use_k2 = x.is_cuda if CUDA_CONV3D == "auto" else bool(CUDA_CONV3D)
     if ndim == 3 and use_k2 and cuda_conv3d.nc_conv3d_supported(x.shape, w_shape, stride):
         return "conv3d"
+    phase = _phase_mode(x)
+    if ndim == 3 and phase and phase_conv.phase_conv3d_supported(x.shape, w_shape, stride):
+        fanin = x.shape[-1]
+        for s in stride:
+            fanin *= s
+        if phase == "all" or fanin <= PHASE_MAX_FANIN:
+            return "phase"
+    if ndim == 3 and _depth_pack_on() and _depth_pack_factor(x.shape, w_shape, stride) > 1:
+        return "depth_pack"
     if ndim == 2 and _conv2d_on(x) and cuda_conv2d.wc_conv2d_supported(x.shape, w_shape,
                                                                         stride):
         return "conv2d"
-    if ndim == 2 and WINOGRAD_2D and cuda_winograd.wino_conv2d_supported(x.shape, w_shape,
-                                                                          stride, x.dtype):
-        return "wino"
+    if ndim == 2 and WINOGRAD_2D:
+        if WINOGRAD_2D == "pallas":
+            if cuda_winograd.wino_conv2d_supported(x.shape, w_shape, stride, x.dtype):
+                return "wino"
+        elif winograd.winograd3x3_supported(x.shape, w_shape, stride):
+            return "wino_xla"
     return None
 
 
 def conv_op(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int], ndim: int) -> torch.Tensor:
     """TF-SAME conv of channels-last ``x`` with an HWIO / DHWIO ``w``, on the
-    kernel :func:`_kernel_for` picks."""
+    route :func:`_kernel_for` picks."""
     stride = tuple(stride)
     kernel = _kernel_for(x, w.shape, stride, ndim)
     if kernel == "conv3d":
         return cuda_conv3d.nc_conv3d(x, w)
+    if kernel == "phase":
+        return phase_conv.phase_conv3d(x, w, stride)
+    if kernel == "depth_pack":
+        return _depth_packed_conv(x, w, _depth_pack_factor(x.shape, w.shape, stride))
     if kernel == "conv2d":
         return cuda_conv2d.wc_conv2d(x, w)
     if kernel == "wino":
         return cuda_winograd.wino_conv2d(x, w)
+    if kernel == "wino_xla":
+        return winograd.winograd3x3(x, w)
     return _plain_conv(x, w, stride, ndim)
 
 
-def conv_transpose_op(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
-                      ndim: int) -> torch.Tensor:
-    """TF-semantics transposed conv (``tf.nn.conv*_transpose``, SAME,
-    output = input * stride) of channels-last ``x`` with a TF-layout kernel
-    (spatial + (out, in)): the adjoint of the SAME forward conv, i.e. the
-    full transposed conv cropped by that conv's low pad (for k4/s1 the
-    forward pads (1, 2), so the crop starts at 1; k4/s2 pads (1, 1))."""
-    stride = tuple(stride)
+def _deconv_s1_k4(x: torch.Tensor, w: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Adjoint of a SAME stride-1 K=4 conv as a plain conv
+    (``layers.py:402-411``): that conv pads (1, 2), so the adjoint is the
+    flipped, io-swapped kernel with the mirrored pads (2, 1)."""
+    return plain_conv(x, flip_io(w), (1,) * ndim, [(2, 1)] * ndim)
+
+
+# Sub-pixel taps per dim: output phase 0 takes kernel taps {t0: 3, t1: 1},
+# phase 1 {t1: 2, t2: 0} of the 3-tap conv (``layers.py:424-434``).
+_SUBPIXEL_TAPS = ({0: 3, 1: 1}, {1: 2, 2: 0})
+
+
+@functools.lru_cache(maxsize=None)
+def _subpixel_index(ndim: int) -> np.ndarray:
+    """The phase kernel's slots ``[3]*ndim x 2^ndim`` (tap t, phase p): the
+    index of the K=4 kernel tap it holds, or -1."""
+    nph = 2 ** ndim
+    idx = np.full((3,) * ndim + (nph,), -1, np.int64)
+    for p in range(nph):
+        bits = [(p >> (ndim - 1 - d)) & 1 for d in range(ndim)]
+        for taps_ks in itertools.product(*[_SUBPIXEL_TAPS[b].items() for b in bits]):
+            t_idx = tuple(t for t, _ in taps_ks)
+            idx[t_idx + (p,)] = np.ravel_multi_index(tuple(k for _, k in taps_ks), (4,) * ndim)
+    return idx.reshape(-1)
+
+
+def _deconv_s2_k4(x: torch.Tensor, w: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Adjoint of a SAME stride-2 K=4 conv as a sub-pixel conv
+    (``layers.py:414-453``): one stride-1 3-tap conv producing all 2^ndim
+    output phases in channels, then a depth-to-space interleave. ``w`` is
+    TF-transpose layout, spatial + (out, in)."""
+    co, ci = w.shape[ndim], w.shape[ndim + 1]
+    nph = 2 ** ndim
+    taps = gather_taps(w.reshape(4 ** ndim, co, ci), _subpixel_index(ndim))
+    wp = taps.reshape((3,) * ndim + (nph, co, ci)).movedim(-1, ndim)
+    z = plain_conv(x, wp.reshape((3,) * ndim + (ci, nph * co)), (1,) * ndim, [(1, 1)] * ndim)
+    b, sp = x.shape[0], tuple(x.shape[1:1 + ndim])
+    z = z.reshape((b,) + sp + (2,) * ndim + (co,))
+    perm = [0] + [a for d in range(ndim) for a in (1 + d, 1 + ndim + d)] + [1 + 2 * ndim]
+    return z.permute(perm).reshape((b,) + tuple(2 * s for s in sp) + (co,))
+
+
+def _plain_conv_transpose(x: torch.Tensor, w: torch.Tensor, stride, ndim: int) -> torch.Tensor:
+    """The transposed conv as PyTorch's own (cuDNN's on the card): the full
+    transposed conv cropped by the forward conv's low pad (for k4/s1 the
+    forward pads (1, 2), so the crop starts at 1; k4/s2 pads (1, 1)). The
+    oracle of the sub-pixel forms, and the route of every other kernel."""
     ks = w.shape[:ndim]
     if any(k < s for k, s in zip(ks, stride)):
         raise ValueError(f"conv transpose with kernel {tuple(ks)} < stride {stride}")
@@ -171,20 +361,57 @@ def conv_transpose_op(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
     return y.movedim(1, -1)
 
 
+def _deconv_route(ks, stride):
+    """``"s1_k4"`` / ``"s2_k4"`` for the K=4 transposed convs at stride 1 /
+    2 (``layers.py:456-466``, every device), else None (the plain one)."""
+    if all(k == 4 for k in ks):
+        if all(s == 1 for s in stride):
+            return "s1_k4"
+        if all(s == 2 for s in stride):
+            return "s2_k4"
+    return None
+
+
+def conv_transpose_op(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
+                      ndim: int) -> torch.Tensor:
+    """TF-semantics transposed conv (``tf.nn.conv*_transpose``, SAME,
+    output = input * stride) of channels-last ``x`` with a TF-layout kernel
+    (spatial + (out, in)): the adjoint of the SAME forward conv. K=4 at
+    stride 1 and 2 take the plain-conv forms JAX takes on every backend
+    (:func:`_deconv_s1_k4`, :func:`_deconv_s2_k4`); other kernels
+    :func:`_plain_conv_transpose`."""
+    stride = tuple(stride)
+    route = _deconv_route(w.shape[:ndim], stride)
+    if route == "s1_k4":
+        return _deconv_s1_k4(x, w, ndim)
+    if route == "s2_k4":
+        return _deconv_s2_k4(x, w, ndim)
+    return _plain_conv_transpose(x, w, stride, ndim)
+
+
 def conv_weight_grad(x: torch.Tensor, gy: torch.Tensor, w_shape, ndim: int) -> torch.Tensor:
     """Weight gradient (JAX layout) of :func:`conv_op`'s SAME stride-1
-    odd-kernel conv of ``x``, on the kernel the forward's route implies:
-    K2w for K2's convs, K5w for K5's, the Winograd weight gradient (K6 or
-    the direct one, as ``cuda_winograd.WGRAD`` says) for K3's, else the
-    plain conv's. The JAX counterpart is the VJP of ``_conv_op`` in
-    ``_act_conv_bwd``."""
+    odd-kernel conv of ``x``, on the route the forward's implies: K2w for
+    K2's convs, the depth-packed weight gradient for that route's, K5w for
+    K5's, the Winograd weight gradient (K6 or the direct one, as
+    ``cuda_winograd.WGRAD`` says) for K3's, the plain Winograd
+    expression's by autograd for ``"wino_xla"``, else the plain conv's.
+    The JAX counterpart is the VJP of ``_conv_op`` in ``_act_conv_bwd``."""
     kernel = _kernel_for(x, w_shape, (1,) * ndim, ndim)
     if kernel == "conv3d":
         return cuda_conv3d.nc_conv3d_wgrad(x, gy)
+    if kernel == "depth_pack":
+        return _depth_packed_wgrad(x, gy, w_shape, _depth_pack_factor(x.shape, w_shape,
+                                                                      (1,) * ndim))
     if kernel == "conv2d":
         return cuda_conv2d.conv2d_wgrad(cuda_conv2d.nhwc_to_hwnc(x), cuda_conv2d.nhwc_to_hwnc(gy))
     if kernel == "wino":
         return cuda_winograd.weight_grad(x, gy)
+    if kernel == "wino_xla":  # linear in w: its VJP at any w, here 0
+        with torch.enable_grad():
+            w0 = torch.zeros(tuple(w_shape), dtype=x.dtype, device=x.device, requires_grad=True)
+            (gw,) = torch.autograd.grad(winograd.winograd3x3(x.detach(), w0), w0, gy)
+        return gw
     return plain_conv_wgrad(x, gy, w_shape)
 
 

@@ -28,6 +28,7 @@ __all__ = [
     "generate_light_pos",
     "np_phong_composite",
     "np_generate_light_pos",
+    "np_generate_random_light_pos",
 ]
 
 _SQRT3 = math.sqrt(3.0)
@@ -128,6 +129,18 @@ def np_generate_light_pos(elevation: float = 90, azimuth: float = 90) -> np.ndar
     """Y-up light position from degrees (the demo CLI's convention)."""
     el = np.array([[elevation]]) * math.pi / 180.0
     az = np.array([[azimuth]]) * math.pi / 180.0
+    x = -np.sin(el) * np.cos(az)
+    y = np.cos(el)
+    z = -np.sin(el) * np.sin(az)
+    return np.hstack((x, y, z))
+
+
+def np_generate_random_light_pos(batch_size: int, rng: np.random.Generator,
+                                 elevation_range=(0, 90), azimuth_range=(0, 360)) -> np.ndarray:
+    """Random y-up light positions ``[batch_size, 3]``, elevation and
+    azimuth drawn as integer degrees from ``rng`` (``phong.py:171-183``)."""
+    el = rng.integers(*elevation_range, size=(batch_size, 1)) * math.pi / 180.0
+    az = rng.integers(*azimuth_range, size=(batch_size, 1)) * math.pi / 180.0
     x = -np.sin(el) * np.cos(az)
     y = np.cos(el)
     z = -np.sin(el) * np.sin(az)

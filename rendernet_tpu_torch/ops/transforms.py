@@ -12,7 +12,7 @@ import math
 import torch
 
 __all__ = ["rotation_around_grid_centroid", "grid_to_grid_matrix", "voxel_to_image_axes",
-           "silhouette"]
+           "image_to_voxel_axes", "silhouette"]
 
 
 def rotation_around_grid_centroid(view_params: torch.Tensor) -> torch.Tensor:
@@ -61,6 +61,11 @@ def grid_to_grid_matrix(
 def voxel_to_image_axes(voxels: torch.Tensor) -> torch.Tensor:
     """``[B, A1, A2, D, C]``: swap axes 1 and 2, then flip the new axis 1."""
     return torch.flip(torch.transpose(voxels, 1, 2), dims=(1,))
+
+
+def image_to_voxel_axes(voxels: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`voxel_to_image_axes` (``transforms.py:130``)."""
+    return torch.transpose(torch.flip(voxels, dims=(1,)), 1, 2)
 
 
 def silhouette(voxels: torch.Tensor, axis: int = -2) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Winograd F(2x2, 3x3) convolution in plain PyTorch: the transform matrices
-and the plain version of the K3 kernel (``ops/cuda_winograd.py``).
+and the plain version of the K3 kernel (``ops/cuda_winograd.py``), which is
+also the route of ``layers.WINOGRAD_2D = True / "xla"`` inside
+:func:`winograd3x3_supported`, differentiated by autograd.
 
-Counterpart of ``rendernet_tpu/ops/winograd.py:48-63,77``. A SAME stride-1
+Counterpart of ``rendernet_tpu/ops/winograd.py:48-77``. A SAME stride-1
 3x3 conv computes each 2x2 output tile from a 4x4 input tile ``d`` as
 
     V = B^T d B  (fp32, then cast to the compute dtype)    [16, tiles, C]
@@ -29,8 +31,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["input_transform", "transform_weights", "winograd3x3", "cotangent_spread",
-           "wino_wgrad_plain", "fold_weight_grad"]
+__all__ = ["input_transform", "transform_weights", "winograd3x3", "winograd3x3_supported",
+           "cotangent_spread", "wino_wgrad_plain", "fold_weight_grad"]
 
 # F(2x2, 3x3) transform matrices (Lavin & Gray, arXiv:1509.09308).
 _BT = np.array([
@@ -49,6 +51,16 @@ _AT = np.array([
     [1, 1, 1, 0],
     [0, 1, -1, -1],
 ], np.float32)
+
+
+def winograd3x3_supported(x_shape, w_shape, stride) -> bool:
+    """The plain expression's envelope (``winograd.py:66-75``): a SAME 3x3
+    stride-1 2D conv with cin and cout >= 256, any batch."""
+    if len(x_shape) != 4 or len(w_shape) != 4:
+        return False
+    if tuple(stride) != (1, 1) or tuple(w_shape[:2]) != (3, 3):
+        return False
+    return w_shape[2] >= 256 and w_shape[3] >= 256
 
 
 def _lincomb(terms, coefs):

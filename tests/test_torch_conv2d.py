@@ -272,7 +272,7 @@ def test_dispatch_routes_like_jax(monkeypatch, shape, c):
     res_block_stack take pallas_conv2d (batch enters through the envelope's
     bb rule); K5 is checked before K3, as in JAX."""
     monkeypatch.setattr(tl, "CUDA_CONV2D", True)
-    monkeypatch.setattr(tl, "WINOGRAD_2D", True)
+    monkeypatch.setattr(tl, "WINOGRAD_2D", "pallas")
     w = (3, 3, c, c)
     x = torch.empty(shape, device="meta")
     jconv = pc.wc_conv2d_supported(shape, w, (1, 1))

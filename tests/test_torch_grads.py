@@ -164,10 +164,23 @@ def test_preact_res_block_grads_match_jax(monkeypatch, ndim, xs):
     both sides: 2D at 256 channels and batch 8 reaches K3 (and its data
     gradient), 3D at 32 channels K2 and K2w. fp32; the gradients sum
     products of the two convs in other orders: 1e-4 of max|grad|."""
+    _preact_grads_case(monkeypatch, ndim, xs, "pallas")
+
+
+@pytest.mark.parametrize("wino", [True, "xla"])
+def test_preact_res_block_grads_match_jax_xla_winograd(monkeypatch, wino):
+    """As above with WINOGRAD_2D True / "xla" on both sides: the plain
+    Winograd expression and its autograd VJP (act_conv's weight gradient
+    through conv_weight_grad's "wino_xla" route) against JAX's VJP of
+    winograd3x3, at batch 2, outside K3's envelope; 1e-4 of max|grad|."""
+    _preact_grads_case(monkeypatch, 2, (2, 4, 6, 256), wino)
+
+
+def _preact_grads_case(monkeypatch, ndim, xs, wino):
     monkeypatch.setattr(jl, "PALLAS_CONV3D", True)
-    monkeypatch.setattr(jl, "WINOGRAD_2D", "pallas")
+    monkeypatch.setattr(jl, "WINOGRAD_2D", wino)
     monkeypatch.setattr(tl, "CUDA_CONV3D", True)
-    monkeypatch.setattr(tl, "WINOGRAD_2D", True)
+    monkeypatch.setattr(tl, "WINOGRAD_2D", wino)
     rng = np.random.default_rng(14)
     x = (rng.standard_normal(xs) * 0.5).astype(np.float32)
     cot = rng.standard_normal(xs).astype(np.float32)
@@ -206,7 +219,7 @@ def test_remat_and_preact_keep_the_gradients(monkeypatch, ndim, xs):
     the same ops, so it matches exactly; preact regroups the PReLU's
     gradient: 1e-5 of max|grad|."""
     monkeypatch.setattr(tl, "CUDA_CONV3D", True)
-    monkeypatch.setattr(tl, "WINOGRAD_2D", True)
+    monkeypatch.setattr(tl, "WINOGRAD_2D", "pallas")
     rng = np.random.default_rng(15)
     x = (rng.standard_normal(xs) * 0.5).astype(np.float32)
     gen = torch.Generator().manual_seed(3)

@@ -1,8 +1,10 @@
 """Import guard: the PyTorch port stands alone beside the JAX package.
 
 Importing every module of ``rendernet_tpu_torch`` in a fresh interpreter
-must leave ``jax`` and ``rendernet_tpu`` out of ``sys.modules``, and no file
-of the port (nor ``chip_smoke.py``) may name them in an import.
+must leave ``jax``, ``rendernet_tpu`` and ``tensorflow`` (which
+``compat/pb_import.py`` imports only inside the function that parses a
+GraphDef) out of ``sys.modules``, and no file of the port (nor
+``chip_smoke.py``) may name the first two in an import.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "rendernet_tpu"
-             or m.startswith("rendernet_tpu."))
+             or m.startswith("rendernet_tpu.") or m == "tensorflow"
+             or m.startswith("tensorflow."))
 print(json.dumps({"modules": names, "bad": bad}))
 """
 
@@ -43,6 +46,7 @@ def test_importing_every_module_pulls_in_no_jax():
                 "models.shader", "nn.init", "nn.layers", "ops._native", "ops.conv_grad", "ops.crops",
                 "ops.cuda_conv2d", "ops.cuda_conv3d", "ops.cuda_resample", "ops.cuda_winograd", "ops.phong",
                 "ops.resample", "ops.transforms", "ops.winograd", "train.config",
+                "ops.phase_conv", "compat.frozen", "compat.pb_import", "cli.convert",
                 "train.optim", "train.steps", "utils.image"):
         assert f"rendernet_tpu_torch.{mod}" in res["modules"]
 

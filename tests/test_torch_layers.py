@@ -116,10 +116,22 @@ def test_res_block_matches_jax(monkeypatch, ndim, xs):
     versions): 2D at 256 channels and batch 8 reaches Winograd, 3D at
     32 channels reaches the narrow conv3d. fp32; the Winograd transforms
     add roundoff on top of 9*256-term sums: 1e-4."""
+    _res_block_case(monkeypatch, ndim, xs, "pallas")
+
+
+@pytest.mark.parametrize("wino", [True, "xla"])
+def test_res_block_matches_jax_xla_winograd(monkeypatch, wino):
+    """As above with WINOGRAD_2D True / "xla" on both sides: the plain
+    Winograd expression, at batch 2, which K3's envelope leaves out and
+    winograd3x3_supported takes; 1e-4."""
+    _res_block_case(monkeypatch, 2, (2, 6, 6, 256), wino)
+
+
+def _res_block_case(monkeypatch, ndim, xs, wino):
     monkeypatch.setattr(jl, "PALLAS_CONV3D", True)
-    monkeypatch.setattr(jl, "WINOGRAD_2D", "pallas")
+    monkeypatch.setattr(jl, "WINOGRAD_2D", wino)
     monkeypatch.setattr(tl, "CUDA_CONV3D", True)
-    monkeypatch.setattr(tl, "WINOGRAD_2D", True)
+    monkeypatch.setattr(tl, "WINOGRAD_2D", wino)
     rng = np.random.default_rng(4)
     x = (rng.standard_normal(xs) * 0.5).astype(np.float32)
     ch = xs[-1]
@@ -152,7 +164,7 @@ def test_dispatch_routes_to_kernel_wrappers(monkeypatch):
     tl.conv_op(x2, w2, (1, 1), 2)
     assert calls == []
     monkeypatch.setattr(tl, "CUDA_CONV3D", True)
-    monkeypatch.setattr(tl, "WINOGRAD_2D", True)
+    monkeypatch.setattr(tl, "WINOGRAD_2D", "pallas")
     tl.conv_op(x3, w3, (1, 1, 1), 3)
     tl.conv_op(x2, w2, (1, 1), 2)
     tl.conv_op(x2[:1], w2, (1, 1), 2)            # batch 1: outside K3's envelope

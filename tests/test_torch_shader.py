@@ -80,7 +80,7 @@ def test_whole_slice_matches_jax_multipass(tmp_path, monkeypatch):
                           jnp.asarray(vox), jnp.asarray(pose)))
 
     monkeypatch.setattr(tl, "CUDA_CONV3D", True)
-    monkeypatch.setattr(tl, "WINOGRAD_2D", True)
+    monkeypatch.setattr(tl, "WINOGRAD_2D", "pallas")
     calls = {"k1": 0, "k2": 0, "k3": 0}
 
     def counted(key, fn):

@@ -119,7 +119,7 @@ def test_forward_matches_jax_multipass(monkeypatch):
         {k: jnp.asarray(v) for k, v in jparams.items()}, vox, code, pose)
 
     monkeypatch.setattr(tl, "CUDA_CONV3D", True)
-    monkeypatch.setattr(tl, "WINOGRAD_2D", True)
+    monkeypatch.setattr(tl, "WINOGRAD_2D", "pallas")
     calls = {"k1": 0, "k2": 0, "k3": 0}
 
     def counted(mod, name, key):

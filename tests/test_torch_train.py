@@ -104,7 +104,7 @@ def test_shader_gradients_match_jax(monkeypatch, resample):
     convs and their adjoints, summed in other orders, Winograd's transforms
     on the port's side), so 5e-3 is about 4x that."""
     monkeypatch.setattr(tl, "CUDA_CONV3D", True)
-    monkeypatch.setattr(tl, "WINOGRAD_2D", True)
+    monkeypatch.setattr(tl, "WINOGRAD_2D", "pallas")
     jparams = _jax_params(ARCH)
     vox, images, poses = _batch(8)
     jcfg = jshader.ShaderConfig(**ARCH)
