@@ -118,8 +118,30 @@ Phases, all of them on every run:
      (FROZEN_TOL), both timed; then the render CLI with ``--frozen`` and
      with the reference weight directory that ``convert npz-to-refdir``
      writes, each image against the flat-npz render's (``frozen`` line).
+ 10. data parallelism (``train/distributed.py``; the all-reduce is a
+     library collective, no kernel of its own): (a) NCCL at world size 1
+     (``tcp://127.0.0.1:<free port>``): bench.py's patch-128 configuration
+     built with a mesh, 2 steps with the fp32 and with the bf16 all-reduce
+     from the seeded state, against the step without a mesh (fp32: loss and
+     params bit for bit; bf16: the loss equal, params within 2 e_eta after
+     step 1; a data axis of 1 all-reduces nothing, as JAX's), the
+     all-reduce alone on that step's gradients (NCCL, both dtypes: its ms,
+     the gradient bytes, the result its input or its bf16 rounding), one
+     texture step (``TextureFaceConfig()``, batch 24) with and without a
+     mesh, bit for bit, and ``graft_entry.entry()``'s forward; (b) two
+     ranks on the one card over gloo (spawned), 12 rows each, 2 steps per
+     all-reduce dtype: the ranks' params bit-equal after each step, the
+     all-reduced gradients of step 1 within GRAD_TOL (bf16) of (a)'s
+     world-1 batch-24 step's, the params after it within 2 e_eta of it,
+     each rank's launches as ``step_launches(12, 128)``; (c) ``train-shader``
+     as two processes (``--coordinator 127.0.0.1:<port> --num-processes 2
+     --process-id i``) on phase 8's tar at global batch 16 for its one
+     epoch (2 steps): both exit 0, rank 0 alone writes (rank 1's run dir,
+     named in its config, is never made), the ranks read disjoint tar
+     entries covering the tar, and a third run (this process) resumes at
+     step 2.
 The kernels' launch counters are zeroed just before each run of phases 3
-to 8 (and of each A/B arm) and read just after; every run's counts are checked, shape by
+to 8 and 10 (and of each A/B arm) and read just after; every run's counts are checked, shape by
 shape, against the counts its graph implies. K1's and K4's phase 2 rows
 name the path each launch took (``bulk`` or ``scalar``, from the
 wrappers' path counters); K3's carry the bytes of its bf16 V scratch; the
@@ -2180,6 +2202,7 @@ def run_cli(torch, failures, per_step, tmp):
     rc = cli_main(["pack-tar", "--images_path", png_dir, "--save_path", tar])
     n_png = len([f for f in os.listdir(png_dir) if f.endswith(".png")])
     out["pack_tar"] = {"rc": rc, "pngs": n_png}
+    out["dataset"] = {"tar": tar, "model_dir": model_dir}  # phase 10's
     if rc != 0 or n_png != 24:
         failures.append(f"pack-tar: rc {rc}, {n_png} PNGs")
 
@@ -2739,6 +2762,462 @@ def run_rewrites(torch, failures, tmp):
     return {"rows": len(rows), "depth_pack_reached": reached, "frozen": frozen}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data parallelism (train/distributed.py)
+# ---------------------------------------------------------------------------
+DIST_STEPS = 2
+# The two-process CLI: global batch 16 (8 per rank) on phase 8's 24 images,
+# so each rank's 12 entries make one batch and a padded tail: one epoch is 2
+# steps, and the run ends there (checkpoint and params_final.npz).
+DIST_CLI_BATCH = 16
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def recording(tx, sink: list):
+    """``tx`` whose update appends (a clone of) the gradients it is given to
+    ``sink``: on a data-parallel step, the all-reduced ones."""
+    from rendernet_tpu_torch.train.optim import GradientTransformation
+
+    def update(grads, state, params):
+        sink.append({k: g.detach().clone() for k, g in grads.items()})
+        return tx.update(grads, state, params)
+
+    return GradientTransformation(tx.init, update)
+
+
+def bench_config(dtype="float32"):
+    """bench.py's training configuration (batch 24, bf16, bf16 moments,
+    patch 128 from the step) with the all-reduce dtype ``dtype``."""
+    from rendernet_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(batch_size=24, img_res=512, new_size=128, compute_dtype="bfloat16",
+                       is_greyscale=True, e_eta=1e-5, moment_dtype="bfloat16",
+                       allreduce_dtype=dtype)
+
+
+def fresh_states(torch, create, mcfg, cfg):
+    """(net, tx, fresh()): ``fresh()`` resets the seeded network to its
+    initial values and returns a new TrainState (fresh optimizer state)."""
+    from rendernet_tpu_torch.train.steps import TrainState
+
+    state, tx = create(0, mcfg, cfg, device="cuda")
+    net = state.params
+    init = {k: v.clone() for k, v in net.state_dict().items()}
+
+    def fresh():
+        net.load_state_dict(init)
+        return TrainState(net, tx.init(dict(net.named_parameters())), 0)
+
+    return net, tx, fresh
+
+
+def stepped(torch, step, state, batch, n):
+    """``n`` steps; (state, losses, step ms from CUDA events between the
+    steps, params after each step as clones)."""
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    marks[0].record()
+    losses, params = [], []
+    for i in range(n):
+        state, loss = step(state, *batch, 1)
+        marks[i + 1].record()
+        losses.append(loss)
+        params.append({k: p.detach().clone() for k, p in state.params.named_parameters()})
+    torch.cuda.synchronize()
+    return (state, [float(x) for x in losses], [a.elapsed_time(b) for a, b in zip(marks, marks[1:])],
+            params)
+
+
+def allreduce_ms(torch, grads, mesh, dtype, reps=5):
+    """The all-reduce's own time (``all_reduce_mean`` on the step's
+    gradients), CUDA events, after a warm-up; and its result."""
+    from rendernet_tpu_torch.train import distributed
+
+    tensors = list(grads.values())
+    out = distributed.all_reduce_mean(tensors, mesh, dtype)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        distributed.all_reduce_mean(tensors, mesh, dtype)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def adam_step_apart(a: dict, b: dict, lr: float):
+    """(max |a - b| over every parameter, whether every value lies within
+    the bound of two Adam first steps from one start): each step moves a
+    value by lr * m / (sqrt(v) + eps) = +-lr in exact arithmetic (the
+    moments are fresh fp32 values, whatever their storage), so two runs
+    whose gradients differ in sign lie 2 lr apart; allowed on top, the fp32
+    rounding of the update (a few ulps of lr) and of each stored value
+    (2^-24 of it, per side)."""
+    dev, within = 0.0, True
+    for k in b:
+        x, y = a[k].float(), b[k].float()
+        d = (x - y).abs()
+        dev = max(dev, float(d.max()))
+        within &= bool((d <= 2 * lr * (1 + 2 ** -20) + 2 ** -23 * (x.abs() + y.abs())).all())
+    return dev, within
+
+
+def dist_world1(torch, np, failures, tmp):
+    """(a) NCCL at world size 1: the bench configuration's step built with a
+    mesh, fp32 and bf16 all-reduce, against the step without one; the
+    all-reduce on the step's gradients, timed; the texture step likewise.
+    Saves the plain step's first gradients and params (the world-1 batch-24
+    reference of (b)) to ``tmp``/ref.pt."""
+    import dataclasses
+
+    import torch.distributed as tdist
+
+    from rendernet_tpu_torch.graft_entry import entry
+    from rendernet_tpu_torch.models.shader import ShaderConfig
+    from rendernet_tpu_torch.models.texture_face import TextureFaceConfig
+    from rendernet_tpu_torch.train import distributed
+    from rendernet_tpu_torch.train.steps import (
+        create_shader_state,
+        create_texture_state,
+        make_shader_train_step,
+        make_texture_train_step,
+    )
+
+    out = {}
+    joined = distributed.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0)
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    # bit-equality of two runs needs cuDNN's deterministic algorithms
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        out["backend"] = tdist.get_backend()
+        if not joined or out["backend"] != "nccl":
+            failures.append(f"phase 10 (a): joined {joined}, backend {out['backend']}")
+        mesh = distributed.make_mesh()
+        mcfg = ShaderConfig(preact_policy=True)
+        batch = bench_batch(torch, np, 24)
+        net, tx, fresh = fresh_states(torch, create_shader_state, mcfg, bench_config())
+        out["params"] = sum(p.numel() for p in net.parameters())
+        out["gradient_bytes"] = {d: distributed.gradient_bytes(net, getattr(torch, d))
+                                 for d in ("float32", "bfloat16")}
+        warm = make_shader_train_step(mcfg, bench_config(), tx, 128)
+        warm(fresh(), *batch, 1)  # warm-up (cuDNN's deterministic algorithms, caches)
+        runs = {}
+        for name, dtype, m in (("plain", "float32", None), ("mesh_fp32", "float32", mesh),
+                               ("mesh_bf16", "bfloat16", mesh)):
+            grads = []
+            step = make_shader_train_step(mcfg, bench_config(dtype), recording(tx, grads), 128,
+                                          mesh=m)
+            reset_counts()
+            _, losses, ms, params = stepped(torch, step, fresh(), batch, DIST_STEPS)
+            _, by_shape = read_counts()
+            check_step_counts(failures, f"phase 10 (a) {name} steps", by_shape, DIST_STEPS,
+                              step_launches(24, 128))
+            runs[name] = {"losses": losses, "step_ms": ms, "params": params, "grads": grads}
+        ref = runs["plain"]
+        torch.save({"grads": {k: g.cpu() for k, g in ref["grads"][0].items()},
+                    "params": {k: p.cpu() for k, p in ref["params"][0].items()},
+                    "loss": ref["losses"][0]}, os.path.join(tmp, "ref.pt"))
+        res = {}
+        for name in ("mesh_fp32", "mesh_bf16"):
+            r = runs[name]
+            equal = [all(torch.equal(a[k], b[k]) for k in b)
+                     for a, b in zip(r["params"], ref["params"])]
+            res[name] = {"losses": r["losses"], "step_ms": r["step_ms"],
+                         "loss_equal": r["losses"] == ref["losses"], "params_equal": equal,
+                         "step1_apart": adam_step_apart(r["params"][0], ref["params"][0],
+                                                        bench_config().e_eta)}
+        out["shader"] = {"plain": {"losses": ref["losses"], "step_ms": ref["step_ms"]}, **res}
+        if not (res["mesh_fp32"]["loss_equal"] and all(res["mesh_fp32"]["params_equal"])):
+            failures.append(f"phase 10 (a): the fp32 all-reduce step differs from the plain "
+                            f"one: {res['mesh_fp32']}")
+        if not (res["mesh_bf16"]["losses"][0] == ref["losses"][0]
+                and res["mesh_bf16"]["step1_apart"][1]):
+            failures.append(f"phase 10 (a): the bf16 all-reduce step: {res['mesh_bf16']}")
+        # the all-reduce itself on the first step's gradients (world 1: a sum
+        # over one rank, so the fp32 result is its input and the bf16 one its
+        # rounding)
+        g = ref["grads"][0]
+        out["allreduce"] = {}
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            ms, red = allreduce_ms(torch, g, mesh, dtype)
+            exact = all(torch.equal(r, t.to(dtype).float()) for r, t in zip(red, g.values()))
+            out["allreduce"][dname] = {"ms": ms, "bytes": out["gradient_bytes"][dname],
+                                       "exact": exact}
+            if not exact:
+                failures.append(f"phase 10 (a): NCCL's world-1 all-reduce ({dname}) changed "
+                                "the gradients")
+        del runs, ref, g, red, net, fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # one texture step with and without a mesh
+        tcfg = dataclasses.replace(bench_config(), is_greyscale=False, resample="multipass")
+        tm = TextureFaceConfig()
+        tbatch = texture_batch(torch, np, 24, seed=2)
+        tnet, ttx, tfresh = fresh_states(torch, create_texture_state, tm, tcfg)
+        out["texture_gradient_bytes"] = distributed.gradient_bytes(tnet)
+        make_texture_train_step(tm, tcfg, ttx, 128)(tfresh(), *tbatch, 1)  # warm-up
+        tex = {}
+        for name, m in (("plain", None), ("mesh_fp32", mesh)):
+            step = make_texture_train_step(tm, tcfg, ttx, 128, mesh=m)
+            reset_counts()
+            _, losses, ms, params = stepped(torch, step, tfresh(), tbatch, 1)
+            _, by_shape = read_counts()
+            check_step_counts(failures, f"phase 10 (a) texture {name} step", by_shape, 1,
+                              texture_step_launches(24, 128))
+            tex[name] = (losses, ms, params[0])
+        equal = (tex["plain"][0] == tex["mesh_fp32"][0]
+                 and all(torch.equal(tex["plain"][2][k], tex["mesh_fp32"][2][k])
+                         for k in tex["plain"][2]))
+        out["texture"] = {"losses": tex["plain"][0], "step_ms": tex["plain"][1],
+                          "mesh_step_ms": tex["mesh_fp32"][1], "equal": equal}
+        if not equal:
+            failures.append("phase 10 (a): the texture step with a mesh differs from the plain one")
+        del tex, tnet, tfresh
+        # graft_entry's forward on the card
+        fn, args = entry()
+        img = fn(*args)
+        out["entry"] = {"shape": list(img.shape), "finite": bool(torch.isfinite(img).all())}
+        if img.shape != (1, 512, 512, 1) or not out["entry"]["finite"]:
+            failures.append(f"phase 10 (a): graft_entry.entry(): {out['entry']}")
+        del fn, args, img
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+        if joined:
+            tdist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    log("dist_world1 " + json.dumps(out))
+    return out
+
+
+def dist_rank(rank: int, tmp: str) -> None:
+    """(b) One rank of two on the one card (gloo): the bench configuration
+    at local batch 12, DIST_STEPS steps with each all-reduce dtype; writes
+    ``tmp``/rank{rank}.json."""
+    import numpy as np
+    import torch
+
+    from rendernet_tpu_torch.models.shader import ShaderConfig
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.train import distributed
+    from rendernet_tpu_torch.train.steps import create_shader_state, make_shader_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layers.WINOGRAD_2D = "pallas"
+    failures, out = [], {"rank": rank}
+    distributed.initialize_multihost(f"file://{tmp}/init", 2, rank)
+    try:
+        out["backend"] = torch.distributed.get_backend()
+        out["device"] = str(distributed.rank_device())
+        mesh = distributed.make_mesh()
+        ref = torch.load(os.path.join(tmp, "ref.pt"), map_location="cpu", weights_only=True)
+        mcfg = ShaderConfig(preact_policy=True)
+        local, _, n = distributed.process_shard(24)
+        batch = distributed.shard_batch(mesh, tuple(
+            a[rank * local:(rank + 1) * local] for a in bench_batch(torch, np, 24)))
+        net, tx, fresh = fresh_states(torch, create_shader_state, mcfg, bench_config())
+        for dname in ("float32", "bfloat16"):
+            grads = []
+            state = distributed.replicate(mesh, fresh())
+            step = make_shader_train_step(mcfg, bench_config(dname), recording(tx, grads), 128,
+                                          mesh=mesh)
+            reset_counts()
+            res = {"losses": [], "step_wall_ms": [], "ranks_equal": []}
+            marks = [[torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                     for _ in range(DIST_STEPS)]
+            for i in range(DIST_STEPS):
+                t0 = time.perf_counter()
+                marks[i][0].record()
+                state, loss = step(state, *batch, 1)
+                marks[i][1].record()
+                res["losses"].append(float(loss))
+                res["step_wall_ms"].append((time.perf_counter() - t0) * 1e3)
+                sums = [zlib.crc32(p.detach().reshape(-1).view(torch.uint8).cpu().numpy())
+                        for p in net.parameters()]
+                every = [None] * n
+                torch.distributed.all_gather_object(every, sums)
+                res["ranks_equal"].append(all(s == every[0] for s in every))
+                if i == 0:
+                    g = grads[0]
+                    errs = {k: float((g[k].float().cpu() - ref["grads"][k]).abs().max())
+                            / float(ref["grads"][k].abs().max()) for k in ref["grads"]}
+                    worst = max(errs, key=errs.get)
+                    res["grad_worst"] = [worst, errs[worst]]
+                    res["step1_apart"] = adam_step_apart(
+                        {k: p.detach().cpu() for k, p in net.named_parameters()},
+                        ref["params"], bench_config().e_eta)
+                    res["loss1_vs_world1"] = [res["losses"][0], ref["loss"]]
+            torch.cuda.synchronize()
+            res["step_ms"] = [a.elapsed_time(b) for a, b in marks]
+            _, by_shape = read_counts()
+            check_step_counts(failures, f"rank {rank} {dname} steps", by_shape, DIST_STEPS,
+                              step_launches(local, 128))
+            res["allreduce_ms"], _ = allreduce_ms(torch, grads[-1], mesh, getattr(torch, dname),
+                                                  reps=2)
+            out[dname] = res
+            if not all(res["ranks_equal"]):
+                failures.append(f"rank {rank} {dname}: the ranks' params differ: {res}")
+            if res["grad_worst"][1] > GRAD_TOL["bfloat16"]:
+                failures.append(f"rank {rank} {dname}: all-reduced gradients vs world 1's: "
+                                f"{res['grad_worst']} > {GRAD_TOL['bfloat16']}")
+            if not res["step1_apart"][1]:
+                failures.append(f"rank {rank} {dname}: params after step 1 "
+                                f"{res['step1_apart'][0]} from world 1's, beyond 2 e_eta")
+            del grads, state
+    except Exception as e:  # the rank's failure, reported through its file
+        failures.append(f"rank {rank}: {e!r}")
+        raise
+    finally:
+        out["failures"] = failures
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        torch.distributed.destroy_process_group()
+
+
+CLI_RANK = r"""
+import json, sys
+from rendernet_tpu_torch.cli.__main__ import main
+from rendernet_tpu_torch.data import loaders
+from rendernet_tpu_torch.nn import layers
+
+entries, read = loaders._entries, []
+
+
+def recording(img_path, shard):
+    for img, name in entries(img_path, shard):
+        read.append(name)
+        yield img, name
+
+
+loaders._entries = recording
+layers.WINOGRAD_2D = "pallas"
+rc = main(sys.argv[2:])
+with open(sys.argv[1], "w") as f:
+    json.dump({"rc": rc, "read": read}, f)
+sys.exit(rc)
+"""
+
+
+def dist_cli(torch, failures, cli_data, tmp):
+    """(c) ``train-shader`` as two processes on the card (``--coordinator
+    127.0.0.1:<port> --num-processes 2 --process-id i``), each with its own
+    run dir in its config; then the run resumed in this process."""
+    from rendernet_tpu_torch.cli.__main__ import main as cli_main
+
+    port = free_port()
+    procs, outs = [], []
+    for rank in (0, 1):
+        cfg_path = os.path.join(tmp, f"dist{rank}.json")
+        with open(cfg_path, "w") as f:
+            json.dump({"image_path": cli_data["tar"], "model_path": cli_data["model_dir"],
+                       "batch_size": DIST_CLI_BATCH, "img_res": 512, "new_size": 128,
+                       "compute_dtype": "bfloat16", "resample": "multipass",
+                       "moment_dtype": "bfloat16", "max_epochs": 1,
+                       "sample_save": os.path.join(tmp, f"dist_run{rank}"),
+                       "sample_every_steps": 1, "checkpoint_secs": 100000, "e_eta": 1e-5}, f)
+        outs.append(os.path.join(tmp, f"dist_cli{rank}.json"))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", CLI_RANK, outs[-1], "train-shader", cfg_path,
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+             "--process-id", str(rank)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    t0 = time.perf_counter()
+    try:
+        logs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    res = {"rcs": [p.returncode for p in procs], "s": time.perf_counter() - t0}
+    run0, run1 = (os.path.join(tmp, f"dist_run{r}") for r in (0, 1))
+    read = []
+    for path in outs:
+        if os.path.exists(path):
+            with open(path) as f:
+                read.append(json.load(f)["read"])
+        else:
+            read.append(None)
+    res["files"] = sorted(os.listdir(run0)) if os.path.exists(run0) else None
+    res["rank1_dir"] = os.path.exists(run1)
+    res["read"] = [len(r) if r is not None else None for r in read]
+    res["disjoint"] = bool(read[0] and read[1] and not set(read[0]) & set(read[1])
+                           and len(set(read[0]) | set(read[1])) == 24)
+    if res["rcs"] != [0, 0] or res["rank1_dir"] or not res["disjoint"] or res["files"] is None \
+            or not {"3d2d_renderer", "params_final.npz", "metrics.jsonl"} <= set(res["files"]):
+        failures.append(f"phase 10 (c): the two-process CLI: {res}; stderr tails: "
+                        f"{[lg[1][-3000:] for lg in logs]}")
+    # the third run: resumed at step 2 in this process, stops at step 3
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(["train-shader", os.path.join(tmp, "dist0.json"), "--max-steps", "3"])
+    torch.cuda.synchronize()
+    res["resume"] = {"rc": rc, "s": time.perf_counter() - t0}
+    with open(os.path.join(run0, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    res["metrics"] = metrics
+    if rc != 0 or {"resumed_at_step": 2} not in metrics or not any(
+            m.get("step") == 3 for m in metrics):
+        failures.append(f"phase 10 (c): the resumed run: rc {rc}, metrics {metrics}")
+    log("dist_cli " + json.dumps(res))
+    return res
+
+
+def run_distributed(torch, failures, cli_data, tmp):
+    """Phase 10: (a) NCCL at world size 1, (b) two gloo ranks on the card,
+    (c) the two-process CLI."""
+    import numpy as np
+
+    from rendernet_tpu_torch.nn import layers
+
+    out = {}
+    layers.WINOGRAD_2D = "pallas"  # bench.py's configuration: the 2D stacks on K3
+    try:
+        for name, run in (("world1", lambda: dist_world1(torch, np, failures, tmp)),
+                          ("two_ranks", lambda: dist_two_ranks(torch, failures, tmp)),
+                          ("cli", lambda: dist_cli(torch, failures, cli_data, tmp))):
+            t0 = time.perf_counter()
+            try:
+                out[name] = run()
+            except Exception as e:  # recorded as a failure; the next part still runs
+                failures.append(f"phase 10 {name}: {e!r}")
+            log(f"phase 10 {name} took {time.perf_counter() - t0:.1f} s")
+    finally:
+        layers.WINOGRAD_2D = False
+    return out
+
+
+def dist_two_ranks(torch, failures, tmp):
+    """(b) Launch the two ranks (``dist_rank``) and read their results."""
+    from rendernet_tpu_torch.train import distributed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        distributed.launch(dist_rank, 2, (tmp,), timeout=400)
+    finally:
+        ranks = []
+        for r in (0, 1):
+            path = os.path.join(tmp, f"rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    ranks.append(json.load(f))
+        for r in ranks:
+            failures.extend(r["failures"])
+        log("dist_two_ranks " + json.dumps({"s": time.perf_counter() - t0, "ranks": ranks}))
+    if len(ranks) != 2:
+        failures.append(f"phase 10 (b): {len(ranks)} rank results")
+    return {"ranks": ranks}
+
+
 # Device kernels of each kernel id in a profile, by substrings of their
 # (demangled) names.
 PROFILED = {"K1": ("k1_pass",), "K4": ("k4_adjoint",),
@@ -2984,15 +3463,20 @@ def main() -> int:
     t0 = time.perf_counter()
     main_out["texture"] = run_texture(torch, failures, per_step)
     log(f"phase 7 (the texture path) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        main_out["cli"] = run_cli(torch, failures, per_step, tmp)
-    log(f"phase 8 (the training CLIs) took {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        main_out["rewrites"] = run_rewrites(torch, failures, tmp)
-    log(f"phase 9 (the exact rewrites, the frozen artifact) took "
-        f"{time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as cli_tmp:  # phase 8's dataset, read again in 10
+        t0 = time.perf_counter()
+        main_out["cli"] = run_cli(torch, failures, per_step, cli_tmp)
+        log(f"phase 8 (the training CLIs) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            main_out["rewrites"] = run_rewrites(torch, failures, tmp)
+        log(f"phase 9 (the exact rewrites, the frozen artifact) took "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            main_out["distributed"] = run_distributed(torch, failures,
+                                                      main_out["cli"]["dataset"], tmp)
+        log(f"phase 10 (data parallelism) took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for (kid, label, dname), r in rows.items():

@@ -17,10 +17,17 @@ __version__ = "0.1.0"
 
 def resolve_device(device=None):
     """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU. Raises when CUDA is requested (or defaulted to) and absent."""
+    the CPU; inside a process group, by default, the rank's own card
+    (``train.distributed.rank_device``). Raises when CUDA is requested (or
+    defaulted to) and absent."""
     import torch
 
     dev = torch.device("cuda" if device is None else device)
+    if (device is None and torch.cuda.is_available() and torch.distributed.is_available()
+            and torch.distributed.is_initialized()):
+        from rendernet_tpu_torch.train.distributed import rank_device
+
+        dev = rank_device()
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "rendernet_tpu_torch runs on a CUDA card by default and none is "

@@ -1,7 +1,8 @@
 """Shader-workload trainer CLI: ``python -m rendernet_tpu_torch.cli
 train-shader config.json [--max-steps N] [--device cpu]``
 (RenderNet_Shader.py invocation parity). Trains on the CUDA card unless
-``--device cpu``."""
+``--device cpu``; on several processes (one per card) with ``--coordinator
+host:port --num-processes N --process-id i`` on each, or under torchrun."""
 from __future__ import annotations
 
 from rendernet_tpu_torch.cli._train_common import build_parser as _build_parser

@@ -12,6 +12,10 @@ mechanisms:
   2. Flat ``.npz`` parameter archives under JAX's TF-scope keys and layouts
      (``compat/jax_params.py``): a params npz written by either package
      loads into the other.
+
+In a process group both writers run on rank 0 alone, as JAX's chief-only
+writes (the state is replicated, so rank 0's is every rank's); every rank
+restores onto its own device.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 from torch import nn
 
 from rendernet_tpu_torch.compat import jax_params
+from rendernet_tpu_torch.train.distributed import is_chief
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "save_params_npz", "load_params_npz"]
 
@@ -65,7 +70,9 @@ def _unflatten(like, leaves: List[torch.Tensor]):
 
 def save_checkpoint(path: str, state) -> None:
     """Write ``state`` (a ``train.steps.TrainState``) to the file ``path``,
-    atomically."""
+    atomically; on rank 0 only."""
+    if not is_chief():
+        return
     structure, leaves = _flatten(state.opt_state)
     payload = {"params": {k: v.detach().cpu() for k, v in state.params.state_dict().items()},
                "opt_structure": repr(structure),
@@ -83,8 +90,10 @@ def restore_checkpoint(path: str, target=None):
     return a ``TrainState`` with the saved optimizer state and step, else
     return the raw payload. Raises ``ValueError`` when the optimizer state's
     structure differs from the target's (``skip_nonfinite_updates``
-    toggled between runs wraps it)."""
-    payload = torch.load(os.path.abspath(path), map_location="cpu", weights_only=True)
+    toggled between runs wraps it). The tensors are read onto the target's
+    device (the CPU without a target)."""
+    device = next(target.params.parameters()).device if target is not None else "cpu"
+    payload = torch.load(os.path.abspath(path), map_location=device, weights_only=True)
     if target is None:
         return payload
     structure, _ = _flatten(target.opt_state)
@@ -98,7 +107,9 @@ def restore_checkpoint(path: str, target=None):
 
 def save_params_npz(path: str, params: Union[nn.Module, Dict[str, Any]]) -> None:
     """Save a network (or a flat JAX param dict) as one ``.npz`` of JAX's
-    flat TF-scope keys and layouts, atomically."""
+    flat TF-scope keys and layouts, atomically; on rank 0 only."""
+    if not is_chief():
+        return
     flat = jax_params.jax_params_from_module(params) if isinstance(params, nn.Module) else params
     tmp = f"{os.path.abspath(path)}.{os.getpid()}.tmp"
     with open(tmp, "wb") as f:  # np.savez would append .npz to a name

@@ -76,7 +76,7 @@ class TrainConfig:
     profile_dir: str = ""
     profile_start_step: int = 10
     profile_steps: int = 5
-    data_parallel: Optional[int] = None  # None = all local devices
+    data_parallel: Optional[int] = None  # None, or the number of processes (one per card)
     nan_guard: bool = True  # halt with a clear error on non-finite loss
     # Failure recovery: when > 0, updates with non-finite gradients are
     # ALWAYS rejected on the device (train.optim.reject_nonfinite) — params
@@ -100,9 +100,9 @@ class TrainConfig:
     # the update arithmetic is fp32 either way
     # (train.optim.scale_by_adam_moments). Default float32, as in JAX.
     moment_dtype: str = "float32"
-    # Cross-device gradient all-reduce dtype ("float32" | "bfloat16").
-    # Belongs to the distributed slice: the port's single-device train
-    # step raises NotImplementedError when asked for it with a mesh.
+    # Cross-device gradient all-reduce dtype ("float32" | "bfloat16"): a
+    # step on a mesh whose data axis is above 1 (train.distributed) moves
+    # its gradients in it; fp32 otherwise, as in JAX.
     allreduce_dtype: str = "float32"
     # Cache device-resident batches across epochs (small, deterministic
     # datasets only — eliminates repeat host->device transfers entirely).

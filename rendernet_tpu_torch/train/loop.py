@@ -12,9 +12,16 @@ window, checkpoint autosave and crash-resume.
 One step per patch size is built and steps are dispatched eagerly; the loop
 reads the loss on the host only where JAX's loop syncs (the pipelined
 guard one step late, the logging points, checkpoints), so steps queue on
-the card. The loop runs on one card: ``data_parallel`` above 1, or more
-than one process, raises ``NotImplementedError`` (distributed training is
-not ported yet).
+the card.
+
+In a process group of more than one rank (``train.distributed``) each rank
+trains on its card: the state is replicated from rank 0, each rank's loader
+reads its stride of the tar (``shard=(rank, world)``) in batches of
+``batch_size / world``, the step all-reduces the gradients, and validation
+sums per rank before one all-reduce. Rank 0 alone writes the run dir
+(config, metrics, TB, sample dumps, profiles, checkpoints, params). Every
+rank must draw the same number of batches an epoch: the collectives of a
+rank left without one time out.
 """
 from __future__ import annotations
 
@@ -37,6 +44,13 @@ from rendernet_tpu_torch.train.checkpoint import (
     save_params_npz,
 )
 from rendernet_tpu_torch.train.config import TrainConfig
+from rendernet_tpu_torch.train.distributed import (
+    is_chief,
+    make_hybrid_mesh,
+    process_shard,
+    replicate,
+    world,
+)
 from rendernet_tpu_torch.train.steps import (
     create_shader_state,
     create_texture_state,
@@ -108,7 +122,7 @@ class _ProfileWindow:
 
     def __call__(self, global_step: int) -> None:
         cfg = self.cfg
-        if not cfg.profile_dir:
+        if not cfg.profile_dir or not is_chief():
             return
         if global_step == cfg.profile_start_step and self.prof is None:
             from torch.profiler import ProfilerActivity, profile
@@ -159,30 +173,43 @@ def _maybe_resume(ckpt_path: str, state, run):
     return state
 
 
-def _single_card(cfg: TrainConfig) -> None:
-    """The loop runs on one card (distributed training is queue 1 item 6)."""
-    multi = (torch.distributed.is_available() and torch.distributed.is_initialized()
-             and torch.distributed.get_world_size() > 1)
-    if multi or (cfg.data_parallel or 1) > 1:
-        raise NotImplementedError(
-            "data-parallel and multi-process training are not ported yet (ROADMAP.md queue 1 "
-            "item 6, train/distributed.py); run with data_parallel unset or 1 on one card")
+def _auto_mesh(cfg: TrainConfig, use_mesh: bool, device):
+    """JAX's ``_auto_mesh``: with more than one rank, the hybrid mesh over
+    all of them; in one process, no mesh (one card). ``data_parallel`` above
+    1 must be the number of ranks: PyTorch runs one process per card."""
+    if not use_mesh:
+        return None
+    _, n = world()
+    if (cfg.data_parallel or 1) > 1 and cfg.data_parallel != n:
+        raise ValueError(
+            f"data_parallel={cfg.data_parallel} with {n} process(es): PyTorch trains one "
+            f"process per card, so launch {cfg.data_parallel} (torchrun --nproc-per-node "
+            f"{cfg.data_parallel} -m rendernet_tpu_torch.cli train-shader cfg.json, or "
+            "--coordinator host:port --num-processes N --process-id i on each)")
+    return make_hybrid_mesh(device=device) if n > 1 else None
 
 
 class _RunDir:
+    """The run dir; rank 0 alone writes it."""
+
     def __init__(self, cfg: TrainConfig):
         self.root = cfg.sample_save
-        os.makedirs(self.root, exist_ok=True)
-        cfg.to_json(os.path.join(self.root, "config.json"))
+        self.chief = is_chief()
         self.metrics_path = os.path.join(self.root, "metrics.jsonl")
         self.tb = None
         self.last_fp = None  # the dead-step warning's last fingerprint
+        if not self.chief:
+            return
+        os.makedirs(self.root, exist_ok=True)
+        cfg.to_json(os.path.join(self.root, "config.json"))
         if cfg.tensorboard:
             from rendernet_tpu_torch.utils.tb import TBWriter
 
             self.tb = TBWriter(os.path.join(self.root, "tb"))
 
     def log(self, **kv):
+        if not self.chief:
+            return
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(kv) + "\n")
         if self.tb is not None:
@@ -194,6 +221,9 @@ class _RunDir:
             self.tb.flush()
 
     def dump_pair(self, tag: str, step: int, pred: np.ndarray, target: np.ndarray):
+        if not self.chief:
+            return
+
         def u8(x):
             x = np.squeeze(x)
             return x if x.dtype == np.uint8 else to_uint8(x, 255.0)
@@ -224,10 +254,11 @@ def _to_device(arrays, device):
 def _run(cfg: TrainConfig, run, state, dev, make_step, loader_for_epoch, feed, on_log,
          on_epoch_end, max_steps, progress):
     """The epoch loop both workloads share. ``loader_for_epoch()`` yields
-    chunks whose first element is the images and whose second-to-last is
-    the poses and last the names; ``feed(chunk)`` returns the chunk's uint8
-    / float32 host arrays in step order; ``on_log`` runs at each logging
-    point, ``on_epoch_end`` after each epoch."""
+    chunks of this rank's entries whose first element is the images and
+    whose second-to-last is the poses and last the names; ``feed(chunk)``
+    returns the chunk's uint8 / float32 host arrays in step order;
+    ``on_log`` runs at each logging point, ``on_epoch_end`` after each
+    epoch."""
     ckpt = os.path.join(run.root, cfg.trained_model_name)
     steps = {}  # patch size -> step
     guard = _PipelinedGuard(cfg, run)
@@ -237,7 +268,7 @@ def _run(cfg: TrainConfig, run, state, dev, make_step, loader_for_epoch, feed, o
     last_ckpt = time.time()
     chunk_cache = {}  # (chunk, batch) -> device arrays, with cfg.cache_chunks
     cache_cap_logged = False
-    bs = cfg.batch_size
+    bs = process_shard(cfg.batch_size)[0]
 
     def checkpoint(params_too: bool):
         save_checkpoint(ckpt, state)
@@ -309,33 +340,50 @@ def _u8(a: np.ndarray) -> np.ndarray:
     return np.clip(a, 0, 255).astype(np.uint8)
 
 
+def _setup(cfg: TrainConfig, use_mesh: bool, device, create_state, model_cfg):
+    """(run dir, mesh, state, optimizer, device, (local batch, shard)) of a
+    run: the mesh (logged), the state created, resumed from the run dir's
+    checkpoint and, on a mesh, replicated from rank 0."""
+    dev = resolve_device(device)
+    mesh = _auto_mesh(cfg, use_mesh, dev)
+    run = _RunDir(cfg)
+    _, n = world()
+    if mesh is not None:
+        run.log(event="mesh", layout="hybrid", devices=n, processes=n)
+    state, tx = create_state(cfg.seed, model_cfg, cfg, device=dev)
+    state = _maybe_resume(os.path.join(run.root, cfg.trained_model_name), state, run)
+    if mesh is not None:
+        state = replicate(mesh, state)
+    local_bs, rank, n = process_shard(cfg.batch_size)
+    return run, mesh, state, tx, dev, (local_bs, (rank, n) if n > 1 else None)
+
+
 def train_shader(cfg: TrainConfig, model_cfg: Optional[ShaderConfig] = None,
                  max_steps: Optional[int] = None, use_mesh: bool = True,
                  progress: Optional[Callable[[int, torch.Tensor], None]] = None,
                  device=None):
     """Run shader training from a TrainConfig on ``device`` (CUDA unless
-    the caller asks for the CPU); returns the final TrainState.
-    ``use_mesh`` is accepted for the JAX signature: one card runs it
-    either way."""
-    _single_card(cfg)
-    dev = resolve_device(device)
+    the caller asks for the CPU; in a process group, the rank's card);
+    returns the final TrainState. ``use_mesh=False`` builds no mesh, which
+    a group of more than one rank refuses (its ranks would train apart)."""
     model_cfg = model_cfg or ShaderConfig(out_channels=cfg.image_channels,
                                           keep_prob=cfg.keep_prob, new_size=cfg.new_size)
-    run = _RunDir(cfg)
-    state, tx = create_shader_state(cfg.seed, model_cfg, cfg, device=dev)
-    state = _maybe_resume(os.path.join(run.root, cfg.trained_model_name), state, run)
+    run, mesh, state, tx, dev, (local_bs, shard) = _setup(cfg, use_mesh, device,
+                                                          create_shader_state, model_cfg)
     eval_step = make_shader_eval_step(model_cfg, cfg)
 
     def loader():
-        return data_loader(cfg.image_path, cfg.model_path, batch_size=cfg.batch_size,
+        return data_loader(cfg.image_path, cfg.model_path, batch_size=local_bs,
                            batches_chunk=cfg.batches_chunk, flatten=cfg.is_greyscale,
-                           img_res=cfg.img_res, voxel_res=cfg.voxel_res)
+                           img_res=cfg.img_res, voxel_res=cfg.voxel_res, shard=shard)
 
     def feed(chunk):
         images, voxels, poses, _ = chunk
         return voxels.astype(np.uint8), _u8(images), poses
 
     def on_log(state, batch, name, global_step, epoch):
+        if not run.chief:
+            return
         if cfg.dead_step_warn:
             _dead_step_warning(run, state, global_step, epoch)
         pred = eval_step(state.params, batch[0], batch[2])
@@ -345,21 +393,26 @@ def train_shader(cfg: TrainConfig, model_cfg: Optional[ShaderConfig] = None,
     def on_epoch_end(state, global_step, epoch):
         if not (cfg.image_path_valid and os.path.exists(cfg.image_path_valid)):
             return
-        # per-batch L1s stay on the card; one host read per epoch
-        parts = []
+        # per-batch L1s stay on the card; each rank sums its stride of the
+        # validation tar, then one all-reduce of [sum, count] and one host read
+        total = torch.zeros(2, dtype=torch.float32, device=dev)
         for images, voxels, poses, _ in data_loader(
-                cfg.image_path_valid, cfg.model_path, batch_size=cfg.batch_size,
+                cfg.image_path_valid, cfg.model_path, batch_size=local_bs,
                 validation_mode=True, flatten=cfg.is_greyscale, img_res=cfg.img_res,
-                voxel_res=cfg.voxel_res):
+                voxel_res=cfg.voxel_res, shard=shard):
             vox, pose, target = _to_device(
                 (voxels, poses, (images / 255.0).astype(np.float32)), dev)
-            parts.append(torch.mean(torch.abs(target - eval_step(state.params, vox, pose))))
-        if parts:
-            run.log(step=global_step, epoch=epoch,
-                    valid_l1=float(torch.stack(parts).sum()) / len(parts))
+            total[0] += torch.mean(torch.abs(target - eval_step(state.params, vox, pose)))
+            total[1] += 1
+        if mesh is not None:
+            torch.distributed.all_reduce(total, group=mesh.group)
+        l1_sum, l1_n = total.tolist()
+        if l1_n:
+            run.log(step=global_step, epoch=epoch, valid_l1=l1_sum / l1_n)
 
     return _run(cfg, run, state, dev, lambda patch: make_shader_train_step(
-        model_cfg, cfg, tx, patch), loader, feed, on_log, on_epoch_end, max_steps, progress)
+        model_cfg, cfg, tx, patch, mesh=mesh), loader, feed, on_log, on_epoch_end, max_steps,
+        progress)
 
 
 def train_texture(cfg: TrainConfig, model_cfg: Optional[TextureFaceConfig] = None,
@@ -368,24 +421,21 @@ def train_texture(cfg: TrainConfig, model_cfg: Optional[TextureFaceConfig] = Non
                   device=None):
     """Run texture/normal face training on ``device``; returns the final
     TrainState. As JAX's, it logs the loss at each logging point and dumps
-    no samples."""
-    _single_card(cfg)
-    dev = resolve_device(device)
+    no samples; processes and ``use_mesh`` as :func:`train_shader`."""
     model_cfg = model_cfg or TextureFaceConfig(keep_prob=cfg.keep_prob, new_size=cfg.new_size)
-    run = _RunDir(cfg)
-    state, tx = create_texture_state(cfg.seed, model_cfg, cfg, device=dev)
-    state = _maybe_resume(os.path.join(run.root, cfg.trained_model_name), state, run)
+    run, mesh, state, tx, dev, (local_bs, shard) = _setup(cfg, use_mesh, device,
+                                                          create_texture_state, model_cfg)
 
     def loader():
         return data_loader_image_texture_normal_face(
             cfg.image_path, cfg.model_path, cfg.texture_path, cfg.normal_path,
-            batch_size=cfg.batch_size, batches_chunk=cfg.batches_chunk, img_res=cfg.img_res,
-            voxel_res=cfg.voxel_res)
+            batch_size=local_bs, batches_chunk=cfg.batches_chunk, img_res=cfg.img_res,
+            voxel_res=cfg.voxel_res, shard=shard)
 
     def feed(chunk):
         images, normals, voxels, textures, poses, _ = chunk
         return voxels.astype(np.uint8), _u8(images), _u8(normals), textures, poses
 
     return _run(cfg, run, state, dev, lambda patch: make_texture_train_step(
-        model_cfg, cfg, tx, patch), loader, feed, lambda *a: None, lambda *a: None,
+        model_cfg, cfg, tx, patch, mesh=mesh), loader, feed, lambda *a: None, lambda *a: None,
         max_steps, progress)

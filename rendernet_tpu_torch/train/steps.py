@@ -15,6 +15,14 @@ differentiates voxels or pose), and at a patch size below ``new_size`` the
 crop is fused into it as in JAX. The texture step's decoded texture grid is
 warped under autograd, so its gradient reaches the decoder through K4's
 voxel cotangent.
+
+Data parallelism: a step built with a ``mesh`` whose data axis is above 1
+(``train.distributed.make_mesh``) runs on each rank on that rank's rows and
+all-reduces the loss and the gradients after accumulation, before the
+update (``distributed.all_reduce_mean``; the gradients in bf16 with
+``cfg.allreduce_dtype="bfloat16"``, as JAX's shard_map path), so every
+rank applies the same update. The crop comes from the shared step seed;
+the dropout seed is folded with the rank, as JAX's ``fold_in(axis_index)``.
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from rendernet_tpu_torch.ops.resample import (
     rotate_resample_camera_patch,
     rotate_resample_to_camera,
 )
+from rendernet_tpu_torch.train import distributed
 from rendernet_tpu_torch.train.config import TrainConfig
 from rendernet_tpu_torch.train.optim import GradientTransformation, apply_updates, make_optimizer
 
@@ -147,20 +156,43 @@ def step_seeds(rng: int, step: int) -> Tuple[int, int]:
     return int(crop), int(drop)
 
 
-def _step_offsets(state: TrainState, rng: int, patch_size: int, cfg: TrainConfig, offsets):
-    """(crop offsets or None, dropout seed) of one step (:func:`step_seeds`)."""
+def _step_offsets(state: TrainState, rng: int, patch_size: int, cfg: TrainConfig, offsets,
+                  mesh):
+    """(crop offsets or None, dropout seed) of one step (:func:`step_seeds`);
+    with a data-parallel ``mesh`` the dropout seed is folded with the rank,
+    so no two ranks draw the same mask (the crop stays shared)."""
     crop_seed, drop_seed = step_seeds(rng, state.step)
+    if mesh is not None:
+        rank = torch.distributed.get_rank(mesh.group)
+        drop_seed = int(np.random.SeedSequence([drop_seed, rank]).generate_state(1)[0])
     if patch_size != cfg.new_size and offsets is None:
         offsets = random_crop_offsets(torch.Generator().manual_seed(crop_seed),
                                       cfg.new_size, patch_size)
     return offsets, drop_seed
 
 
+def _data_parallel(mesh):
+    """The mesh when the step all-reduces (its data axis above 1), else None.
+    A step without a mesh inside a group of more than one rank raises: its
+    ranks would train apart. So ``allreduce_dtype`` takes effect only with a
+    data axis above 1, as JAX's ``_use_bf16_allreduce``."""
+    n = distributed.world()[1]
+    if mesh is None:
+        if n > 1:
+            raise RuntimeError(f"a train step without a mesh in a process group of {n} ranks: "
+                               "each rank would train apart; build it with "
+                               "mesh=train.distributed.make_mesh()")
+        return None
+    return mesh if mesh.shape["data"] > 1 else None
+
+
 def _apply_step(state: TrainState, tx: GradientTransformation, batch: int, accum: int,
-                micro_loss) -> Tuple[TrainState, torch.Tensor]:
+                micro_loss, mesh, allreduce_dtype: str) -> Tuple[TrainState, torch.Tensor]:
     """One update from ``micro_loss(slice) -> loss`` over ``accum``
     microbatches of a batch of ``batch``: their fp32 gradients summed and
-    averaged, as JAX's ``_accumulated_value_and_grad``."""
+    averaged, as JAX's ``_accumulated_value_and_grad``; with a
+    data-parallel ``mesh`` the loss and the gradients are then averaged over
+    the ranks (the gradients moved in ``allreduce_dtype``)."""
     net = state.params
     params = dict(net.named_parameters())
     if batch % accum:
@@ -183,15 +215,12 @@ def _apply_step(state: TrainState, tx: GradientTransformation, batch: int, accum
         scale = 1.0 / accum
         loss_sum = loss_sum * scale
         grad_sum = [g * scale for g in grad_sum]
+    if mesh is not None:
+        grad_sum = distributed.all_reduce_mean(grad_sum, mesh, _dtype(allreduce_dtype))
+        loss_sum = distributed.all_reduce_mean([loss_sum], mesh)[0]
     updates, opt_state = tx.update(dict(zip(params, grad_sum)), state.opt_state, params)
     apply_updates(params, updates)
     return TrainState(net, opt_state, state.step + 1), loss_sum
-
-
-def _no_distribution(cfg: TrainConfig, mesh) -> None:
-    if mesh is not None or cfg.allreduce_dtype == "bfloat16":
-        raise NotImplementedError("distributed training (a mesh, the bf16 all-reduce) "
-                                  "is not ported yet")
 
 
 def make_shader_train_step(model_cfg: ShaderConfig, cfg: TrainConfig,
@@ -207,10 +236,11 @@ def make_shader_train_step(model_cfg: ShaderConfig, cfg: TrainConfig,
     (:func:`step_seeds`); dropout draws from its dropout seed.
     ``cfg.grad_accum_steps > 1`` splits the batch into that many
     microbatches, sums their fp32 gradients and applies one update, with
-    the crop and the dropout seed shared, as in JAX. A ``mesh`` or the bf16
-    all-reduce belong to distributed training, which is not ported yet.
+    the crop and the dropout seed shared, as in JAX. ``mesh``: data
+    parallelism (the module docstring); each rank passes its own rows, and
+    ``loss`` is the global batch's.
     """
-    _no_distribution(cfg, mesh)
+    mesh = _data_parallel(mesh)
     cdt = _dtype(cfg.compute_dtype)
     greyscale = cfg.is_greyscale
 
@@ -232,10 +262,10 @@ def make_shader_train_step(model_cfg: ShaderConfig, cfg: TrainConfig,
 
     def step(state: TrainState, voxels, images, poses, rng: int,
              offsets: Optional[Sequence[int]] = None):
-        offsets, drop_seed = _step_offsets(state, rng, patch_size, cfg, offsets)
+        offsets, drop_seed = _step_offsets(state, rng, patch_size, cfg, offsets, mesh)
         return _apply_step(state, tx, voxels.shape[0], cfg.grad_accum_steps,
                            lambda sl: loss_fn(state.params, voxels[sl], images[sl], poses[sl],
-                                              offsets, drop_seed))
+                                              offsets, drop_seed), mesh, cfg.allreduce_dtype)
 
     return step
 
@@ -320,18 +350,17 @@ def make_texture_train_step(model_cfg: TextureFaceConfig, cfg: TrainConfig,
              textures [B,texture_dim], poses [B,3], rng: int, offsets=None)
         -> (state, loss)
 
-    Crops, dropout seeds, grad accumulation and the unported distributed
-    options as :func:`make_shader_train_step`; the loss is
-    :func:`texture_loss`."""
-    _no_distribution(cfg, mesh)
+    Crops, dropout seeds, grad accumulation and ``mesh`` as
+    :func:`make_shader_train_step`; the loss is :func:`texture_loss`."""
+    mesh = _data_parallel(mesh)
 
     def step(state: TrainState, voxels, images, normals, textures, poses, rng: int,
              offsets: Optional[Sequence[int]] = None):
-        offsets, drop_seed = _step_offsets(state, rng, patch_size, cfg, offsets)
+        offsets, drop_seed = _step_offsets(state, rng, patch_size, cfg, offsets, mesh)
         return _apply_step(
             state, tx, voxels.shape[0], cfg.grad_accum_steps,
             lambda sl: texture_loss(state.params, model_cfg, cfg, patch_size, voxels[sl],
                                     images[sl], normals[sl], textures[sl], poses[sl],
-                                    offsets, drop_seed))
+                                    offsets, drop_seed), mesh, cfg.allreduce_dtype)
 
     return step

@@ -47,7 +47,8 @@ def test_importing_every_module_pulls_in_no_jax():
                 "ops.cuda_conv2d", "ops.cuda_conv3d", "ops.cuda_resample", "ops.cuda_winograd", "ops.phong",
                 "ops.resample", "ops.transforms", "ops.winograd", "train.config",
                 "ops.phase_conv", "compat.frozen", "compat.pb_import", "cli.convert",
-                "train.optim", "train.steps", "utils.image"):
+                "train.optim", "train.steps", "utils.image", "train.distributed",
+                "graft_entry"):
         assert f"rendernet_tpu_torch.{mod}" in res["modules"]
 
 

@@ -144,9 +144,12 @@ def test_texture_loop_run_dir_matches_jax_and_resumes(data, tmp_path):
 
 
 def test_loop_refuses_data_parallel(data, tmp_path):
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        train_shader(TrainConfig(**_shader_cfg(data, tmp_path, data_parallel=2)),
+    """data_parallel=2 in one process raises ValueError, saying how to
+    launch one process per card, before writing the run dir."""
+    with pytest.raises(ValueError, match="one process per card"):
+        train_shader(TrainConfig(**_shader_cfg(data, tmp_path / "run", data_parallel=2)),
                      ShaderConfig(**SHADER_ARCH), device="cpu")
+    assert not (tmp_path / "run").exists()
 
 
 def _cli(args, **kw):
@@ -183,8 +186,8 @@ def test_clis_train_and_pack_on_the_cpu(data, tmp_path):
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the failure with no card")
 def test_clis_fail_loudly_without_a_card(data, tmp_path):
     """Without --device cpu on a machine with no card each command exits
-    non-zero, naming the way out, and writes no run dir; the multi-process
-    options raise NotImplementedError."""
+    non-zero, naming the way out, and writes no run dir; --num-processes
+    without a coordinator fails, naming --coordinator."""
     cfg = tmp_path / "c.json"
     cfg.write_text(json.dumps(_shader_cfg(data, tmp_path / "run")))
     for args in (["train-shader", str(cfg)], ["train-texture", str(cfg)],
@@ -194,4 +197,5 @@ def test_clis_fail_loudly_without_a_card(data, tmp_path):
         assert r.returncode != 0 and "--device cpu" in r.stderr, args
     assert not (tmp_path / "run").exists() and not (tmp_path / "x.tar").exists()
     r = _cli(["train-shader", str(cfg), "--device", "cpu", "--num-processes", "2"])
-    assert r.returncode != 0 and "NotImplementedError" in r.stderr
+    assert r.returncode != 0 and "--coordinator" in r.stderr
+    assert "NotImplementedError" not in r.stderr and not (tmp_path / "run").exists()

@@ -19,6 +19,7 @@ from rendernet_tpu.train import steps as jsteps
 from rendernet_tpu_torch.compat.jax_params import jax_params_from_module, load_jax_params
 from rendernet_tpu_torch.models import texture_face as ttex
 from rendernet_tpu_torch.train import config as tconfig
+from rendernet_tpu_torch.train import distributed as tdist
 from rendernet_tpu_torch.train import steps as tsteps
 from test_torch_texture import jax_texture_params, texture_batch
 
@@ -113,13 +114,22 @@ def test_fused_resample_matches_two_pass():
     _assert_params_close(tp, jp, cfg.e_eta)
 
 
-def test_texture_step_refuses_distribution():
-    """A mesh or the bf16 all-reduce raises, as for the shader step."""
+def test_texture_step_refuses_distribution(monkeypatch):
+    """A one-process mesh is accepted, and so is the bf16 all-reduce (fp32
+    without a data axis above 1, as JAX's): one step each, equal to the
+    plain step's. In a process group of two ranks a step without a mesh
+    raises, as for the shader step."""
     _, tcfg = cfgs()
     tm = ttex.TextureFaceConfig(**ARCH)
-    _, tx = tsteps.create_texture_state(0, tm, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tsteps.make_texture_train_step(tm, tcfg, tx, 32, mesh=object())
+    vox, images, normals, codes, pose = (torch.from_numpy(a) for a in texture_batch(2, seed=1))
     _, bcfg = cfgs(allreduce_dtype="bfloat16")
-    with pytest.raises(NotImplementedError):
-        tsteps.make_texture_train_step(tm, bcfg, tx, 32)
+    losses = []
+    for cfg, mesh in ((tcfg, None), (tcfg, tdist.make_mesh(device="cpu")), (bcfg, None)):
+        state, tx = tsteps.create_texture_state(0, tm, cfg, device="cpu")
+        step = tsteps.make_texture_train_step(tm, cfg, tx, 32, mesh=mesh)
+        state, loss = step(state, vox, images, normals, codes, pose, 7)
+        losses.append(float(loss))
+    assert losses[0] == losses[1] == losses[2] and np.isfinite(losses[0])
+    monkeypatch.setattr(tdist, "world", lambda: (0, 2))
+    with pytest.raises(RuntimeError, match="without a mesh"):
+        tsteps.make_texture_train_step(tm, tcfg, tx, 32)

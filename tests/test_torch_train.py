@@ -33,6 +33,7 @@ from rendernet_tpu_torch.nn import layers as tl
 from rendernet_tpu_torch.ops import crops as tcrops
 from rendernet_tpu_torch.ops import cuda_conv3d, cuda_resample, cuda_winograd
 from rendernet_tpu_torch.train import config as tconfig
+from rendernet_tpu_torch.train import distributed as tdist
 from rendernet_tpu_torch.train import steps as tsteps
 
 torch.set_num_threads(2)
@@ -222,10 +223,13 @@ def test_train_step_matches_jax_patch():
     _assert_params_close(tp, jp, cfg.e_eta)
 
 
-def test_train_step_draws_its_own_crops():
+def test_train_step_draws_its_own_crops(monkeypatch):
     """Without offsets the port's step draws them from the step's crop
     seed: the same (rng, step) crops at the same place, another step
-    elsewhere; a distributed request raises."""
+    elsewhere. A one-process mesh (data axis 1) is accepted and leaves the
+    step as it is; in a process group of two ranks a step without a mesh
+    raises (its ranks would train apart; tests/test_torch_distributed.py
+    runs the real group)."""
     _, tcfg = _train_cfgs()
     mcfg = tshader.ShaderConfig(**ARCH)
     state, tx = tsteps.create_shader_state(0, mcfg, tcfg, device="cpu")
@@ -234,9 +238,11 @@ def test_train_step_draws_its_own_crops():
     offs = [tcrops.random_crop_offsets(torch.Generator().manual_seed(tsteps.step_seeds(7, s)[0]),
                                        32, 16) for s in range(8)]
     assert all(0 <= o <= 16 for off in offs for o in off) and len(set(offs)) > 1
-    with pytest.raises(NotImplementedError):
-        tsteps.make_shader_train_step(mcfg, tcfg, tx, 16, mesh=object())
-    step = tsteps.make_shader_train_step(mcfg, tcfg, tx, 16)
+    step = tsteps.make_shader_train_step(mcfg, tcfg, tx, 16, mesh=tdist.make_mesh(device="cpu"))
+    with monkeypatch.context() as m:
+        m.setattr(tdist, "world", lambda: (0, 2))
+        with pytest.raises(RuntimeError, match="without a mesh"):
+            tsteps.make_shader_train_step(mcfg, tcfg, tx, 16)
     vox, images, poses = _batch(4, seed=2)
     state, loss = step(state, torch.from_numpy(vox), torch.from_numpy(images),
                        torch.from_numpy(poses), 7)
