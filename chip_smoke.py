@@ -140,8 +140,26 @@ Phases, all of them on every run:
      named in its config, is never made), the ranks read disjoint tar
      entries covering the tar, and a third run (this process) resumes at
      step 2.
+ 11. spatial sharding (a model axis over the rows; the halo exchange is a
+     library all-gather over each pair of neighbouring ranks, no kernel of
+     its own), two gloo ranks sharing the card on a 1 x 2 mesh at
+     ``ShaderConfig()`` full width, against the world-1 runs in this
+     process: (a) one bf16 multipass ``shader_forward`` at batch 8
+     (``--fast``), each rank on its rows of the raw grid, its logits
+     gathered and held to phase 3's limit of the world-1 logits, timed,
+     each rank's peak memory; (b) bench.py's patch-128 configuration at
+     batch 8 on the gradient check's inputs: the loss (SP_LOSS_TOL) and
+     the model-summed gradients (phase 4's bf16 limit) of step 1 against
+     the world-1 step's, the ranks' params bit-equal after step 2, the
+     step's ms, peak memory and halo bytes sent and received per rank;
+     (c) the port's ``graft_entry.dryrun_multichip(4)`` (4 ranks: data
+     parallel, then the dp + spatial forward and train step on a (2, 2)
+     mesh); (d) two planted faults: the halo adjoint's add dropped, which
+     (b)'s gradient check must reject, and the halo rows read as zeros
+     in the forward, which (b)'s loss check must reject. Phase 2 holds K1, K2, K2w and K3 at the slabs' shapes
+     (``SP_CASES``), whose launches are rank 0's per forward and per step.
 The kernels' launch counters are zeroed just before each run of phases 3
-to 8 and 10 (and of each A/B arm) and read just after; every run's counts are checked, shape by
+to 8, 10 and 11 (and of each A/B arm) and read just after; every run's counts are checked, shape by
 shape, against the counts its graph implies. K1's and K4's phase 2 rows
 name the path each launch took (``bulk`` or ``scalar``, from the
 wrappers' path counters); K3's carry the bytes of its bf16 V scratch; the
@@ -532,6 +550,36 @@ CASES = [
     *TEX_CASES,
 ]
 
+# The sharded path's shapes (phase 11), on each rank of its model axis of 2
+# at batch 8, patch 128: K1's y pass emitting the rank's 64 camera rows and
+# the 2 halo rows inside the grid (66), the z pass on those rows; K2 and
+# K2w on the 3-D slab extended by a row each side (34 of the 64 rows); K3
+# on the 2-D slab extended by whole 2-row Winograd tiles (36).
+X3S = (8, 34, 64, 32, 32)
+SP_CASES = [
+    ("K1", "spatial window pass [8,16384,128]->66", "pass", (8, 16384, 128, 66, 128), BF16,
+     "sp_serve"),
+    ("K1", "spatial pass [8,8448,128]", "pass", (8, 8448, 128, 128, 128), BF16, "sp_serve"),
+    ("K2", "spatial e_conv3 [8,34,64,32,16]->32", "conv3d", ((8, 34, 64, 32, 16), 32), BF16,
+     "sp_serve"),
+    ("K2", "spatial res1 [8,34,64,32,32]->32", "conv3d", (X3S, 32), BF16, "sp_serve"),
+    ("K2", "spatial train dgrad e_conv3 [8,34,64,32,32]->16", "conv3d_dgrad", (X3S, 16), BF16,
+     "sp_train"),
+    ("K2w", "spatial train e_conv3 [8,34,64,32,16]->32", "conv3d_wgrad",
+     ((8, 34, 64, 32, 16), 32), BF16, "sp_train"),
+    ("K2w", "spatial train res1 [8,34,64,32,32]->32", "conv3d_wgrad", (X3S, 32), BF16,
+     "sp_train"),
+    ("K3", "spatial res2 [8,36,64,1024]->1024", "wino", ((8, 36, 64, 1024), 1024), BF16,
+     "sp_serve"),
+    ("K3", "spatial res3 [8,36,64,512]->512", "wino", ((8, 36, 64, 512), 512), BF16,
+     "sp_serve"),
+    ("K3", "spatial train res2 fwd+dgrad [8,36,64,1024]->1024", "wino_dgrad",
+     ((8, 36, 64, 1024), 1024), BF16, "sp_train"),
+    ("K3", "spatial train res3 fwd+dgrad [8,36,64,512]->512", "wino_dgrad",
+     ((8, 36, 64, 512), 512), BF16, "sp_train"),
+]
+CASES += SP_CASES
+
 # Serving launches per batch-8 forward at each serving shape (phase 3).
 SERVE_LAUNCHES = {("K1", "pass [8,16384,128]"): 8,
                   ("K2", "e_conv3 [8,64,64,32,16]->32"): 1,
@@ -868,6 +916,17 @@ def procedural_voxel(n: int = 64):
     return sphere | box
 
 
+def serve_inputs(torch, np, b=8):
+    """Phase 3's bf16 forward's inputs: the procedural voxel, poses from seed 0."""
+    rng = np.random.default_rng(0)
+    vox = torch.from_numpy(np.repeat(
+        procedural_voxel().astype(np.float32)[None, :, :, :, None], b, axis=0)).cuda()
+    pose = torch.from_numpy(np.stack(
+        [rng.uniform(0, 6.28, b), rng.uniform(-1, 1, b), np.ones(b)], axis=1
+    ).astype(np.float32)).cuda()
+    return vox, pose
+
+
 def run_main_path(torch, failures, tmp):
     import numpy as np
 
@@ -901,14 +960,8 @@ def run_main_path(torch, failures, tmp):
         failures.append(f"cli wrote {len(pngs)} PNGs, expected 72")
 
     # (b) one bf16 shader_forward at batch 8, the serving-bench form
-    cfg = ShaderConfig()
-    net = init_shader_params(0, cfg, device="cuda")
-    rng = np.random.default_rng(0)
-    vox = torch.from_numpy(np.repeat(
-        procedural_voxel().astype(np.float32)[None, :, :, :, None], 8, axis=0)).cuda()
-    pose = torch.from_numpy(np.stack(
-        [rng.uniform(0, 6.28, 8), rng.uniform(-1, 1, 8), np.ones(8)], axis=1
-    ).astype(np.float32)).cuda()
+    net = init_shader_params(0, ShaderConfig(), device="cuda")
+    vox, pose = serve_inputs(torch, np)
     layers.WINOGRAD_2D = "pallas"
     with torch.no_grad():
         reset_counts()
@@ -1066,6 +1119,29 @@ def bench_batch(torch, np, b, seed=0):
     return tuple(torch.from_numpy(a).cuda() for a in (vox, img, pose))
 
 
+def spread_alphas(torch, net):
+    """``net`` with its PReLU alphas drawn uniform in [0.05, 0.3) (seed 3,
+    on the card), away from 0 so that the negative slope counts."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    with torch.no_grad():
+        for name, p in net.named_parameters():
+            if name.endswith("alpha"):
+                p.uniform_(0.05, 0.3, generator=gen)
+    return net
+
+
+def grad_inputs(torch, np, b=8):
+    """The gradient check's inputs (phase 4): the procedural voxel, poses
+    from seed 1, disc targets from seed 2."""
+    rng = np.random.default_rng(1)
+    vox = torch.from_numpy(np.repeat(
+        procedural_voxel().astype(np.float32)[None, :, :, :, None], b, axis=0)).cuda()
+    pose = torch.from_numpy(np.stack(
+        [rng.uniform(0, 6.28, b), rng.uniform(-1, 1, b), np.ones(b)], axis=1
+    ).astype(np.float32)).cuda()
+    return vox, torch.from_numpy(disc_images(np, b, 512, 2)).cuda(), pose
+
+
 # Crop offsets (u0, v0), in grid cells, of the patch-64 gradient check:
 # the window covers the middle of the image, where the disc targets' edges
 # are.
@@ -1082,19 +1158,9 @@ def gradient_check(torch, np, failures, patches=(128, 64), conv2d=False, tag="gr
     from rendernet_tpu_torch.ops.cuda_resample import rotate_resample_camera_patch_multipass
     from rendernet_tpu_torch.train.steps import shader_loss_from_images
 
-    net = init_shader_params(0, ShaderConfig(preact_policy=True), device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    with torch.no_grad():  # PReLU alphas away from 0, so the negative slope counts
-        for name, p in net.named_parameters():
-            if name.endswith("alpha"):
-                p.uniform_(0.05, 0.3, generator=gen)
-    rng = np.random.default_rng(1)
-    vox = torch.from_numpy(np.repeat(
-        procedural_voxel().astype(np.float32)[None, :, :, :, None], 8, axis=0)).cuda()
-    pose = torch.from_numpy(np.stack(
-        [rng.uniform(0, 6.28, 8), rng.uniform(-1, 1, 8), np.ones(8)], axis=1
-    ).astype(np.float32)).cuda()
-    images = torch.from_numpy(disc_images(np, 8, 512, 2)).cuda()
+    net = spread_alphas(torch, init_shader_params(0, ShaderConfig(preact_policy=True),
+                                                  device="cuda"))
+    vox, images, pose = grad_inputs(torch, np)
     names = [n for n, _ in net.named_parameters()]
     params = [p for _, p in net.named_parameters()]
 
@@ -2802,13 +2868,16 @@ def bench_config(dtype="float32"):
                        allreduce_dtype=dtype)
 
 
-def fresh_states(torch, create, mcfg, cfg):
-    """(net, tx, fresh()): ``fresh()`` resets the seeded network to its
-    initial values and returns a new TrainState (fresh optimizer state)."""
+def fresh_states(torch, create, mcfg, cfg, prepare=None):
+    """(net, tx, fresh()): ``fresh()`` resets the seeded network (after
+    ``prepare(net)``, where given) to its initial values and returns a new
+    TrainState (fresh optimizer state)."""
     from rendernet_tpu_torch.train.steps import TrainState
 
     state, tx = create(0, mcfg, cfg, device="cuda")
     net = state.params
+    if prepare is not None:
+        prepare(net)
     init = {k: v.clone() for k, v in net.state_dict().items()}
 
     def fresh():
@@ -3218,6 +3287,382 @@ def dist_two_ranks(torch, failures, tmp):
     return {"ranks": ranks}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: spatial sharding (a model axis over the rows, halo exchanges)
+# ---------------------------------------------------------------------------
+SP_MODEL = 2  # the model axis: two gloo ranks sharing the one card
+# The sharded bf16 step's loss against the world-1 step's, relative: both
+# sum the same 8 x 512^2 BCE terms in fp32 from bf16 logits, which differ
+# where the slab's ops round in another order or cuDNN picks another
+# algorithm for the slab's shape (a few bf16 ulps of some logits). Read at
+# 2.6e-7 on an H100; JAX's own sharded step is held to 1e-5 of the
+# unsharded. (d)'s forward fault (the neighbours' halo rows read as zeros)
+# must land above it.
+SP_LOSS_TOL = 1e-5
+SP_TIMED = 3  # timed calls of each sharded run (a fixed count: every rank calls alike)
+
+
+def sharded_launches(b, patch, rank, m=SP_MODEL, grad=False):
+    """Launches per batch-``b`` forward (``grad``: per training step, as
+    :func:`step_launches` with preact_policy) on rank ``rank`` of a model
+    axis of ``m`` at full width: the warp's 8 K1 passes, the last y pass
+    emitting the rank's camera rows with e_conv1's halo (2, 2) clipped to
+    the patch and the z pass on those rows; every 3x3x3 conv on the slab
+    extended by one row each side (K2, K2w), every Winograd conv by two
+    (whole 2-row tiles)."""
+    n = 128
+    rows = patch // m
+    win = min((rank + 1) * rows + 2, patch) - max(rank * rows - 2, 0)
+    k1 = {(b, n * n, n, n): 6, (b, n * n, n, win): 1, (b, n * win, n, patch): 1}
+    s = patch // 2
+    h3, h2 = s // m + 2, s // m + 4
+    x16, x32 = (b, h3, s, 32, 16), (b, h3, s, 32, 32)
+    r2, r3 = (b, h2, s, 1024), (b, h2, s, 512)
+    g = 2 if grad else 1
+    out = {"K1": k1, "K4": {}, "K2": {(x16, 32): 1, (x32, 32): 21 * g},
+           "K2w": {}, "K3": {(r2, 1024): 21 * g, (r3, 512): 11 * g}, "K6": {}, "K5": {},
+           "K5w": {}}
+    if grad:
+        out["K2"][(x32, 16)] = 1
+        out["K2w"] = {(x16, 32): 1, (x32, 32): 21}
+    return out
+
+
+def sp_state(torch):
+    """(net, tx, fresh()) of bench.py's patch-128 configuration at full
+    width with preact_policy, the PReLU alphas spread as phase 4's
+    (:func:`fresh_states`)."""
+    from rendernet_tpu_torch.models.shader import ShaderConfig
+    from rendernet_tpu_torch.train.steps import create_shader_state
+
+    return fresh_states(torch, create_shader_state, ShaderConfig(preact_policy=True),
+                        bench_config(), prepare=lambda net: spread_alphas(torch, net))
+
+
+def fixed_ms(torch, fn, n=SP_TIMED):
+    """ms per call of ``fn`` over ``n`` calls after one warm-up call, CUDA
+    events (a fixed count, so that ranks running collectives call alike)."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def sp_steps(torch, step, state, batch, n):
+    """``n`` steps; (state, losses, each step's ms from CUDA events, and of
+    the first step: its peak device memory, that peak less the memory held
+    before the step, and the activations it holds for the backward: the
+    memory allocated when the head (e_conv11) returns, less that before)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    held = []
+    hook = state.params.encoder["e_conv11"].register_forward_hook(
+        lambda *args: held.append(torch.cuda.memory_allocated()))
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    marks[0].record()
+    losses, peak = [], None
+    try:
+        for i in range(n):
+            state, loss = step(state, *batch, 1)
+            marks[i + 1].record()
+            losses.append(loss)
+            if peak is None:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+    finally:
+        hook.remove()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+    mem = {"peak_bytes": peak, "added_bytes": peak - before, "activation_bytes": held[0] - before}
+    return state, [float(x) for x in losses], ms, mem
+
+
+def sp_world1(torch, np, failures, tmp):
+    """The world-1 references of (a) and (b), in this process: the bf16
+    multipass forward at batch 8 (``--fast``) with its logits, ms and peak
+    memory; one step of the patch-128 configuration at batch 8 on the
+    gradient check's inputs with its loss, gradients, ms and peak memory.
+    Saves the logits, loss and gradients to ``tmp``/sp_ref.pt."""
+    from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
+    from rendernet_tpu_torch.train.steps import make_shader_train_step
+
+    out = {}
+    net = init_shader_params(0, ShaderConfig(), device="cuda")
+    vox, pose = serve_inputs(torch, np)
+    logits = []
+    hook = net.encoder["e_conv11"].register_forward_hook(
+        lambda mod, args, y: logits.append(y.float()))
+
+    def fwd():
+        return shader_forward(net, vox, pose, compute_dtype=torch.bfloat16, resample="multipass")
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd()
+        torch.cuda.synchronize()
+        out["forward_peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["forward_added_bytes"] = out["forward_peak_bytes"] - before
+        ref_logits = logits.pop()
+        out["forward_ms"] = fixed_ms(torch, fwd)
+    hook.remove()
+    del net, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    net, tx, fresh = sp_state(torch)
+    grads = []
+    step = make_shader_train_step(net.cfg, bench_config(), recording(tx, grads), 128)
+    batch = grad_inputs(torch, np)
+    step(fresh(), *batch, 1)  # warm-up
+    grads.clear()
+    _, losses, ms, out["step_memory"] = sp_steps(torch, step, fresh(), batch, 1)
+    out["loss"], out["step_ms"] = losses[0], ms[0]
+    torch.save({"logits": ref_logits.cpu(), "loss": losses[0],
+                "grads": {k: g.float().cpu() for k, g in grads[0].items()}},
+               os.path.join(tmp, "sp_ref.pt"))
+    del net, tx, fresh, grads, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_grad_errors(torch, got, ref):
+    """(worst parameter, its max |g - g_ref| / max |g_ref|) over every
+    parameter, compared on the card."""
+    errs = {}
+    for k, r in ref.items():
+        r = r.cuda()
+        errs[k] = float((got[k].float() - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+class halo_forward_fault:
+    """The planted fault of (d) that the loss check must reject: the halo
+    exchange's forward reads the neighbours' rows as zeros (the exchange
+    itself still runs, so that the ranks' collectives stay in step)."""
+
+    def __enter__(self):
+        from rendernet_tpu_torch.ops import halo
+
+        self.saved = saved = halo._Exchange.forward
+
+        def forward(ctx, x, lo, hi, shard, axis):
+            y = saved(ctx, x, lo, hi, shard, axis)
+            y.narrow(axis, 0, lo).zero_()
+            y.narrow(axis, y.shape[axis] - hi, hi).zero_()
+            return y
+
+        halo._Exchange.forward = staticmethod(forward)
+
+    def __exit__(self, *exc):
+        from rendernet_tpu_torch.ops import halo
+
+        halo._Exchange.forward = staticmethod(self.saved)
+
+
+class halo_adjoint_fault:
+    """The planted fault of (d) that the gradient check must reject: the
+    halo exchange's backward drops the cotangent its neighbours send back
+    (each rank keeps only its own)."""
+
+    def __enter__(self):
+        from rendernet_tpu_torch.ops import halo
+
+        self.saved = halo._add_halo_cotangents
+        halo._add_halo_cotangents = lambda gx, *args: gx
+
+    def __exit__(self, *exc):
+        from rendernet_tpu_torch.ops import halo
+
+        halo._add_halo_cotangents = self.saved
+
+
+def sp_rank(rank: int, tmp: str) -> None:
+    """One rank of the 1 x 2 mesh (gloo, the one card): (a) the sharded bf16
+    forward; (b) the sharded step, twice, and (d) the planted faults; writes
+    ``tmp``/sp_rank{rank}.json and, on rank 0, the launches per forward
+    and per step."""
+    import numpy as np
+    import torch
+
+    from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.ops import halo
+    from rendernet_tpu_torch.train import distributed
+    from rendernet_tpu_torch.train.steps import make_shader_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    layers.WINOGRAD_2D = "pallas"
+    failures, out = [], {"rank": rank}
+    per_run = {}
+    distributed.initialize_multihost(f"file://{tmp}/sp_init", SP_MODEL, rank)
+    try:
+        out["backend"] = torch.distributed.get_backend()
+        mesh = distributed.make_mesh(n_data=1, n_model=SP_MODEL)
+        shard = distributed.spatial_sharding(mesh, 5)
+        ref = torch.load(os.path.join(tmp, "sp_ref.pt"), map_location="cpu", weights_only=True)
+        # (a) serving
+        net = init_shader_params(0, ShaderConfig(), device="cuda")
+        vox, pose = serve_inputs(torch, np)
+        logits = []
+        hook = net.encoder["e_conv11"].register_forward_hook(
+            lambda mod, args, y: logits.append(y.float()))
+        want = ref["logits"].cuda()
+        spread = float(want.max() - want.min())
+
+        def fwd():
+            return shader_forward(net, shard.take(vox), pose, compute_dtype=torch.bfloat16,
+                                  resample="multipass", mesh=mesh)
+
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            img = fwd()
+            torch.cuda.synchronize()
+            _, by_shape = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            got = shard.gather(logits.pop())
+            err = float((got - want).abs().max())
+            out["serve"] = {"rows": list(img.shape), "logit_max_abs_err": err,
+                            "logit_spread": spread, "rel_err": err / spread, "peak_bytes": peak,
+                            "added_bytes": peak - before, "ms": fixed_ms(torch, fwd)}
+            logits.clear()
+        what = f"phase 11 (a) rank {rank}"
+        per_run["sp_serve"] = check_step_counts(failures, what, by_shape, 1,
+                                                sharded_launches(8, 128, rank))
+        if not err <= FORWARD_TOL["bfloat16"] * spread:
+            failures.append(f"{what}: logits {err:.3e} from the world-1 forward's, spread "
+                            f"{spread:.3e} (tol {FORWARD_TOL['bfloat16']} of it)")
+        if tuple(img.shape) != (8, 512 // SP_MODEL, 512, 1):
+            failures.append(f"{what}: the rank's rows {tuple(img.shape)}")
+        hook.remove()
+        del net, logits, want, img, got
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) training, and (d) the planted fault
+        net, tx, fresh = sp_state(torch)
+        vox, img, pose = grad_inputs(torch, np)
+        batch = (shard.take(vox), shard.take(img), pose)
+        grads = []
+        step = make_shader_train_step(net.cfg, bench_config(), recording(tx, grads), 128,
+                                      mesh=mesh)
+        step(fresh(), *batch, 1)  # warm-up
+        grads.clear()
+        reset_counts()
+        halo.exchanges, halo.sent_bytes, halo.received_bytes = 0, 0, 0
+        state, losses, ms, mem = sp_steps(torch, step, fresh(), batch, 2)
+        _, by_shape = read_counts()
+        train = {"losses": losses, "step_ms": ms, "memory": mem,
+                 "halo_exchanges": halo.exchanges // 2, "halo_sent_bytes": halo.sent_bytes // 2,
+                 "halo_received_bytes": halo.received_bytes // 2}
+        per_run["sp_train"] = check_step_counts(
+            failures, f"phase 11 (b) rank {rank} steps", by_shape, 2,
+            sharded_launches(8, 128, rank, grad=True))
+        train["loss_rel_err"] = abs(losses[0] - ref["loss"]) / abs(ref["loss"])
+        train["grad_worst"] = sp_grad_errors(torch, grads[0], ref["grads"])
+        sums = [zlib.crc32(p.detach().reshape(-1).view(torch.uint8).cpu().numpy())
+                for p in net.parameters()]
+        every = [None] * SP_MODEL
+        torch.distributed.all_gather_object(every, sums)
+        train["ranks_equal"] = all(s == every[0] for s in every)
+        grads.clear()
+        with halo_adjoint_fault():
+            step(fresh(), *batch, 1)
+        train["fault_grad_worst"] = sp_grad_errors(torch, grads[0], ref["grads"])
+        with halo_forward_fault():
+            _, loss = step(fresh(), *batch, 1)
+        train["fault_loss_rel_err"] = abs(float(loss) - ref["loss"]) / abs(ref["loss"])
+        out["train"] = train
+        what = f"phase 11 (b) rank {rank}"
+        if not train["loss_rel_err"] <= SP_LOSS_TOL:
+            failures.append(f"{what}: loss {losses[0]} vs world 1's {ref['loss']}")
+        if not train["grad_worst"][1] <= GRAD_TOL["bfloat16"]:
+            failures.append(f"{what}: model-summed gradients vs world 1's: {train['grad_worst']} "
+                            f"> {GRAD_TOL['bfloat16']}")
+        if not train["ranks_equal"]:
+            failures.append(f"{what}: the ranks' params differ after 2 steps")
+        if train["fault_grad_worst"][1] <= GRAD_TOL["bfloat16"]:
+            failures.append(f"phase 11 (d) rank {rank}: the gradient check passed the planted "
+                            f"fault (the halo adjoint's add dropped): {train['fault_grad_worst']}")
+        if train["fault_loss_rel_err"] <= SP_LOSS_TOL:
+            failures.append(f"phase 11 (d) rank {rank}: the loss check passed the planted fault "
+                            f"(the halo rows read as zeros): {train['fault_loss_rel_err']:.3e}")
+        if rank == 0:
+            out["per_run"] = {run: {kid: [[list(k) if isinstance(k, tuple) else k, v]
+                                          for k, v in c.items()] for kid, c in counts.items()}
+                              for run, counts in per_run.items()}
+    except Exception as e:  # the rank's failure, reported through its file
+        failures.append(f"phase 11 rank {rank}: {e!r}")
+        raise
+    finally:
+        out["failures"] = failures
+        with open(os.path.join(tmp, f"sp_rank{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+        torch.distributed.destroy_process_group()
+
+
+def run_spatial(torch, failures, tmp):
+    """Phase 11: the world-1 references, the two ranks (``sp_rank``), then
+    the port's ``graft_entry.dryrun_multichip(4)`` on the card. Returns
+    (the results, rank 0's launches per forward and per step by run)."""
+    import numpy as np
+
+    from rendernet_tpu_torch import graft_entry
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.train import distributed
+
+    out, per_run = {}, {}
+    t0 = time.perf_counter()
+    layers.WINOGRAD_2D = "pallas"
+    try:
+        out["world1"] = sp_world1(torch, np, failures, tmp)
+    finally:
+        layers.WINOGRAD_2D = False
+    out["world1_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = []
+    try:
+        distributed.launch(sp_rank, SP_MODEL, (tmp,), timeout=400)
+    except Exception as e:  # recorded; the ranks' files say more
+        failures.append(f"phase 11 ranks: {e!r}")
+    finally:
+        for r in range(SP_MODEL):
+            path = os.path.join(tmp, f"sp_rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    ranks.append(json.load(f))
+    for r in ranks:
+        failures.extend(r["failures"])
+    if len(ranks) != SP_MODEL:
+        failures.append(f"phase 11: {len(ranks)} rank results")
+    out["ranks"] = ranks
+    out["ranks_s"] = time.perf_counter() - t0
+    for run, counts in (ranks[0].get("per_run", {}) if ranks else {}).items():
+        per_run[run] = {kid: {tuple(tuple(x) if isinstance(x, list) else x for x in k)
+                              if isinstance(k, list) else k: v for k, v in rows}
+                        for kid, rows in counts.items()}
+    t0 = time.perf_counter()
+    try:
+        out["dryrun4"] = graft_entry.dryrun_multichip(4)
+    except Exception as e:
+        failures.append(f"phase 11 (c) dryrun_multichip(4): {e!r}")
+    out["dryrun4_s"] = time.perf_counter() - t0
+    log("spatial " + json.dumps(out, default=str))
+    return out, per_run
+
+
 # Device kernels of each kernel id in a profile, by substrings of their
 # (demangled) names.
 PROFILED = {"K1": ("k1_pass",), "K4": ("k4_adjoint",),
@@ -3477,6 +3922,11 @@ def main() -> int:
             main_out["distributed"] = run_distributed(torch, failures,
                                                       main_out["cli"]["dataset"], tmp)
         log(f"phase 10 (data parallelism) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        main_out["spatial"], sp_per_run = run_spatial(torch, failures, tmp)
+    per_step.update(sp_per_run)
+    log(f"phase 11 (spatial sharding) took {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for (kid, label, dname), r in rows.items():

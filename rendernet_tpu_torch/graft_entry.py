@@ -1,15 +1,26 @@
 """Entry points for a quick check of the port: a forward of the shader model
-and a data-parallel dry run (the counterpart of the repository root's
-``__graft_entry__.py``, which stays the JAX package's).
+(:func:`entry`) and a multi-rank dry run (:func:`dryrun_multichip`), the
+counterparts of the repository root's ``__graft_entry__.py``, which stays
+the JAX package's. The dry run's phases: 1, one data-parallel train step;
+with 4 or more ranks, an even number, on a ``(n / 2, 2)`` mesh, 2, the
+dp + spatial forward (the grid's rows over the model axis, halo exchanges
+through the conv stacks) and 2b, one dp + spatial train step (the batch
+over data, the voxel and image rows over model).
 
-    python -c "from rendernet_tpu_torch import graft_entry; graft_entry.dryrun_multichip(2)"
+    python -c "from rendernet_tpu_torch import graft_entry; graft_entry.dryrun_multichip(4)"
 """
 from __future__ import annotations
 
+import json
 import os
 import tempfile
 
-__all__ = ["entry", "dryrun_multichip"]
+__all__ = ["entry", "dryrun_multichip", "DRYRUN_PHASES"]
+
+# The phases of dryrun_multichip, by the keys of its result.
+DRYRUN_PHASES = {"loss": "1: data-parallel train step",
+                 "spatial_forward": "2: dp + spatial forward (output shape)",
+                 "spatial_loss": "2b: dp + spatial train step"}
 
 
 def entry(device=None):
@@ -51,40 +62,82 @@ def _dryrun_rank(rank: int, n: int, init: str, device, model_cfg, out: str) -> N
         state = distributed.replicate(mesh, state)
         step = make_shader_train_step(model_cfg, cfg, tx, 16, mesh=mesh)
         rng = np.random.default_rng(0)  # the global batch; this rank takes its row
-        batch = ((rng.random((n, 16, 16, 16, 1)) > 0.7).astype(np.float32),
-                 rng.random((n, 128, 128, 1)).astype(np.float32),
-                 np.stack([rng.uniform(0, 6.28, n), rng.uniform(-1, 1, n), np.ones(n)],
-                          axis=1).astype(np.float32))
+        arrays = ((rng.random((n, 16, 16, 16, 1)) > 0.7).astype(np.float32),
+                  rng.random((n, 128, 128, 1)).astype(np.float32),
+                  np.stack([rng.uniform(0, 6.28, n), rng.uniform(-1, 1, n), np.ones(n)],
+                           axis=1).astype(np.float32))
         local, _, _ = distributed.process_shard(n)
         batch = distributed.shard_batch(mesh, tuple(a[rank * local:(rank + 1) * local]
-                                                    for a in batch))
+                                                    for a in arrays))
         _, loss = step(state, *batch, 1)
-        loss = float(loss)
-        if not np.isfinite(loss):
-            raise FloatingPointError(f"rank {rank}: non-finite loss {loss}")
+        res = {"loss": float(loss)}
+        if not np.isfinite(res["loss"]):
+            raise FloatingPointError(f"rank {rank}: non-finite loss {res['loss']}")
+        if n >= 4 and n % 2 == 0:
+            res.update(_spatial_phases(rank, n, device, model_cfg, cfg, arrays))
         if rank == 0:
             with open(out, "w") as f:
-                f.write(repr(loss))
+                json.dump(res, f)
     finally:
         torch.distributed.destroy_process_group()
 
 
-def dryrun_multichip(n_devices: int, device=None, model_cfg=None) -> float:
-    """One shader training step over ``n_devices`` ranks (spawned processes,
-    one process group): the batch sharded one sample per rank, the
-    parameters replicated from rank 0, the gradients all-reduced; tiny
-    shapes (new_size 32, patch 16; ``model_cfg`` default
-    ``ShaderConfig(new_size=32)``, full widths). Ranks run on ``device``
-    (their cards by default, sharing them past the card count; ``"cpu"``).
-    Returns the loss, which must be finite; raises if any rank fails."""
+def _spatial_phases(rank: int, n: int, device, model_cfg, cfg, arrays) -> dict:
+    """Phases 2 and 2b on the ``(n / 2, 2)`` mesh: the forward of the whole
+    batch with the raw grid's rows over the model axis (finite, gathered),
+    and one train step with the batch over data and the voxel and image
+    rows over model (its loss)."""
+    import numpy as np
+    import torch
+
+    from rendernet_tpu_torch.models.shader import init_shader_params, shader_forward
+    from rendernet_tpu_torch.train import distributed
+    from rendernet_tpu_torch.train.steps import create_shader_state, make_shader_train_step
+
+    mesh = distributed.make_mesh(n_data=n // 2, n_model=2, device=device)
+    shard = distributed.spatial_sharding(mesh, 5)
+    vox, images, poses = (torch.from_numpy(a).to(mesh.device) for a in arrays)
+    net = init_shader_params(2, model_cfg, device=mesh.device)
+    with torch.no_grad():
+        img = shader_forward(net, shard.take(vox), poses, mesh=mesh, gather=True)
+    if not bool(torch.isfinite(img).all()):
+        raise FloatingPointError(f"rank {rank}: the dp + spatial forward is not finite")
+    state, tx = create_shader_state(5, model_cfg, cfg, device=mesh.device)
+    state = distributed.replicate(mesh, state)
+    step = make_shader_train_step(model_cfg, cfg, tx, 16, mesh=mesh)
+    d = rank // 2  # P("data", "model"): this data index's rows of the batch, then its slab
+    local = n // mesh.shape["data"]
+    rows = slice(d * local, (d + 1) * local)
+    _, loss = step(state, shard.take(vox[rows]), shard.take(images[rows]), poses[rows], 6)
+    loss = float(loss)
+    if not np.isfinite(loss):
+        raise FloatingPointError(f"rank {rank}: non-finite dp + spatial loss {loss}")
+    return {"spatial_forward": list(img.shape), "spatial_loss": loss}
+
+
+def dryrun_multichip(n_devices: int, device=None, model_cfg=None) -> dict:
+    """The dry run over ``n_devices`` ranks (spawned processes, one process
+    group), tiny shapes (new_size 32, patch 16; ``model_cfg`` default
+    ``ShaderConfig(new_size=32)``, full widths), ranks on ``device`` (their
+    cards by default, sharing them past the card count; ``"cpu"``):
+    phase 1, one shader train step with the batch sharded one sample per
+    rank, the parameters replicated from rank 0 and the gradients
+    all-reduced; with ``n_devices`` >= 4 and even, phases 2 and 2b on a
+    ``(n / 2, 2)`` mesh (:data:`DRYRUN_PHASES`). Returns rank 0's results
+    (``loss``, and ``spatial_forward`` / ``spatial_loss``), which must be
+    finite; raises if any rank fails."""
     from rendernet_tpu_torch.models.shader import ShaderConfig
     from rendernet_tpu_torch.train.distributed import launch
 
     model_cfg = model_cfg or ShaderConfig(new_size=32)
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "loss")
+        out = os.path.join(tmp, "result.json")
         launch(_dryrun_rank, n_devices, (n_devices, f"file://{tmp}/init", device, model_cfg, out))
         with open(out) as f:
-            loss = float(f.read())
-    print(f"dryrun_multichip({n_devices}): dp ok, loss={loss:.4f}")
-    return loss
+            res = json.load(f)
+    print(f"dryrun_multichip({n_devices}): dp ok, loss={res['loss']:.4f}")
+    if "spatial_loss" in res:
+        print(f"dryrun_multichip({n_devices}): dp+spatial ok, out={tuple(res['spatial_forward'])}")
+        print(f"dryrun_multichip({n_devices}): dp+spatial TRAIN ok, "
+              f"loss={res['spatial_loss']:.4f}")
+    return res

@@ -6,6 +6,12 @@ a 3D residual stack + skip conv, the learned projection unit, 2D residual
 stacks at depth*32 and base*16 channels with skips, 4x4 convs, the deconv
 chain and a sigmoid. Differentiable in its parameters; in train mode with
 ``keep_prob < 1`` every encoder unit's output goes through dropout.
+
+Under spatial sharding (``train.distributed.spatial_sharding``) each rank
+of the model axis renders its own rows: it warps its slab of the camera
+grid's rows plus e_conv1's halo, every conv and deconv exchanges the rows
+it reads with the neighbouring ranks (``nn/layers.py``), and its output is
+its slab of the image rows.
 """
 from __future__ import annotations
 
@@ -22,13 +28,26 @@ from rendernet_tpu_torch.nn.layers import (
     ConvUnit,
     ProjectionUnit,
     ResBlock,
+    conv_halo,
     dropout,
     res_block_stack,
 )
-from rendernet_tpu_torch.ops.cuda_resample import rotate_resample_to_camera_multipass
-from rendernet_tpu_torch.ops.resample import rotate_resample_to_camera
+from rendernet_tpu_torch.ops.cuda_resample import (
+    rotate_resample_camera_patch_multipass,
+    rotate_resample_to_camera_multipass,
+)
+from rendernet_tpu_torch.ops.halo import RowShard
+from rendernet_tpu_torch.ops.resample import (
+    rotate_resample_camera_patch,
+    rotate_resample_to_camera,
+)
 
-__all__ = ["ShaderConfig", "ShaderRenderNet", "shader_forward", "init_shader_params"]
+__all__ = ["ShaderConfig", "ShaderRenderNet", "shader_forward", "init_shader_params",
+           "INPUT_HALO", "slab_rows"]
+
+# e_conv1's halo (5x5x5 stride 2): the camera-grid rows a rank's slab reads
+# from its neighbours, which each rank warps itself.
+INPUT_HALO = conv_halo(5, 2)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,25 +127,32 @@ class ShaderRenderNet(nn.Module):
         enc["e_conv11"] = ConvTranspose(16, cfg.out_channels, (4, 4), s1, g)
         self.encoder = enc
 
-    def _stack(self, prefix: str, n: int, x: torch.Tensor, remat: bool,
-               preact: bool) -> torch.Tensor:
+    def _stack(self, prefix: str, n: int, x: torch.Tensor, remat: bool, preact: bool,
+               shard: RowShard | None) -> torch.Tensor:
         """A residual stack, its skip conv and the fp32 shortcut add
         (``shader.py:106-116``)."""
         shortcut = x
         blocks = [self.encoder[f"{prefix}_{i}"] for i in range(1, n + 1)]
-        x = res_block_stack(blocks, x, remat=remat, preact=preact)
-        x = self.encoder[f"{prefix}_skip"]["con1_3X3"](x)
+        x = res_block_stack(blocks, x, remat=remat, preact=preact, shard=shard)
+        x = self.encoder[f"{prefix}_skip"]["con1_3X3"](x, shard=shard)
         return (x.float() + shortcut.float()).to(shortcut.dtype)
 
     def forward(self, vox: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None,
-                cfg: ShaderConfig | None = None) -> torch.Tensor:
+                cfg: ShaderConfig | None = None, shard: RowShard | None = None,
+                extended: bool = False) -> torch.Tensor:
         """``train`` turns dropout on (with ``keep_prob < 1``), drawing its
         masks from ``generator``, a generator on ``vox``'s device. ``cfg``,
         when given, supplies the training fields (keep_prob, remat,
         remat_3d, preact_policy, scan_blocks) in place of the network's
         own, as a JAX step passes its model config; its other fields must
-        be the network's."""
+        be the network's.
+
+        ``shard``: ``vox`` is this rank's rows of the camera grid (a slab
+        of ``H / m`` rows on a model axis of ``m``; ``extended``: with
+        :data:`INPUT_HALO` rows above and below already in place, as the
+        warp emits them), and the output is the rank's ``4 H / m`` image
+        rows. Dropout masks are the rows of the whole run's masks."""
         e = self.encoder
         if cfg is None:
             cfg = self.cfg
@@ -134,19 +160,34 @@ class ShaderRenderNet(nn.Module):
                 != self.cfg:
             raise ValueError(f"cfg {cfg} does not describe this network ({self.cfg})")
 
-        def unit(name, x):
-            return dropout(e[name](x), cfg.keep_prob, generator, train)
+        def unit(name, x, **kw):
+            return dropout(e[name](x, shard=shard, **kw), cfg.keep_prob, generator, train,
+                           shard=shard)
 
-        x = unit("e_conv3", unit("e_conv2", unit("e_conv1", vox)))
+        x = unit("e_conv1", vox, **({"extended": True} if extended else {}))
+        x = unit("e_conv3", unit("e_conv2", x))
         pre = cfg.preact_policy
-        x = self._stack("res1", cfg.res1_blocks, x, cfg.remat or cfg.remat_3d, pre)
-        x = e["projection_unit"](x)
-        x = self._stack("res2", cfg.res2_blocks, x, cfg.remat, pre)
+        x = self._stack("res1", cfg.res1_blocks, x, cfg.remat or cfg.remat_3d, pre, shard)
+        x = e["projection_unit"](x)  # a 1x1 conv over (depth, channel): local in the rows
+        x = self._stack("res2", cfg.res2_blocks, x, cfg.remat, pre, shard)
         x = unit("e_conv5", x)
-        x = self._stack("res3", cfg.res3_blocks, x, cfg.remat, pre)
+        x = self._stack("res3", cfg.res3_blocks, x, cfg.remat, pre, shard)
         for name in ("e_conv6", "e_conv7", "e_conv7_1", "e_conv8", "e_conv9", "e_conv10"):
             x = unit(name, x)
-        return torch.sigmoid(e["e_conv11"](x).float())
+        return torch.sigmoid(e["e_conv11"](x, shard=shard).float())
+
+
+def slab_rows(shard: RowShard, patch: int) -> tuple:
+    """(r0 - lo, r1 + hi): the camera-grid rows a rank warps for its slab
+    [r0, r1) of a patch of ``patch`` rows, with :data:`INPUT_HALO` (lo, hi).
+    The slabs must stay aligned to e_conv1's stride: ``patch`` must divide
+    by 2 x the model axis, else ``ValueError``."""
+    if patch % (2 * shard.size):
+        raise ValueError(f"a patch of {patch} rows over a model axis of {shard.size}: the "
+                         f"patch must divide by 2 x {shard.size}, so that every slab stays "
+                         "aligned to e_conv1's stride")
+    r0, r1 = shard.rows(patch)
+    return r0 - INPUT_HALO[0], r1 + INPUT_HALO[1]
 
 
 def shader_forward(
@@ -158,24 +199,49 @@ def shader_forward(
     dropout_generator: torch.Generator | None = None,
     compute_dtype: torch.dtype = torch.float32,
     resample: str = "exact",
+    mesh=None,
+    gather: bool = False,
 ) -> torch.Tensor:
     """Render: rotate+resample -> axis align -> network, on the device of
     ``voxels``. ``resample``: "exact" (direct trilinear) or "multipass"
     (the pass plan on the K1 kernel, in ``compute_dtype``). Gradients flow
     to the network's parameters as PyTorch's grad mode allows (render under
-    ``torch.no_grad()``); the resample is not differentiated, since the
-    adjoint kernel (K4) is not ported yet. ``train`` and
-    ``dropout_generator``: see :meth:`ShaderRenderNet.forward`."""
+    ``torch.no_grad()``); the resample runs outside autograd, as voxels and
+    pose are data to the shader (the texture step is the path that
+    differentiates a warp, through K4). ``train`` and
+    ``dropout_generator``: see :meth:`ShaderRenderNet.forward`.
+
+    ``mesh`` (``train.distributed.make_mesh``) with a model axis above 1:
+    ``voxels`` is this rank's rows (axis 1) of the raw grid, which the
+    ranks all-gather (a rotation mixes every axis); the rank warps its
+    slab of the camera grid's rows with e_conv1's halo (:func:`slab_rows`;
+    K1's last row pass emits just those rows) and returns its slab of the
+    image rows, or with ``gather`` the whole image (every rank)."""
+    from rendernet_tpu_torch.train.distributed import spatial_sharding
+
     new_size = net.cfg.new_size
+    shard = None
+    if mesh is not None and mesh.shape["model"] > 1:
+        shard = spatial_sharding(mesh, 5)
+    if resample not in ("exact", "multipass"):
+        raise ValueError(f"resample must be 'exact' or 'multipass', got {resample!r}")
     with torch.no_grad():
-        if resample == "multipass":
+        if shard is not None:
+            args = (shard.gather(voxels), view_params, (0, 0), new_size)
+            rows = slab_rows(shard, new_size)
+            if resample == "multipass":
+                cam = rotate_resample_camera_patch_multipass(
+                    *args, new_size=new_size, compute_dtype=compute_dtype, rows=rows)
+            else:
+                cam = rotate_resample_camera_patch(*args, new_size=new_size, rows=rows)
+        elif resample == "multipass":
             cam = rotate_resample_to_camera_multipass(
                 voxels, view_params, new_size=new_size, compute_dtype=compute_dtype)
-        elif resample == "exact":
-            cam = rotate_resample_to_camera(voxels, view_params, new_size=new_size)
         else:
-            raise ValueError(f"resample must be 'exact' or 'multipass', got {resample!r}")
-    return net(cam.to(compute_dtype), train=train, generator=dropout_generator)
+            cam = rotate_resample_to_camera(voxels, view_params, new_size=new_size)
+    out = net(cam.to(compute_dtype), train=train, generator=dropout_generator, shard=shard,
+              extended=shard is not None)
+    return shard.gather(out) if gather and shard is not None else out
 
 
 def init_shader_params(seed, cfg: ShaderConfig, device=None) -> ShaderRenderNet:

@@ -28,6 +28,17 @@ K=4 transposed convs, which :func:`conv_transpose_op` takes on every device
 as JAX does. Their inner convs are plain (:func:`conv_grad.plain_conv`),
 never a kernel, so they add no launch.
 
+Spatial sharding (``ops/halo.py``): every conv and deconv, the res blocks
+and their stacks take an optional ``shard``, this rank's
+:class:`~rendernet_tpu_torch.ops.halo.RowShard` of the activations' rows
+(axis 1; axis 0 of the HWNC stacks), or None for the whole tensor (the code
+path without sharding). A sharded conv extends its slab by the rows it
+reads from its neighbours (:func:`conv_halo`, :func:`deconv_halo`), runs
+the same routed op on the extended slab and keeps its own output rows
+(:func:`on_slab`); the crop's adjoint gives the discarded rows no
+cotangent, so the weight gradients count this rank's rows only, partial
+sums that the train step sums over the model axis.
+
 For the inverse renderer's pretrained-style networks: :class:`FullyConnected`
 and the ``relu`` res block (no alpha), whose ReLU is ``torch.maximum``: it
 splits the gradient 0.5/0.5 at an exact zero as ``jnp.maximum`` does
@@ -37,7 +48,7 @@ from __future__ import annotations
 
 import functools
 import itertools
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +60,7 @@ from rendernet_tpu_torch.nn import init
 from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_winograd, phase_conv, winograd
 from rendernet_tpu_torch.ops.conv_grad import (conv_wgrad, flip_io, gather_taps, plain_conv,
                                                plain_conv_wgrad, same_pads)
+from rendernet_tpu_torch.ops.halo import RowShard, exchange
 
 __all__ = [
     "CUDA_CONV2D",
@@ -62,6 +74,9 @@ __all__ = [
     "prelu",
     "conv_op",
     "conv_transpose_op",
+    "conv_halo",
+    "deconv_halo",
+    "on_slab",
     "Conv",
     "ConvTranspose",
     "ConvUnit",
@@ -248,7 +263,7 @@ def _depth_packed_conv(x: torch.Tensor, w: torch.Tensor, f: int) -> torch.Tensor
     return _DepthPackedConv.apply(x, w, f)
 
 
-def _kernel_for(x: torch.Tensor, w_shape, stride, ndim: int):
+def _kernel_for(x: torch.Tensor, w_shape, stride, ndim: int, x_shape=None):
     """Which route runs this conv, in the order of JAX's ``_conv_op``
     (``layers.py:285-346``): ``"conv3d"`` (K2) for the 3x3x3 stride-1 convs
     inside its envelope; ``"phase"`` (``ops/phase_conv.py``) for the
@@ -258,27 +273,28 @@ def _kernel_for(x: torch.Tensor, w_shape, stride, ndim: int):
     :data:`CUDA_CONV2D` on; ``"wino"`` (K3) for those with
     :data:`WINOGRAD_2D` "pallas", ``"wino_xla"`` (the plain Winograd
     expression) with any other true value; else None (the plain conv).
-    The forward and both gradients route alike."""
+    The forward and both gradients route alike. ``x_shape``: route a
+    tensor of that shape (and ``x``'s device and dtype)."""
+    shape = tuple(x.shape if x_shape is None else x_shape)
     use_k2 = x.is_cuda if CUDA_CONV3D == "auto" else bool(CUDA_CONV3D)
-    if ndim == 3 and use_k2 and cuda_conv3d.nc_conv3d_supported(x.shape, w_shape, stride):
+    if ndim == 3 and use_k2 and cuda_conv3d.nc_conv3d_supported(shape, w_shape, stride):
         return "conv3d"
     phase = _phase_mode(x)
-    if ndim == 3 and phase and phase_conv.phase_conv3d_supported(x.shape, w_shape, stride):
-        fanin = x.shape[-1]
+    if ndim == 3 and phase and phase_conv.phase_conv3d_supported(shape, w_shape, stride):
+        fanin = shape[-1]
         for s in stride:
             fanin *= s
         if phase == "all" or fanin <= PHASE_MAX_FANIN:
             return "phase"
-    if ndim == 3 and _depth_pack_on() and _depth_pack_factor(x.shape, w_shape, stride) > 1:
+    if ndim == 3 and _depth_pack_on() and _depth_pack_factor(shape, w_shape, stride) > 1:
         return "depth_pack"
-    if ndim == 2 and _conv2d_on(x) and cuda_conv2d.wc_conv2d_supported(x.shape, w_shape,
-                                                                        stride):
+    if ndim == 2 and _conv2d_on(x) and cuda_conv2d.wc_conv2d_supported(shape, w_shape, stride):
         return "conv2d"
     if ndim == 2 and WINOGRAD_2D:
         if WINOGRAD_2D == "pallas":
-            if cuda_winograd.wino_conv2d_supported(x.shape, w_shape, stride, x.dtype):
+            if cuda_winograd.wino_conv2d_supported(shape, w_shape, stride, x.dtype):
                 return "wino"
-        elif winograd.winograd3x3_supported(x.shape, w_shape, stride):
+        elif winograd.winograd3x3_supported(shape, w_shape, stride):
             return "wino_xla"
     return None
 
@@ -389,6 +405,81 @@ def conv_transpose_op(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int],
     return _plain_conv_transpose(x, w, stride, ndim)
 
 
+def conv_halo(k: int, s: int, align: int = 1) -> Tuple[int, int]:
+    """Halo rows (above, below) of a SAME conv with kernel ``k`` and stride
+    ``s`` along the rows, on a slab whose start and length are multiples of
+    ``s``: the SAME pads ``((k - s) // 2, the rest)`` of any extent that
+    ``s`` divides, each rounded up to a multiple of ``max(s, align)``.
+    The extended slab then starts at a multiple of ``s`` and ``s`` divides
+    its length, so the SAME conv of it pads as the whole tensor's does and
+    its output row ``a / s + i`` is the slab's output row ``i``: it reads
+    rows ``s * i - pad_lo .. s * i - pad_lo + k - 1`` of the slab, all
+    inside the extended one. Rows the halo adds beyond the pads (e_conv1's
+    (2, 2) for its pads (1, 2) at stride 2) keep the extended slab aligned
+    to the stride; no output that is kept reads them."""
+    total = max(k - s, 0)
+    step = max(s, align)
+    return step * -(-(total // 2) // step), step * -(-(total - total // 2) // step)
+
+
+def deconv_halo(k: int, s: int) -> Tuple[int, int]:
+    """Halo rows (above, below) of a TF-SAME transposed conv with kernel
+    ``k`` and stride ``s`` (output = input x s): its output row ``o`` sums
+    input rows ``i`` with ``o = s * i + t - pad_lo`` over taps ``t < k``,
+    ``pad_lo = (k - s) // 2`` the forward conv's, so the slab's output rows
+    ``[s * i0, s * i1)`` read input rows ``i0 - (k - 1 - pad_lo) // s`` to
+    ``i1 - 1 + (pad_lo - 1 + s) // s``. K=4: (1, 1) at stride 2, (2, 1)
+    at stride 1."""
+    pad_lo = max(k - s, 0) // 2
+    return (k - 1 - pad_lo) // s, (pad_lo - 1 + s) // s
+
+
+def on_slab(fn, x: torch.Tensor, shard: RowShard, halo: Tuple[int, int], up: int = 1,
+            down: int = 1, axis: int = 1, extended: bool = False) -> torch.Tensor:
+    """``fn`` on this rank's rows of ``x``: the slab extended by ``halo``
+    (:func:`~rendernet_tpu_torch.ops.halo.exchange`; with ``extended`` the
+    caller has put those rows in place), then the rows of ``fn``'s output
+    that belong to the slab, ``fn`` mapping ``n`` input rows to ``n * up /
+    down`` output rows. ``down`` (a stride) must divide the slab and the
+    halo, else ``ValueError``."""
+    lo, hi = halo
+    xe = x if extended else exchange(x, lo, hi, shard, axis)
+    h = xe.shape[axis] - lo - hi
+    if (h * up) % down or (lo * up) % down or (hi * up) % down:
+        raise ValueError(f"a slab of {h} rows with a halo of {halo} is not aligned to the "
+                         f"stride {down}: the patch must divide by 2 x the model axis")
+    y = fn(xe)
+    return y.narrow(axis, lo * up // down, h * up // down)
+
+
+def _conv_slab_halo(x: torch.Tensor, w_shape, stride, ndim: int) -> Tuple[int, int]:
+    """:func:`conv_halo` of a conv, rounded up to whole 2-row output tiles
+    where the extended slab routes to a Winograd form: the extended slab
+    then starts at an even row of the whole tensor and the tiles fall
+    where they fall without sharding."""
+    halo = conv_halo(w_shape[0], stride[0])
+    if ndim == 2 and any(halo):
+        tiled = conv_halo(w_shape[0], stride[0], 2)
+        shape = (x.shape[0], x.shape[1] + sum(tiled)) + tuple(x.shape[2:])
+        if _kernel_for(x, w_shape, stride, ndim, shape) in ("wino", "wino_xla"):
+            return tiled
+    return halo
+
+
+def conv_slab(x: torch.Tensor, w: torch.Tensor, stride: Sequence[int], ndim: int,
+              shard: RowShard | None, extended: bool = False) -> torch.Tensor:
+    """:func:`conv_op` on this rank's rows (``shard``; None: the whole
+    tensor): the slab extended by :func:`conv_halo`, the routed op, the
+    slab's output rows. ``extended``: ``x`` already holds the halo rows."""
+    stride = tuple(stride)
+    if shard is None:
+        return conv_op(x, w, stride, ndim)
+    halo = conv_halo(w.shape[0], stride[0]) if extended else \
+        _conv_slab_halo(x, w.shape, stride, ndim)
+    return on_slab(lambda xe: conv_op(xe, w, stride, ndim), x, shard, halo, 1, stride[0],
+                   extended=extended)
+
+
 def conv_weight_grad(x: torch.Tensor, gy: torch.Tensor, w_shape, ndim: int) -> torch.Tensor:
     """Weight gradient (JAX layout) of :func:`conv_op`'s SAME stride-1
     odd-kernel conv of ``x``, on the route the forward's implies: K2w for
@@ -451,17 +542,25 @@ def act_conv(z: torch.Tensor, alpha: torch.Tensor, w: torch.Tensor, b: torch.Ten
 
 
 def dropout(x: torch.Tensor, keep_prob: float, generator: torch.Generator | None,
-            train: bool = True) -> torch.Tensor:
+            train: bool = True, shard: RowShard | None = None) -> torch.Tensor:
     """Inverted dropout (``layers.py:822-828``): in train mode with
     ``keep_prob < 1`` each value is kept with probability ``keep_prob`` and
     scaled by ``1 / keep_prob``; the identity otherwise. The mask is drawn
     from ``generator`` (on ``x``'s device); ``jax.random`` draws other bits
-    from one seed, so the two packages agree in distribution only."""
+    from one seed, so the two packages agree in distribution only. With a
+    ``shard`` ``x`` is this rank's rows: the mask is drawn at the whole
+    tensor's shape and sliced, so the ranks of a model axis draw the rows
+    of the one mask a run without sharding draws."""
     if not train or keep_prob >= 1.0:
         return x
     if generator is None:
         raise ValueError("train-mode dropout requires a generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    if shard is None:
+        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    else:
+        whole = list(x.shape)
+        whole[shard.axis] *= shard.size
+        keep = shard.take(torch.rand(whole, generator=generator, device=x.device) < keep_prob)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -476,9 +575,12 @@ class Conv(nn.Module):
         self.weight = nn.Parameter(to_torch_layout(w).contiguous())
         self.bias = nn.Parameter(init.constant((out_ch,), 0.001))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard: RowShard | None = None,
+                extended: bool = False) -> torch.Tensor:
+        """``shard``, ``extended``: :func:`conv_slab`."""
         w = to_jax_layout(self.weight).to(x.dtype)
-        return conv_op(x, w, self.stride, len(self.stride)) + self.bias.to(x.dtype)
+        return conv_slab(x, w, self.stride, len(self.stride), shard, extended) \
+            + self.bias.to(x.dtype)
 
 
 class ConvTranspose(nn.Module):
@@ -493,9 +595,18 @@ class ConvTranspose(nn.Module):
         self.weight = nn.Parameter(to_torch_layout(w).contiguous())
         self.bias = nn.Parameter(init.constant((out_ch,), 0.001))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard: RowShard | None = None) -> torch.Tensor:
+        """``shard``: this rank's rows, extended by :func:`deconv_halo`; its
+        output rows are ``stride`` x its input rows."""
         w = to_jax_layout(self.weight).to(x.dtype)
-        return conv_transpose_op(x, w, self.stride, len(self.stride)) + self.bias.to(x.dtype)
+        ndim = len(self.stride)
+        if shard is None:
+            y = conv_transpose_op(x, w, self.stride, ndim)
+        else:
+            s = self.stride[0]
+            y = on_slab(lambda xe: conv_transpose_op(xe, w, self.stride, ndim), x, shard,
+                        deconv_halo(w.shape[0], s), up=s)
+        return y + self.bias.to(x.dtype)
 
 
 class FullyConnected(nn.Module):
@@ -522,8 +633,11 @@ class ConvUnit(nn.Module):
         self.add_module(name, conv)
         self.alpha = nn.Parameter(init.zeros((out_ch,)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return prelu(getattr(self, self.conv_name)(x), self.alpha)
+    def forward(self, x: torch.Tensor, shard: RowShard | None = None, **kw) -> torch.Tensor:
+        """``shard`` (and ``extended``, for a conv): the conv's (a
+        :class:`FullyConnected` unit takes none)."""
+        layer = getattr(self, self.conv_name)
+        return prelu(layer(x) if shard is None else layer(x, shard=shard, **kw), self.alpha)
 
 
 class ResBlock(nn.Module):
@@ -545,49 +659,70 @@ class ResBlock(nn.Module):
             self.alpha = nn.Parameter(init.zeros((ch,)))
         self.conv2_3x3 = Conv(ch, ch, k, s, generator)
 
-    def forward(self, x: torch.Tensor, preact: bool = False) -> torch.Tensor:
-        net = self.con1_3X3(x)
+    def forward(self, x: torch.Tensor, preact: bool = False,
+                shard: RowShard | None = None) -> torch.Tensor:
+        """``shard``: this rank's rows; each conv exchanges its halo (with
+        ``preact``, :func:`act_conv` runs on the pre-activation's extended
+        slab: ``prelu`` is elementwise, so it commutes with the exchange,
+        and its alpha and weight gradients are the slab's partial sums)."""
+        net = self.con1_3X3(x, shard=shard)
         if self.activation == "relu":
             if preact:
                 raise ValueError("preact applies to PReLU blocks only")
-            net = self.conv2_3x3(torch.maximum(net, net.new_zeros(())))
+            net = self.conv2_3x3(torch.maximum(net, net.new_zeros(())), shard=shard)
         elif preact:
             c2 = self.conv2_3x3
-            net = act_conv(net, self.alpha.to(net.dtype), to_jax_layout(c2.weight).to(net.dtype),
-                           c2.bias.to(net.dtype), self.ndim)
+            args = (self.alpha.to(net.dtype), to_jax_layout(c2.weight).to(net.dtype),
+                    c2.bias.to(net.dtype), self.ndim)
+            if shard is None:
+                net = act_conv(net, *args)
+            else:
+                net = on_slab(lambda ze: act_conv(ze, *args), net, shard,
+                              _conv_slab_halo(net, args[1].shape, (1,) * self.ndim, self.ndim))
         else:
-            net = self.conv2_3x3(prelu(net, self.alpha))
+            net = self.conv2_3x3(prelu(net, self.alpha), shard=shard)
         return net + x
 
-    def forward_hwnc(self, xh: torch.Tensor) -> torch.Tensor:
+    def forward_hwnc(self, xh: torch.Tensor, shard: RowShard | None = None) -> torch.Tensor:
         """The block on an HWNC input as two fused K5 ops (``_res_stack_hwnc``'s
         body, ``layers.py:776-784``): prelu/relu(conv1 + b1), then
-        conv2 + b2 + xh. Parameters are cast to ``xh``'s dtype."""
+        conv2 + b2 + xh. Parameters are cast to ``xh``'s dtype. ``shard``:
+        this rank's rows (axis 0 here), each op on its slab extended by one
+        row each side; the residual is the first op's extended input."""
         dt = xh.dtype
         c1, c2 = self.con1_3X3, self.conv2_3x3
         w1, b1 = to_jax_layout(c1.weight).to(dt), c1.bias.to(dt)
         if self.activation == "prelu":
-            net = cuda_conv2d.wc_conv2d_prelu_hwnc(xh, w1, b1, self.alpha.to(dt))
+            def first(x):
+                return cuda_conv2d.wc_conv2d_prelu_hwnc(x, w1, b1, self.alpha.to(dt))
         else:
-            net = cuda_conv2d.wc_conv2d_relu_hwnc(xh, w1, b1)
-        return cuda_conv2d.wc_conv2d_res_hwnc(net, to_jax_layout(c2.weight).to(dt),
-                                              c2.bias.to(dt), xh)
+            def first(x):
+                return cuda_conv2d.wc_conv2d_relu_hwnc(x, w1, b1)
+        w2, b2 = to_jax_layout(c2.weight).to(dt), c2.bias.to(dt)
+        if shard is None:
+            return cuda_conv2d.wc_conv2d_res_hwnc(first(xh), w2, b2, xh)
+        xe = exchange(xh, 1, 1, shard, 0)
+        net = on_slab(first, xe, shard, (1, 1), axis=0, extended=True)
+        return on_slab(lambda ne: cuda_conv2d.wc_conv2d_res_hwnc(ne, w2, b2, xe), net, shard,
+                       (1, 1), axis=0)
 
 
-def _hwnc_stack(blocks: Sequence[ResBlock], x: torch.Tensor) -> bool:
+def _hwnc_stack(blocks: Sequence[ResBlock], x: torch.Tensor, halo_rows: int = 0) -> bool:
     """Whether the stack runs HWNC-resident on K5 (``layers.py:683-697``):
     2D 3x3 blocks whose width is the input's, :data:`CUDA_CONV2D` on, and
-    the input inside ``wc_conv2d_supported`` with two output-sized streams
-    (the fused epilogues' envelope)."""
+    the input (its rows extended by ``halo_rows`` on a sharded slab) inside
+    ``wc_conv2d_supported`` with two output-sized streams (the fused
+    epilogues' envelope)."""
     if not blocks or blocks[0].ndim != 2 or not _conv2d_on(x):
         return False
     c = x.shape[-1]
+    shape = (x.shape[0], x.shape[1] + halo_rows) + tuple(x.shape[2:])
     return (tuple(blocks[0].con1_3X3.weight.shape) == (c, c, 3, 3)
-            and cuda_conv2d.wc_conv2d_supported(x.shape, (3, 3, c, c), (1, 1), obufs=2))
+            and cuda_conv2d.wc_conv2d_supported(shape, (3, 3, c, c), (1, 1), obufs=2))
 
 
 def res_block_stack(blocks: Sequence[ResBlock], x: torch.Tensor, remat: bool = False,
-                    preact: bool = False) -> torch.Tensor:
+                    preact: bool = False, shard: RowShard | None = None) -> torch.Tensor:
     """Apply the res blocks in order (``res_block_stack``, :650-700).
 
     ``remat`` recomputes each block's forward in the backward pass
@@ -601,20 +736,23 @@ def res_block_stack(blocks: Sequence[ResBlock], x: torch.Tensor, remat: bool = F
     A stack that :func:`_hwnc_stack` admits runs as JAX's
     ``_res_stack_hwnc`` (:755-801): one transpose to HWNC, each block as
     :meth:`ResBlock.forward_hwnc` (under ``remat``, checkpointed), one
-    transpose back. As in JAX, that route ignores ``preact``."""
-    if _hwnc_stack(blocks, x):
+    transpose back. As in JAX, that route ignores ``preact``. ``shard``:
+    this rank's rows (the blocks exchange their halos; under ``remat`` the
+    recompute exchanges again)."""
+    if _hwnc_stack(blocks, x, 2 if shard is not None else 0):
         xh = cuda_conv2d.nhwc_to_hwnc(x)
         for blk in blocks:
             if remat and torch.is_grad_enabled():
-                xh = torch.utils.checkpoint.checkpoint(blk.forward_hwnc, xh, use_reentrant=False)
+                xh = torch.utils.checkpoint.checkpoint(blk.forward_hwnc, xh, shard,
+                                                       use_reentrant=False)
             else:
-                xh = blk.forward_hwnc(xh)
+                xh = blk.forward_hwnc(xh, shard)
         return cuda_conv2d.hwnc_to_nhwc(xh)
     for blk in blocks:
         if remat and torch.is_grad_enabled():
-            x = torch.utils.checkpoint.checkpoint(blk, x, use_reentrant=False)
+            x = torch.utils.checkpoint.checkpoint(blk, x, False, shard, use_reentrant=False)
         else:
-            x = blk(x, preact=preact and not remat)
+            x = blk(x, preact=preact and not remat, shard=shard)
     return x
 
 

@@ -10,7 +10,7 @@ places from one seed, and tests hand both the same offsets.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,11 +43,15 @@ def crop_voxel(voxels: torch.Tensor, offsets: Sequence[int], patch_size: int) ->
 
 
 def crop_image(images: torch.Tensor, offsets: Sequence[int], patch_size: int,
-               factor: int) -> torch.Tensor:
-    """Crop ``[B, H, W, C]`` images at voxel ``offsets`` scaled by ``factor``."""
+               factor: int, rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Crop ``[B, H, W, C]`` images at voxel ``offsets`` scaled by ``factor``.
+    ``rows`` = (r0, r1): only the crop's image rows for the patch rows [r0,
+    r1) (a rank's slab under spatial sharding), ``factor * (u0 + r0)`` to
+    ``factor * (u0 + r1)``."""
     u, v = (int(o) * factor for o in offsets)
     p = patch_size * factor
-    return images[:, u:u + p, v:v + p]
+    r0, r1 = (0, patch_size) if rows is None else rows
+    return images[:, u + factor * r0:u + factor * r1, v:v + p]
 
 
 def _random_crop(generator: torch.Generator, voxel_grids, image_grids, patch_size: int):

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from rendernet_tpu_torch.ops import _native
+from rendernet_tpu_torch.ops.halo import pad_rows
 from rendernet_tpu_torch.ops.transforms import grid_to_grid_matrix, voxel_to_image_axes
 
 __all__ = [
@@ -725,18 +726,25 @@ def rotate_resample_camera_patch_multipass(
     new_size: int = 128,
     max_scale: float | None = None,
     compute_dtype: torch.dtype = torch.float32,
+    rows: Tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Crop-fused multipass resample (``pallas_resample.py:681-712``): equals
     ``rotate_resample_to_camera_multipass(...)[:, u0:u0+P, v0:v0+P]``, with
     the last pass of each cropped axis emitting only the window.
     ``offsets`` = (u0, v0), the crop starts in the image-aligned (row, col)
-    axes; depth is never cropped."""
+    axes; depth is never cropped. ``rows`` = (r0, r1): only the patch's
+    rows [r0, r1) (a rank's slab and its halo under spatial sharding), the
+    row window of the last y pass; rows outside [0, P) are zeros, where
+    SAME padding puts them."""
     # Image rows u map to logical y as j = N-1-u (voxel_to_image_axes), so
-    # the u-window [u0, u0+P) is the y-window starting at N-P-u0; image
-    # columns v map to logical z directly.
+    # the u-window [u0 + c0, u0 + c1) is the y-window starting at
+    # N - u0 - c1; image columns v map to logical z directly.
+    r0, r1 = (0, patch_size) if rows is None else rows
+    c0, c1 = max(r0, 0), min(r1, patch_size)
     u0, v0 = (float(o) for o in offsets)
-    windows = {1: (float(new_size - patch_size) - u0, patch_size), 2: (v0, patch_size)}
-    return voxel_to_image_axes(
+    windows = {1: (float(new_size - c1) - u0, c1 - c0), 2: (v0, patch_size)}
+    cam = voxel_to_image_axes(
         rotate_resample_multipass(voxels, view_params, size, new_size, crop_windows=windows,
                                   max_scale=max_scale, compute_dtype=compute_dtype)
     )
+    return pad_rows(cam, c0 - r0, r1 - c1, 1)

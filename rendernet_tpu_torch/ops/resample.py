@@ -12,6 +12,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from rendernet_tpu_torch.ops.halo import pad_rows
 from rendernet_tpu_torch.ops.transforms import grid_to_grid_matrix, voxel_to_image_axes
 
 __all__ = [
@@ -122,19 +123,24 @@ def rotate_resample_camera_patch(
     patch_size: int,
     size: int | None = None,
     new_size: int = 128,
+    rows: Tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Crop-fused resample (``resample.py:190``): equals
     ``rotate_resample_to_camera(...)[:, u0:u0+P, v0:v0+P]`` but gathers only
     the window. ``offsets`` = (u0, v0), the crop starts in the image-aligned
-    (row, col) axes; depth is never cropped."""
+    (row, col) axes; depth is never cropped. ``rows`` = (r0, r1): only the
+    patch's rows [r0, r1) (a rank's slab and its halo under spatial
+    sharding); rows outside [0, P) are zeros, where SAME padding puts them."""
     if size is None:
         size = voxels.shape[1]
+    r0, r1 = (0, patch_size) if rows is None else rows
+    c0, c1 = max(r0, 0), min(r1, patch_size)
     matrix = grid_to_grid_matrix(view_params, size=size, new_size=new_size)
     # The image-aligned grid G[b, u, v, d] is the raw resample out[b, i, j, k]
     # at (i = v, j = new_size - 1 - u, k = d) (voxel_to_image_axes), so the
     # window's destination points are generated in G's index order.
     dev = matrix.device
-    u = int(offsets[0]) + torch.arange(patch_size, device=dev)
+    u = int(offsets[0]) + torch.arange(c0, c1, device=dev)
     v = int(offsets[1]) + torch.arange(patch_size, device=dev)
     xk = torch.arange(new_size, dtype=torch.float32, device=dev)[None, None, None, :]
     yj = (float(new_size - 1) - u.to(torch.float32))[None, :, None, None]
@@ -144,4 +150,4 @@ def rotate_resample_camera_patch(
         m = matrix[:, r, :, None, None, None]
         return m[:, 0] * xk + m[:, 1] * yj + m[:, 2] * zi + m[:, 3]
 
-    return trilinear_gather(voxels, row(0), row(1), row(2))
+    return pad_rows(trilinear_gather(voxels, row(0), row(1), row(2)), c0 - r0, r1 - c1, 1)

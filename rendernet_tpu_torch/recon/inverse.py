@@ -154,14 +154,21 @@ def _freeze(model: ReconModel) -> None:
 
 
 def make_recon_step(model: ReconModel, cfg: ReconConfig, scan_steps: Optional[int] = None,
-                    loss_fn=None):
+                    loss_fn=None, mesh=None):
     """The optimisation step, as ``run(latents, target)``.
 
     Without ``scan_steps``: one SGD step -> (latents, per-sample loss [B]).
     With it: ``scan_steps`` steps in a loop -> (latents, loss history [T,
     B]). Per-group learning rates as in the reference. ``loss_fn(model,
     latents, target, cfg) -> [B]`` swaps the forward model (default
-    :func:`recon_per_sample_loss`). Freezes ``model``."""
+    :func:`recon_per_sample_loss`). Freezes ``model``. ``mesh``
+    (``train.distributed.make_mesh``): the step runs on each rank alone,
+    as JAX's; a model axis above 1 (spatial sharding) is not taken yet
+    and raises ``NotImplementedError``."""
+    if mesh is not None and mesh.shape["model"] > 1:
+        from rendernet_tpu_torch.train.distributed import MODEL_AXIS_TODO
+
+        raise NotImplementedError(MODEL_AXIS_TODO)
     if loss_fn is None:
         loss_fn = recon_per_sample_loss
     _freeze(model)

@@ -19,9 +19,19 @@ rank that stops fails the others instead of hanging them.
 The gradient all-reduce moves :func:`gradient_bytes` per step: 4 bytes per
 parameter in fp32, 2 in bf16.
 
-Not ported: spatial sharding (``spatial_sharding``, a ``model`` axis above
-1). XLA inserts JAX's halo exchanges; here each 3-D conv would need one
-written, and the projection unit an all-gather (ROADMAP.md queue 1).
+Spatial sharding: a mesh with a ``model`` axis above 1 (:func:`make_mesh`)
+lays the ranks out as JAX's ``reshape(n_data, n_model)``, ``rank = d *
+n_model + m``, and splits the camera grid's rows (axis 1 of ``[B, H, W, D,
+C]``) and the image rows over the ranks of each model group
+(:func:`spatial_sharding`, ``ops/halo.py``). Each rank warps and renders
+its own rows; every conv and deconv extends its slab by the rows it reads
+from its neighbours (a halo exchange, the counterpart of the ones XLA
+inserts), the elementwise ops and the projection unit (a 1x1 conv over
+depth and channels, local in the rows) need none. The train step sums the
+loss and the gradients over the model axis in fp32 (each rank's are
+partial sums over its rows) before the data axis's mean.
+:func:`gather_rows` assembles the whole tensor. The texture step and
+inverse rendering do not take a model axis yet (ROADMAP.md queue 1).
 ``data_sharding`` has no counterpart: a rank's tensor is its shard.
 """
 from __future__ import annotations
@@ -36,6 +46,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from rendernet_tpu_torch.ops.halo import RowShard, neighbour_groups
+
 __all__ = [
     "DEFAULT_TIMEOUT",
     "Mesh",
@@ -46,11 +58,13 @@ __all__ = [
     "make_mesh",
     "make_hybrid_mesh",
     "spatial_sharding",
+    "gather_rows",
     "shard_batch",
     "shard_host_local_batch",
     "process_shard",
     "replicate",
     "all_reduce_mean",
+    "model_sum",
     "gradient_bytes",
     "launch",
 ]
@@ -58,9 +72,10 @@ __all__ = [
 # Every collective of the group waits at most this long for the other ranks.
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 
-_SPATIAL = ("spatial sharding (a 'model' mesh axis above 1, JAX's spatial_sharding) is not "
-            "ported: it needs a halo exchange in every 3-D conv and an all-gather before the "
-            "projection unit (ROADMAP.md queue 1, spatial sharding)")
+# What the texture step and inverse rendering say to a model axis above 1.
+MODEL_AXIS_TODO = ("spatial sharding (a 'model' mesh axis above 1) covers the shader forward and "
+                   "the shader train step; the texture step and inverse rendering under a model "
+                   "axis are ROADMAP.md queue 1's open item")
 
 
 def world() -> Tuple[int, int]:
@@ -162,33 +177,60 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ``('data', 'model')`` mesh over the ranks: ``shape`` maps each axis
-    to its size, as JAX's ``Mesh.shape``; ``group`` is the data axis's process
-    group (None in a run of one process); ``device`` this rank's device."""
+    to its size, as JAX's ``Mesh.shape``; ``group`` is the data axis's
+    process group (this rank's and the ranks at its model index; None in a
+    run of one process), ``model_group`` the model axis's (None without a
+    model axis), ``model_pairs`` the groups of its adjacent ranks (the halo
+    exchange's) and ``model_rank`` this rank's index on it; ``device`` this
+    rank's device."""
 
     shape: Mapping[str, int]
     group: Any
     device: torch.device
     axis_names: Tuple[str, str] = ("data", "model")
+    model_group: Any = None
+    model_rank: int = 0
+    model_pairs: Tuple[Any, ...] = ()
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1, device=None) -> Mesh:
     """The ``('data', 'model')`` mesh over every rank of the group (one rank
-    in a run of one process). ``n_data`` must be the world size: PyTorch runs
-    one process per card, so the data axis is the group. ``device``: this
-    rank's (default :func:`rank_device` in a group, else the card;
-    ``"cpu"``)."""
+    in a run of one process), laid out as JAX's ``reshape(n_data,
+    n_model)``: rank ``d * n_model + m`` sits at data index ``d`` and model
+    index ``m``, the model axis minormost. ``n_data`` defaults to the world
+    size over ``n_model``; ``n_data * n_model`` must be the world size
+    (PyTorch runs one process per card), else ``ValueError``. Every rank
+    creates every group, in the same order. ``device``: this rank's
+    (default :func:`rank_device` in a group, else the card; ``"cpu"``)."""
     from rendernet_tpu_torch import resolve_device
 
-    if n_model != 1:
-        raise NotImplementedError(_SPATIAL)
-    _, n = world()
-    if n_data is not None and n_data != n:
+    rank, n = world()
+    if n_model < 1 or n % n_model:
+        raise ValueError(f"a model axis of {n_model} over {n} process(es)")
+    if n_data is None:
+        n_data = n // n_model
+    if n_data * n_model != n:
         raise ValueError(
-            f"a data axis of {n_data} over {n} process(es): PyTorch runs one process per card, "
-            f"so launch {n_data} processes (torchrun --nproc-per-node {n_data}, or "
-            "--coordinator / --num-processes / --process-id on each)")
-    return Mesh({"data": n, "model": 1}, dist.group.WORLD if dist.is_initialized() else None,
-                resolve_device(device))
+            f"a ({n_data}, {n_model}) mesh over {n} process(es): PyTorch runs one process per "
+            f"card, so launch {n_data * n_model} processes (torchrun --nproc-per-node "
+            f"{n_data * n_model}, or --coordinator / --num-processes / --process-id on each)")
+    dev = resolve_device(device)
+    if n_model == 1:
+        return Mesh({"data": n, "model": 1}, dist.group.WORLD if dist.is_initialized() else None,
+                    dev)
+    data_group = model_group = None
+    model_pairs = ()
+    for m in range(n_model):  # the data axis's groups, then the model axis's
+        g = dist.new_group([d * n_model + m for d in range(n_data)])
+        if rank % n_model == m:
+            data_group = g
+    for d in range(n_data):  # each model axis's group and its neighbour pairs
+        line = [d * n_model + m for m in range(n_model)]
+        g, pairs = dist.new_group(line), neighbour_groups(line)
+        if rank // n_model == d:
+            model_group, model_pairs = g, pairs
+    return Mesh({"data": n_data, "model": n_model}, data_group, dev,
+                model_group=model_group, model_rank=rank % n_model, model_pairs=model_pairs)
 
 
 def make_hybrid_mesh(n_model: int = 1, device=None) -> Mesh:
@@ -196,14 +238,32 @@ def make_hybrid_mesh(n_model: int = 1, device=None) -> Mesh:
     ``--process-id`` numbering). JAX lays its data axis out DCN-major so
     that the all-reduce crosses hosts once per slice; NCCL picks its own
     rings and trees within and across nodes, so the layout is the same as
-    :func:`make_mesh`'s."""
+    :func:`make_mesh`'s (a model group is ``n_model`` consecutive ranks)."""
     return make_mesh(n_model=n_model, device=device)
 
 
-def spatial_sharding(mesh: Mesh, ndim: int, axis: int = 1):
-    """Not ported: a spatial axis sharded over ``model`` (see the module
-    docstring)."""
-    raise NotImplementedError(_SPATIAL)
+def spatial_sharding(mesh: Mesh, ndim: int, axis: int = 1) -> RowShard:
+    """Axis ``axis`` of ``ndim``-D tensors sharded over the mesh's model
+    axis, JAX's ``NamedSharding(mesh, P(None, 'model', ...))``: a
+    :class:`~rendernet_tpu_torch.ops.halo.RowShard` that answers this
+    rank's rows of a whole tensor (``take``, ``rows``) and of its own
+    (``local_rows``). Axis 1 only, as JAX's callers shard (the camera
+    grid's and the images' rows); another raises ``NotImplementedError``."""
+    if axis != 1:
+        raise NotImplementedError(f"spatial sharding of axis {axis}: the port shards axis 1 "
+                                  "(the rows), as JAX's callers do")
+    if ndim < 2:
+        raise ValueError(f"a {ndim}-D tensor has no axis 1")
+    return RowShard(mesh.model_rank, mesh.shape["model"], mesh.model_group, axis,
+                    mesh.model_pairs)
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh, axis: int = 1) -> torch.Tensor:
+    """The whole tensor from this rank's rows ``x`` along ``axis`` (an
+    all-gather over the model axis, in model order), as JAX gives a
+    sharded array to its reader; ``x`` itself without a model axis. Not
+    differentiated."""
+    return spatial_sharding(mesh, x.dim(), axis).gather(x)
 
 
 def shard_host_local_batch(mesh: Mesh, batch):
@@ -240,11 +300,13 @@ def process_shard(batch_size: int) -> Tuple[int, int, int]:
 
 def replicate(mesh: Mesh, state):
     """Make every rank's ``TrainState`` equal to rank 0's: its parameters,
-    buffers, optimizer state and step, in one broadcast of their bytes.
-    Returns the state (its tensors overwritten in place)."""
+    buffers, optimizer state and step, in one broadcast of their bytes over
+    the whole world (over the data group alone, which is the world,
+    without a model axis). Returns the state (its tensors overwritten in
+    place)."""
     from rendernet_tpu_torch.train.checkpoint import _flatten
 
-    if mesh.group is None or mesh.shape["data"] == 1:
+    if mesh.group is None or mesh.shape["data"] * mesh.shape["model"] == 1:
         return state
     net = state.params
     leaves = ([t.detach() for t in net.parameters()] + list(net.buffers())
@@ -254,7 +316,7 @@ def replicate(mesh: Mesh, state):
     if any(t.device != mesh.device for t in leaves):
         raise ValueError(f"replicate: the state is not on the mesh's device {mesh.device}")
     flat = torch.cat([t.view(-1).view(torch.uint8) for t in leaves])
-    dist.broadcast(flat, src=0, group=mesh.group)
+    dist.broadcast(flat, src=0, group=mesh.group if mesh.shape["model"] == 1 else None)
     off = 0
     with torch.no_grad():
         for t in leaves:
@@ -274,6 +336,17 @@ def all_reduce_mean(tensors: Sequence[torch.Tensor], mesh: Mesh,
     flat = torch.cat([t.reshape(-1).to(dtype) for t in tensors])
     dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
     flat = flat.to(torch.float32).div_(mesh.shape["data"])
+    return [c.view(t.shape) for c, t in zip(torch.split(flat, sizes), tensors)]
+
+
+def model_sum(tensors: Sequence[torch.Tensor], mesh: Mesh) -> List[torch.Tensor]:
+    """The sum over the model axis of each tensor, as fp32 tensors of the
+    same shapes (one flat fp32 buffer, one all-reduce over
+    ``mesh.model_group``): under spatial sharding each rank's loss and
+    gradients are partial sums over its rows."""
+    sizes = [t.numel() for t in tensors]
+    flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.model_group)
     return [c.view(t.shape) for c, t in zip(torch.split(flat, sizes), tensors)]
 
 

@@ -23,6 +23,20 @@ update (``distributed.all_reduce_mean``; the gradients in bf16 with
 ``cfg.allreduce_dtype="bfloat16"``, as JAX's shard_map path), so every
 rank applies the same update. The crop comes from the shared step seed;
 the dropout seed is folded with the rank, as JAX's ``fold_in(axis_index)``.
+
+Spatial sharding: with a model axis above 1 each rank of a model group
+takes its rows of the voxels and the images (JAX's ``P("data", "model")``),
+all-gathers them over the model axis, warps its slab of the camera grid's
+rows with e_conv1's halo and renders its slab of the image rows
+(``models/shader.py``). Its loss is its rows' share: greyscale, the BCE
+summed over its rows per image, mean over its batch rows; RGB, its
+squared errors over the whole image's element count. The loss and the
+gradients (partial sums over the rows, since every gradient is linear in
+the cotangents) are summed over the model axis in fp32, then averaged over
+the data axis as without one (in ``cfg.allreduce_dtype``; JAX's bf16 path
+reduces over ``data`` only, so the model-axis sum stays fp32). The crop is
+shared, and the dropout seed is folded with the data rank only, so the
+ranks of a model group draw the rows of one mask.
 """
 from __future__ import annotations
 
@@ -32,7 +46,12 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from rendernet_tpu_torch.models.shader import ShaderConfig, ShaderRenderNet, init_shader_params
+from rendernet_tpu_torch.models.shader import (
+    ShaderConfig,
+    ShaderRenderNet,
+    init_shader_params,
+    slab_rows,
+)
 from rendernet_tpu_torch.models.texture_face import (
     TextureFaceConfig,
     TextureFaceRenderNet,
@@ -108,16 +127,17 @@ def _resample_full(voxels, poses, cfg: TrainConfig):
     return rotate_resample_to_camera(voxels, poses, new_size=cfg.new_size)
 
 
-def _resample_patch(voxels, poses, offsets, patch_size: int, cfg: TrainConfig):
+def _resample_patch(voxels, poses, offsets, patch_size: int, cfg: TrainConfig, rows=None):
     """Cropped camera-aligned patch; both paths fuse the crop into the
     resample (the exact path gathers only the window; the multipass path's
-    last pass of each cropped axis emits only the window)."""
+    last pass of each cropped axis emits only the window). ``rows``: only
+    those rows of the patch (a rank's slab and halo)."""
     if _resample_method(cfg, voxels.device) == "multipass":
         return rotate_resample_camera_patch_multipass(
             voxels, poses, offsets, patch_size, new_size=cfg.new_size,
-            max_scale=cfg.pose_scale_limit, compute_dtype=_dtype(cfg.compute_dtype))
+            max_scale=cfg.pose_scale_limit, compute_dtype=_dtype(cfg.compute_dtype), rows=rows)
     return rotate_resample_camera_patch(voxels, poses, offsets, patch_size,
-                                        new_size=cfg.new_size)
+                                        new_size=cfg.new_size, rows=rows)
 
 
 def _as_f32_image(images: torch.Tensor) -> torch.Tensor:
@@ -159,10 +179,11 @@ def step_seeds(rng: int, step: int) -> Tuple[int, int]:
 def _step_offsets(state: TrainState, rng: int, patch_size: int, cfg: TrainConfig, offsets,
                   mesh):
     """(crop offsets or None, dropout seed) of one step (:func:`step_seeds`);
-    with a data-parallel ``mesh`` the dropout seed is folded with the rank,
-    so no two ranks draw the same mask (the crop stays shared)."""
+    with a data axis above 1 the dropout seed is folded with the data rank,
+    so no two data ranks draw the same mask (the crop stays shared; the
+    ranks of a model axis share the seed)."""
     crop_seed, drop_seed = step_seeds(rng, state.step)
-    if mesh is not None:
+    if mesh is not None and mesh.shape["data"] > 1:
         rank = torch.distributed.get_rank(mesh.group)
         drop_seed = int(np.random.SeedSequence([drop_seed, rank]).generate_state(1)[0])
     if patch_size != cfg.new_size and offsets is None:
@@ -172,10 +193,11 @@ def _step_offsets(state: TrainState, rng: int, patch_size: int, cfg: TrainConfig
 
 
 def _data_parallel(mesh):
-    """The mesh when the step all-reduces (its data axis above 1), else None.
-    A step without a mesh inside a group of more than one rank raises: its
-    ranks would train apart. So ``allreduce_dtype`` takes effect only with a
-    data axis above 1, as JAX's ``_use_bf16_allreduce``."""
+    """The mesh when the step reduces over ranks (its data or model axis
+    above 1), else None. A step without a mesh inside a group of more than
+    one rank raises: its ranks would train apart. ``allreduce_dtype`` takes
+    effect only with a data axis above 1, as JAX's
+    ``_use_bf16_allreduce``."""
     n = distributed.world()[1]
     if mesh is None:
         if n > 1:
@@ -183,7 +205,7 @@ def _data_parallel(mesh):
                                "each rank would train apart; build it with "
                                "mesh=train.distributed.make_mesh()")
         return None
-    return mesh if mesh.shape["data"] > 1 else None
+    return mesh if mesh.shape["data"] > 1 or mesh.shape["model"] > 1 else None
 
 
 def _apply_step(state: TrainState, tx: GradientTransformation, batch: int, accum: int,
@@ -191,8 +213,9 @@ def _apply_step(state: TrainState, tx: GradientTransformation, batch: int, accum
     """One update from ``micro_loss(slice) -> loss`` over ``accum``
     microbatches of a batch of ``batch``: their fp32 gradients summed and
     averaged, as JAX's ``_accumulated_value_and_grad``; with a
-    data-parallel ``mesh`` the loss and the gradients are then averaged over
-    the ranks (the gradients moved in ``allreduce_dtype``)."""
+    ``mesh`` the loss and the gradients are then summed over its model axis
+    (fp32) and averaged over its data axis (the gradients moved in
+    ``allreduce_dtype``)."""
     net = state.params
     params = dict(net.named_parameters())
     if batch % accum:
@@ -215,7 +238,9 @@ def _apply_step(state: TrainState, tx: GradientTransformation, batch: int, accum
         scale = 1.0 / accum
         loss_sum = loss_sum * scale
         grad_sum = [g * scale for g in grad_sum]
-    if mesh is not None:
+    if mesh is not None and mesh.shape["model"] > 1:
+        *grad_sum, loss_sum = distributed.model_sum([*grad_sum, loss_sum], mesh)
+    if mesh is not None and mesh.shape["data"] > 1:
         grad_sum = distributed.all_reduce_mean(grad_sum, mesh, _dtype(allreduce_dtype))
         loss_sum = distributed.all_reduce_mean([loss_sum], mesh)[0]
     updates, opt_state = tx.update(dict(zip(params, grad_sum)), state.opt_state, params)
@@ -237,10 +262,16 @@ def make_shader_train_step(model_cfg: ShaderConfig, cfg: TrainConfig,
     ``cfg.grad_accum_steps > 1`` splits the batch into that many
     microbatches, sums their fp32 gradients and applies one update, with
     the crop and the dropout seed shared, as in JAX. ``mesh``: data
-    parallelism (the module docstring); each rank passes its own rows, and
-    ``loss`` is the global batch's.
+    parallelism and spatial sharding (the module docstring); each rank
+    passes its own rows (of the batch; with a model axis also of the
+    voxels' and images' axis 1), and ``loss`` is the global batch's. Under
+    spatial sharding the patch must divide by 2 x the model axis.
     """
     mesh = _data_parallel(mesh)
+    shard = None
+    if mesh is not None and mesh.shape["model"] > 1:
+        shard = distributed.spatial_sharding(mesh, 5)
+        slab_rows(shard, patch_size)  # refuses a patch the slabs cannot split
     cdt = _dtype(cfg.compute_dtype)
     greyscale = cfg.is_greyscale
 
@@ -248,7 +279,14 @@ def make_shader_train_step(model_cfg: ShaderConfig, cfg: TrainConfig,
         voxels = voxels.to(torch.float32)
         images = _as_f32_image(images)
         with torch.no_grad():
-            if patch_size == cfg.new_size:
+            if shard is not None:
+                voxels, images = shard.gather(voxels), shard.gather(images)
+                at = (0, 0) if offsets is None else offsets
+                vox_c = _resample_patch(voxels, poses, at, patch_size, cfg,
+                                        rows=slab_rows(shard, patch_size))
+                img_c = crop_image(images, at, patch_size, images.shape[1] // cfg.new_size,
+                                   shard.rows(patch_size))
+            elif patch_size == cfg.new_size:
                 vox_c = _resample_full(voxels, poses, cfg)
                 img_c = images
             else:
@@ -257,8 +295,12 @@ def make_shader_train_step(model_cfg: ShaderConfig, cfg: TrainConfig,
         gen = None
         if model_cfg.keep_prob < 1.0:
             gen = torch.Generator(device=voxels.device).manual_seed(drop_seed)
-        pred = net(vox_c.to(cdt), train=True, generator=gen, cfg=model_cfg)
-        return shader_loss_from_images(pred, img_c, greyscale)
+        pred = net(vox_c.to(cdt), train=True, generator=gen, cfg=model_cfg, shard=shard,
+                   extended=shard is not None)
+        loss = shader_loss_from_images(pred, img_c, greyscale)
+        if shard is not None and not greyscale:
+            loss = loss / shard.size  # the rank's share of the whole image's mean
+        return loss
 
     def step(state: TrainState, voxels, images, poses, rng: int,
              offsets: Optional[Sequence[int]] = None):
@@ -351,7 +393,10 @@ def make_texture_train_step(model_cfg: TextureFaceConfig, cfg: TrainConfig,
         -> (state, loss)
 
     Crops, dropout seeds, grad accumulation and ``mesh`` as
-    :func:`make_shader_train_step`; the loss is :func:`texture_loss`."""
+    :func:`make_shader_train_step`, but for a model axis above 1, which
+    raises ``NotImplementedError``; the loss is :func:`texture_loss`."""
+    if mesh is not None and mesh.shape["model"] > 1:
+        raise NotImplementedError(distributed.MODEL_AXIS_TODO)
     mesh = _data_parallel(mesh)
 
     def step(state: TrainState, voxels, images, normals, textures, poses, rng: int,

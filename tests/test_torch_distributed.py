@@ -136,11 +136,11 @@ def _rank_run(rank: int, tmp: str) -> None:
         masks, offsets = [], []
         dropout, crop = tshader.dropout, tsteps.random_crop_offsets
 
-        def recording_dropout(x, keep_prob, generator, train=True):
+        def recording_dropout(x, keep_prob, generator, train=True, shard=None):
             saved = generator.get_state()
             masks.append(torch.rand(x.shape, generator=generator, device=x.device) < keep_prob)
             generator.set_state(saved)
-            return dropout(x, keep_prob, generator, train)
+            return dropout(x, keep_prob, generator, train, shard)
 
         def recording_crop(*a):
             offsets.append(tuple(crop(*a)))
@@ -348,8 +348,11 @@ def test_initialize_multihost_noop_without_config(monkeypatch):
 
 def test_process_shard_and_mesh_in_one_process():
     """One process: the whole batch, a 1 x 1 mesh with no group; a data
-    axis of 2 or a model axis raise (PyTorch runs one process per card;
-    spatial sharding is not ported and names ROADMAP.md)."""
+    axis of 2 or a model axis of 2 raise ValueError (PyTorch runs one
+    process per card, and one process cannot hold two); the sharding of
+    the 1 x 1 mesh's model axis is the whole tensor (one slab), and a
+    sharded axis other than 1 is refused as JAX's callers shard the rows
+    only (tests/test_torch_spatial.py runs the model axis in a group)."""
     assert distributed.process_shard(16) == (16, 0, 1)
     mesh = distributed.make_mesh(device="cpu")
     assert dict(mesh.shape) == {"data": 1, "model": 1} and mesh.group is None
@@ -357,10 +360,15 @@ def test_process_shard_and_mesh_in_one_process():
     with pytest.raises(ValueError, match="one process per card"):
         distributed.make_mesh(n_data=2, device="cpu")
     for call in (lambda: distributed.make_mesh(n_model=2, device="cpu"),
-                 lambda: distributed.make_hybrid_mesh(n_model=2, device="cpu"),
-                 lambda: distributed.spatial_sharding(mesh, 5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+                 lambda: distributed.make_hybrid_mesh(n_model=2, device="cpu")):
+        with pytest.raises(ValueError, match="model axis of 2"):
             call()
+    shard = distributed.spatial_sharding(mesh, 5)
+    x = torch.arange(8.0).reshape(1, 8, 1, 1, 1)
+    assert shard.rows(8) == shard.local_rows(x) == (0, 8) and torch.equal(shard.take(x), x)
+    assert distributed.gather_rows(x, mesh) is x
+    with pytest.raises(NotImplementedError, match="axis 2"):
+        distributed.spatial_sharding(mesh, 5, axis=2)
     (x,) = distributed.shard_batch(mesh, (np.arange(6, dtype=np.float32).reshape(3, 2),))
     assert isinstance(x, torch.Tensor) and x.shape == (3, 2)
     net = tshader.init_shader_params(0, tshader.ShaderConfig(**LOOP_ARCH), device="cpu")
@@ -513,9 +521,10 @@ def test_cli_two_processes_on_the_cpu(ranks, tmp_path):
 
 def test_graft_entry_dryrun_two_ranks():
     """graft_entry.dryrun_multichip(2) on the CPU (a cut model): one step
-    over two spawned ranks, a finite loss."""
+    over two spawned ranks, a finite loss; two ranks take no dp + spatial
+    phase (tests/test_torch_spatial.py runs four)."""
     from rendernet_tpu_torch import graft_entry
 
-    loss = graft_entry.dryrun_multichip(2, device="cpu",
-                                        model_cfg=tshader.ShaderConfig(**LOOP_ARCH))
-    assert np.isfinite(loss) and loss > 0
+    res = graft_entry.dryrun_multichip(2, device="cpu",
+                                       model_cfg=tshader.ShaderConfig(**LOOP_ARCH))
+    assert set(res) == {"loss"} and np.isfinite(res["loss"]) and res["loss"] > 0

@@ -4,7 +4,8 @@ Importing every module of ``rendernet_tpu_torch`` in a fresh interpreter
 must leave ``jax``, ``rendernet_tpu`` and ``tensorflow`` (which
 ``compat/pb_import.py`` imports only inside the function that parses a
 GraphDef) out of ``sys.modules``, and no file of the port (nor
-``chip_smoke.py``) may name the first two in an import.
+``chip_smoke.py`` or ``halo_transport.py``) may name the first two in an
+import.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ def test_importing_every_module_pulls_in_no_jax():
                 "compat.tf_import", "io.binvox", "models.decoders", "recon", "recon.inverse",
                 "models.shader", "nn.init", "nn.layers", "ops._native", "ops.conv_grad", "ops.crops",
                 "ops.cuda_conv2d", "ops.cuda_conv3d", "ops.cuda_resample", "ops.cuda_winograd", "ops.phong",
+                "ops.halo",
                 "ops.resample", "ops.transforms", "ops.winograd", "train.config",
                 "ops.phase_conv", "compat.frozen", "compat.pb_import", "cli.convert",
                 "train.optim", "train.steps", "utils.image", "train.distributed",
@@ -65,7 +67,7 @@ def test_every_kernel_source_is_built():
 
 def test_no_file_names_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import jax|from jax)|rendernet_tpu\.", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py", "halo_transport.py")]
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh"))]
