@@ -158,8 +158,28 @@ Phases, all of them on every run:
      (b)'s gradient check must reject, and the halo rows read as zeros
      in the forward, which (b)'s loss check must reject. Phase 2 holds K1, K2, K2w and K3 at the slabs' shapes
      (``SP_CASES``), whose launches are rank 0's per forward and per step.
+ 12. the texture step and inverse rendering under a model axis: two gloo
+     ranks sharing the card on a 1 x 2 mesh, against the world-1 runs in
+     this process: (a) ``TextureFaceConfig()`` bf16 multipass at batch 8:
+     one ``texture_face_forward`` (each rank on its rows of the raw grid;
+     both heads' logits gathered and held to phase 3's limit of the world-1
+     logits), timed, its memory; one patch-128 texture step: the loss
+     (SP_LOSS_TOL), the model-summed gradients by phase 7's limits (trunk
+     and heads per parameter, the texture decoder by norm), the ranks'
+     params bit-equal, ms, memory and halo bytes; a planted fault (the
+     texture grid's cotangent also summed over the model axis) that the
+     decoder's limit must reject; (b) ``ReconConfig()`` multipass on the
+     conditioned model of phase 5 (cuDNN deterministic), fp32 and bf16:
+     SP_RECON_STEPS steps on each rank's rows of the target, every step's
+     per-sample losses (SP_LOSS_TOL) and step 1's model-summed latent
+     gradients (phase 5's per-group limits) against world 1's, the ranks'
+     latents bit-equal, ms, memory and halo bytes; a planted fault (the
+     pose gradient left out of the model sum) that the pose limit must
+     reject; one ``reconstruct`` epoch on the mesh must pick world 1's best
+     hypothesis. Phase 2 holds K1, K4, K2, K2w and K3 at these slabs'
+     shapes (``SP12_CASES``), whose launches are rank 0's per step.
 The kernels' launch counters are zeroed just before each run of phases 3
-to 8, 10 and 11 (and of each A/B arm) and read just after; every run's counts are checked, shape by
+to 8 and 10 to 12 (and of each A/B arm) and read just after; every run's counts are checked, shape by
 shape, against the counts its graph implies. K1's and K4's phase 2 rows
 name the path each launch took (``bulk`` or ``scalar``, from the
 wrappers' path counters); K3's carry the bytes of its bf16 V scratch; the
@@ -579,6 +599,53 @@ SP_CASES = [
      ((8, 36, 64, 512), 512), BF16, "sp_train"),
 ]
 CASES += SP_CASES
+
+# Phase 12's sharded shapes, on each rank of the model axis of 2: the
+# texture step at TextureFaceConfig() (batch 8, patch 128; the texture grid
+# warps at BC = 32, the shape grid at 8 as SP_CASES' rows) and the recon
+# step at ReconConfig() (BC 5 and 20): K1's last y pass emitting the rank's
+# 66 camera rows, the z pass on them, and K4's adjoints of both (the
+# plan's y and z scale passes, 6 taps); the texture warp's whole passes
+# (five 3-tap shears and the x scale pass) in bf16; K2 / K2w at 16 -> 16
+# channels on the 3-D slabs extended by a row each side (34 of 64 rows),
+# K3 on the texture's 2-D slabs extended by whole tiles (36). Runs:
+# "sp_tex" per sharded texture step, "sp_recon32" / "sp_recon16" per
+# sharded recon step.
+XTS = (8, 34, 64, 32, 16)
+XRS = (5, 34, 64, 32, 16)
+SP12_CASES = [
+    ("K1", "spatial tex texture window pass [32,16384,128]->66", "pass",
+     (32, 16384, 128, 66, 128), BF16, "sp_tex"),
+    ("K1", "spatial tex texture pass [32,8448,128]", "pass", (32, 8448, 128, 128, 128), BF16,
+     "sp_tex"),
+    *[("K4", f"spatial tex texture adjoint [32,16384,128] taps {taps}", "pass_bwd",
+       (32, 16384, 128, 128, 128, taps, 1), BF16, "sp_tex") for taps in (3, 6)],
+    ("K4", "spatial tex texture window adjoint [32,16384,128]->66 taps 6", "pass_bwd",
+     (32, 16384, 128, 66, 128, 6, 1), BF16, "sp_tex"),
+    ("K4", "spatial tex texture adjoint [32,8448,128] taps 6", "pass_bwd",
+     (32, 8448, 128, 128, 128, 6, 1), BF16, "sp_tex"),
+    ("K2", "spatial tex e_conv3/res1 fwd+dgrad [8,34,64,32,16]->16", "conv3d", (XTS, 16), BF16,
+     "sp_tex"),
+    ("K2w", "spatial tex e_conv3/res1 [8,34,64,32,16]->16", "conv3d_wgrad", (XTS, 16), BF16,
+     "sp_tex"),
+    *[("K3", f"spatial tex {stack} fwd+dgrad [8,36,64,{c}]->{c}", "wino_dgrad",
+       ((8, 36, 64, c), c), BF16, "sp_tex") for c, stack in ((512, "res2"), (256, "res3"))],
+]
+for _dn, _run in (("float32", "sp_recon32"), ("bfloat16", "sp_recon16")):
+    for _what, _bc in (("shape", 5), ("texture", 20)):
+        SP12_CASES += [
+            ("K1", f"spatial recon {_what} window pass [{_bc},16384,128]->66", "pass",
+             (_bc, 16384, 128, 66, 128), (_dn,), _run),
+            ("K1", f"spatial recon {_what} pass [{_bc},8448,128]", "pass",
+             (_bc, 8448, 128, 128, 128), (_dn,), _run),
+            ("K4", f"spatial recon {_what} window adjoint [{_bc},16384,128]->66 taps 6",
+             "pass_bwd", (_bc, 16384, 128, 66, 128, 6, 1), (_dn,), _run),
+            ("K4", f"spatial recon {_what} adjoint [{_bc},8448,128] taps 6", "pass_bwd",
+             (_bc, 8448, 128, 128, 128, 6, 1), (_dn,), _run),
+        ]
+    SP12_CASES.append(("K2", "spatial recon e_conv3/res1 fwd+dgrad [5,34,64,32,16]->16",
+                       "conv3d", (XRS, 16), (_dn,), _run))
+CASES += SP12_CASES
 
 # Serving launches per batch-8 forward at each serving shape (phase 3).
 SERVE_LAUNCHES = {("K1", "pass [8,16384,128]"): 8,
@@ -3302,18 +3369,34 @@ SP_LOSS_TOL = 1e-5
 SP_TIMED = 3  # timed calls of each sharded run (a fixed count: every rank calls alike)
 
 
+def slab_warp(bc, rank, m=SP_MODEL, patch=128, n=128):
+    """K1's passes of one multipass warp of a ``patch``-row patch to rank
+    ``rank``'s camera rows: the 6 passes on the whole ``n``^3 grid, the last
+    y pass emitting the slab's rows with e_conv1's halo (2, 2) clipped to
+    the patch, and the z pass on those rows. Returns (the K1 launches by
+    key, the window's rows)."""
+    rows = patch // m
+    win = min((rank + 1) * rows + 2, patch) - max(rank * rows - 2, 0)
+    return {(bc, n * n, n, n): 6, (bc, n * n, n, win): 1, (bc, n * win, n, patch): 1}, win
+
+
+def slab_adjoint(bc, win, n=128):
+    """K4's adjoints of :func:`slab_warp`'s passes: five 3-tap shears and the
+    x scale pass on the whole grid, the y and z scale passes (6 taps) on
+    the window's shapes."""
+    return {(bc, n * n, n, n, 3): 5, (bc, n * n, n, n, 6): 1, (bc, n * n, n, win, 6): 1,
+            (bc, n * win, n, n, 6): 1}
+
+
 def sharded_launches(b, patch, rank, m=SP_MODEL, grad=False):
     """Launches per batch-``b`` forward (``grad``: per training step, as
     :func:`step_launches` with preact_policy) on rank ``rank`` of a model
     axis of ``m`` at full width: the warp's 8 K1 passes, the last y pass
     emitting the rank's camera rows with e_conv1's halo (2, 2) clipped to
-    the patch and the z pass on those rows; every 3x3x3 conv on the slab
-    extended by one row each side (K2, K2w), every Winograd conv by two
-    (whole 2-row tiles)."""
-    n = 128
-    rows = patch // m
-    win = min((rank + 1) * rows + 2, patch) - max(rank * rows - 2, 0)
-    k1 = {(b, n * n, n, n): 6, (b, n * n, n, win): 1, (b, n * win, n, patch): 1}
+    the patch and the z pass on those rows (:func:`slab_warp`); every
+    3x3x3 conv on the slab extended by one row each side (K2, K2w), every
+    Winograd conv by two (whole 2-row tiles)."""
+    k1, _ = slab_warp(b, rank, m, patch)
     s = patch // 2
     h3, h2 = s // m + 2, s // m + 4
     x16, x32 = (b, h3, s, 32, 16), (b, h3, s, 32, 32)
@@ -3663,6 +3746,579 @@ def run_spatial(torch, failures, tmp):
     return out, per_run
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the texture step and inverse rendering under a model axis
+# ---------------------------------------------------------------------------
+SP_RECON_STEPS = 3  # sharded recon steps per dtype
+SP_RECON_EPOCH_STEPS = 2  # inner steps of the one reconstruct epoch
+
+
+def sharded_texture_launches(b, rank, m=SP_MODEL, grad=False):
+    """Launches per texture forward (``grad``: per texture step) on rank
+    ``rank`` of a model axis of ``m`` at ``TextureFaceConfig()``, patch 128:
+    both warps to the rank's rows (:func:`slab_warp`; the shape grid at BC
+    = b, the texture grid at 4b), K4 on the texture warp only
+    (:func:`slab_adjoint`); e_conv3, the 20 res1 convs and res1_skip on K2
+    at 16 -> 16 channels on the 3-D slab extended by a row each side (again
+    for their data gradients; K2w once each); the 21 res2 (512) and 11 res3
+    (256) convs on K3 on the 2-D slab extended by two rows each side."""
+    s = 128 // 2
+    k1s, win = slab_warp(b, rank, m)
+    k1t, _ = slab_warp(4 * b, rank, m)
+    x16 = (b, s // m + 2, s, 32, 16)
+    r2, r3 = (b, s // m + 4, s, 512), (b, s // m + 4, s, 256)
+    g = 2 if grad else 1
+    return {"K1": {**k1s, **k1t}, "K4": slab_adjoint(4 * b, win) if grad else {},
+            "K2": {(x16, 16): 22 * g}, "K2w": {(x16, 16): 22} if grad else {},
+            "K3": {(r2, 512): 21 * g, (r3, 256): 11 * g}, "K6": {}, "K5": {}, "K5w": {}}
+
+
+def sharded_recon_launches(rank, m=SP_MODEL):
+    """Launches per inverse-rendering step at ``ReconConfig()`` on rank
+    ``rank`` of a model axis of ``m``: both warps (BC 5 and 20) to the
+    rank's rows and their adjoints (:func:`slab_warp`, :func:`slab_adjoint`);
+    e_conv3, the 20 res1 convs and res1_skip on K2 at 16 -> 16 on the 3-D
+    slab extended by a row each side, forward and data gradient (the
+    networks are frozen: no K2w; batch 5 is outside K3's envelope)."""
+    k1, k4 = {}, {}
+    for bc in (5, 20):
+        warp, win = slab_warp(bc, rank, m)
+        k1.update(warp)
+        k4.update(slab_adjoint(bc, win))
+    xr = (5, 64 // m + 2, 64, 32, 16)
+    return {"K1": k1, "K4": k4, "K2": {(xr, 16): 44}, "K2w": {}, "K3": {}, "K6": {}, "K5": {},
+            "K5w": {}}
+
+
+def sp_texture_config():
+    """The sharded texture step's training configuration (batch 8, bf16,
+    multipass, bf16 Adam moments, the RGB losses)."""
+    from rendernet_tpu_torch.train.config import TrainConfig
+
+    return TrainConfig(batch_size=8, img_res=512, new_size=128, compute_dtype="bfloat16",
+                       is_greyscale=False, e_eta=1e-5, moment_dtype="bfloat16",
+                       resample="multipass")
+
+
+def sp_texture_state(torch):
+    """(net, tx, fresh()) of the texture net of phase 7 (its alphas spread)."""
+    from rendernet_tpu_torch.models.texture_face import TextureFaceConfig
+    from rendernet_tpu_torch.train.steps import create_texture_state
+
+    return fresh_states(torch, create_texture_state, TextureFaceConfig(), sp_texture_config(),
+                        prepare=lambda net: spread_alphas(torch, net))
+
+
+def texture_heads(net):
+    """The two heads' last deconvs (their outputs are the logits)."""
+    return [net.encoder["Image"]["e_conv10_1"]["conv2d_transpose"],
+            net.encoder["Normal"]["e_conv10_2"]["e_conv10_2"]]
+
+
+def held_memory(torch, module, fn):
+    """(fn's result, {peak bytes, peak less the bytes held before, the
+    activations held for the backward: the bytes allocated when ``module``
+    (the last layer of the forward) returns, less those before})."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    held = []
+    hook = module.register_forward_hook(lambda *a: held.append(torch.cuda.memory_allocated()))
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    peak = torch.cuda.max_memory_allocated()
+    return out, {"peak_bytes": peak, "added_bytes": peak - before,
+                 "activation_bytes": held[0] - before}
+
+
+def sp_recon_run(torch, model, cfg, target, mesh=None, n=SP_RECON_STEPS):
+    """``n`` single recon steps from the initial latents: {"losses": the
+    per-sample losses per step, "latents" after the last step, "grads":
+    step 1's latent gradients (with ``mesh``, as the step's model-axis sum
+    returns them; else autograd's of the losses' sum at the initial
+    latents), "ms" per step of steps 2..n (CUDA events), "memory" of step
+    1}; all on the host."""
+    from rendernet_tpu_torch.recon.inverse import (
+        Latents,
+        initial_latents,
+        make_recon_step,
+        recon_per_sample_loss,
+    )
+    from rendernet_tpu_torch.train import distributed
+
+    lat = initial_latents(cfg, device="cuda")
+    sums = []
+    if mesh is None:
+        leaves = [t.clone().requires_grad_() for t in lat]
+        per = recon_per_sample_loss(model, Latents(*leaves), target, cfg)
+        sums.append(torch.autograd.grad(per.sum(), leaves))
+        del per, leaves
+    else:
+        model_sum = distributed.model_sum
+
+        def recording(tensors, m):  # (losses, vector, pose, texture, light), summed
+            out = model_sum(tensors, m)
+            sums.append([t.clone() for t in out[1:]])
+            return out
+
+        distributed.model_sum = recording
+    try:
+        step = make_recon_step(model, cfg, mesh=mesh)
+        head = model.renderer.encoder["Normal"]["e_conv11"]["e_conv11_2"]
+        (lat, per), mem = held_memory(torch, head, lambda: step(lat, target))
+        losses = [per]
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+        marks[0].record()
+        for i in range(1, n):
+            lat, per = step(lat, target)
+            marks[i].record()
+            losses.append(per)
+        torch.cuda.synchronize()
+    finally:
+        if mesh is not None:
+            distributed.model_sum = model_sum
+    return {"losses": [p.cpu() for p in losses], "latents": [t.cpu() for t in lat],
+            "grads": [g.cpu() for g in sums[0]],
+            "ms": [a.elapsed_time(b) for a, b in zip(marks, marks[1:])], "memory": mem}
+
+
+def sp_grad_rel(got, ref):
+    """Per latent group, ||g - g_ref|| / ||g_ref|| (phase 5's measure)."""
+    from rendernet_tpu_torch.recon.inverse import Latents
+
+    return {n: float((a.double() - b.double()).norm() / b.double().norm())
+            for n, a, b in zip(Latents._fields, got, ref)}
+
+
+def sp_recon_model(torch):
+    """The conditioned recon model (phase 5's gradient check's)."""
+    model = conditioned_recon_model(torch)
+    for net in model:
+        net.requires_grad_(False)
+    return model
+
+
+def sp_recon_configs():
+    from rendernet_tpu_torch.recon.inverse import ReconConfig
+
+    return {dname: ReconConfig(compute_dtype=dname, light_elevation=RECON_LIGHT_ELEVATION,
+                               resample="multipass")
+            for dname in ("float32", "bfloat16")}
+
+
+def sp12_world1_texture(torch, np, out, ref):
+    """:func:`sp12_world1`'s texture part: fills ``out`` (times, memory) and
+    ``ref`` (logits, loss, gradients)."""
+    from rendernet_tpu_torch.models.texture_face import texture_face_forward
+    from rendernet_tpu_torch.train.steps import make_texture_train_step
+
+    net, tx, fresh = sp_texture_state(torch)
+    fresh()
+    vox, img, nrm, codes, pose = texture_batch(torch, np, 8, seed=1)
+    logits = []
+    hooks = [h.register_forward_hook(lambda mod, args, y: logits.append(y.float()))
+             for h in texture_heads(net)]
+
+    def fwd():
+        return texture_face_forward(net, vox, codes, pose, compute_dtype=torch.bfloat16,
+                                    resample="multipass")
+
+    with torch.no_grad():
+        _, out["forward_memory"] = held_memory(torch, texture_heads(net)[1], fwd)
+        ref["logits"] = [t.cpu() for t in logits]
+        logits.clear()
+        out["forward_ms"] = fixed_ms(torch, fwd)
+    for h in hooks:
+        h.remove()
+    del logits
+    grads = []
+    step = make_texture_train_step(net.cfg, sp_texture_config(), recording(tx, grads), 128)
+    batch = (vox, img, nrm, codes, pose)
+    step(fresh(), *batch, 1)  # warm-up
+    grads.clear()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    marks[0].record()
+    (_, loss), out["step_memory"] = held_memory(torch, texture_heads(net)[1],
+                                                lambda: step(fresh(), *batch, 1))
+    marks[1].record()
+    torch.cuda.synchronize()
+    out["step_ms"] = marks[0].elapsed_time(marks[1])
+    ref["loss"] = out["loss"] = float(loss)
+    ref["grads"] = {k: g.float().cpu() for k, g in grads[0].items()}
+
+
+def sp12_world1(torch, np, failures, tmp):
+    """The world-1 references of phase 12 in this process: the texture
+    forward (bf16, batch 8) with both heads' logits, ms and memory; one
+    texture step at batch 8, patch 128 with its loss, gradients, ms and
+    memory; per dtype SP_RECON_STEPS recon steps on the conditioned model
+    (phase 5's) with their losses, latents, ms and memory, and one
+    reconstruct epoch's best hypothesis. Saves what the ranks compare to
+    ``tmp``/sp12_ref.pt."""
+    import dataclasses
+
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.recon.inverse import reconstruct
+
+    out, ref = {}, {}
+    layers.WINOGRAD_2D = "pallas"  # the texture net's 2D stacks on K3, as phase 7's
+    try:
+        sp12_world1_texture(torch, np, out, ref)
+    finally:
+        layers.WINOGRAD_2D = False
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        model = sp_recon_model(torch)
+        target = render_target(torch, model)[0].expand(5, -1, -1, -1).contiguous()
+        ref["target"] = target.cpu()
+        out["recon"] = {}
+        for dname, cfg in sp_recon_configs().items():
+            res = sp_recon_run(torch, model, cfg, target)
+            ref[f"recon_{dname}"] = {k: res[k] for k in ("losses", "latents", "grads")}
+            out["recon"][dname] = {"losses": [p.tolist() for p in res["losses"]],
+                                   "step_ms": res["ms"], "memory": res["memory"],
+                                   "grad_norm": [float(g.norm()) for g in res["grads"]]}
+        cfg = dataclasses.replace(sp_recon_configs()["float32"],
+                                  inner_steps=SP_RECON_EPOCH_STEPS, max_epochs=1)
+        _, history, _ = reconstruct(model, target, cfg)
+        ref["best"] = out["reconstruct_best"] = int(history[-1].argmin())
+        out["reconstruct_losses"] = history[-1].tolist()
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    torch.save(ref, os.path.join(tmp, "sp12_ref.pt"))
+    del model, target
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class grid_cotangent_fault:
+    """The planted fault of phase 12 (a) that the decoder's gradient check
+    must reject: the texture grid's cotangent also summed over the model
+    axis (on top of the step's sum of the gradients), which counts the
+    decoder's gradients once per rank."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        from rendernet_tpu_torch.train import distributed, steps
+
+        self.saved = saved = steps.texture_decoder
+        mesh = self.mesh
+
+        def decoder(net, z):
+            grid = saved(net, z)
+            if grid.requires_grad:
+                grid.register_hook(lambda g: distributed.model_sum([g], mesh)[0].to(g.dtype))
+            return grid
+
+        steps.texture_decoder = decoder
+
+    def __exit__(self, *exc):
+        from rendernet_tpu_torch.train import steps
+
+        steps.texture_decoder = self.saved
+
+
+class pose_sum_fault:
+    """The planted fault of phase 12 (b) that the update check must reject:
+    the recon step's pose gradient left out of the model-axis sum (each
+    rank keeps its rows' partial gradient)."""
+
+    def __enter__(self):
+        from rendernet_tpu_torch.train import distributed
+
+        self.saved = saved = distributed.model_sum
+
+        def model_sum(tensors, mesh):
+            out = saved(tensors, mesh)
+            if len(tensors) == 5:  # (per-sample losses, vector, pose, texture, light)
+                out[2] = tensors[2].float()
+            return out
+
+        distributed.model_sum = model_sum
+
+    def __exit__(self, *exc):
+        from rendernet_tpu_torch.train import distributed
+
+        distributed.model_sum = self.saved
+
+
+def ranks_equal(torch, tensors) -> bool:
+    """Whether every rank of the group holds the same bytes in ``tensors``."""
+    sums = [zlib.crc32(t.detach().reshape(-1).contiguous().view(torch.uint8).cpu().numpy())
+            for t in tensors]
+    every = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(every, sums)
+    return all(x == every[0] for x in every)
+
+
+def sp12_texture(torch, np, failures, rank, mesh, shard, ref, per_run):
+    """Phase 12 (a) on one rank: the sharded texture forward against world
+    1's logits; the sharded texture step's loss and model-summed gradients
+    against world 1's, the ranks' params after it; the planted fault."""
+    from rendernet_tpu_torch.models.texture_face import texture_face_forward
+    from rendernet_tpu_torch.ops import halo
+    from rendernet_tpu_torch.train.steps import make_texture_train_step
+
+    out = {}
+    what = f"phase 12 (a) rank {rank}"
+    net, tx, fresh = sp_texture_state(torch)
+    fresh()
+    vox, img, nrm, codes, pose = texture_batch(torch, np, 8, seed=1)
+    logits = []
+    hooks = [h.register_forward_hook(lambda mod, args, y: logits.append(y.float()))
+             for h in texture_heads(net)]
+
+    def fwd():
+        return texture_face_forward(net, shard.take(vox), codes, pose,
+                                    compute_dtype=torch.bfloat16, resample="multipass",
+                                    mesh=mesh)
+
+    with torch.no_grad():
+        reset_counts()
+        heads, out["forward_memory"] = held_memory(torch, texture_heads(net)[1], fwd)
+        _, by_shape = read_counts()
+        per_run["sp_texfwd"] = check_step_counts(failures, f"{what} forward", by_shape, 1,
+                                                 sharded_texture_launches(8, rank))
+        errs, spreads = [], []
+        for got, want in zip(logits, ref["logits"]):
+            want = want.cuda()
+            spreads.append(float(want.max() - want.min()))
+            errs.append(float((shard.gather(got) - want).abs().max()) / spreads[-1])
+        logits.clear()
+        out["forward"] = {"rows": [list(t.shape) for t in heads], "logit_rel_err": errs,
+                          "logit_spread": spreads, "ms": fixed_ms(torch, fwd)}
+    for h in hooks:
+        h.remove()
+    del logits, heads
+    if not max(errs) <= FORWARD_TOL["bfloat16"]:
+        failures.append(f"{what}: logits {errs} of the spread from world 1's "
+                        f"(tol {FORWARD_TOL['bfloat16']})")
+    if out["forward"]["rows"] != [[8, 512 // SP_MODEL, 512, 3]] * 2:
+        failures.append(f"{what}: the rank's rows {out['forward']['rows']}")
+
+    grads = []
+    step = make_texture_train_step(net.cfg, sp_texture_config(), recording(tx, grads), 128,
+                                   mesh=mesh)
+    batch = (shard.take(vox), shard.take(img), shard.take(nrm), codes, pose)
+    step(fresh(), *batch, 1)  # warm-up
+    grads.clear()
+    reset_counts()
+    halo.exchanges, halo.sent_bytes, halo.received_bytes = 0, 0, 0
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    marks[0].record()
+    (state, loss), mem = held_memory(torch, texture_heads(net)[1],
+                                     lambda: step(fresh(), *batch, 1))
+    marks[1].record()
+    torch.cuda.synchronize()
+    _, by_shape = read_counts()
+    per_run["sp_tex"] = check_step_counts(failures, f"{what} step", by_shape, 1,
+                                          sharded_texture_launches(8, rank, grad=True))
+    names = [n for n, _ in net.named_parameters()]
+
+    def grad_errs(got):
+        """(worst trunk / head parameter by max, worst decoder parameter by
+        norm), each (name, error)."""
+        errs, dec = {}, {}
+        for n in names:
+            a, b = got[n].float(), ref["grads"][n].cuda()
+            if n.startswith("texture_encoder."):
+                dec[n] = float((a - b).norm() / b.norm())
+            else:
+                errs[n] = float((a - b).abs().max() / b.abs().max())
+        return max(errs.items(), key=lambda kv: kv[1]), max(dec.items(), key=lambda kv: kv[1])
+
+    train = {"loss": float(loss), "loss_rel_err": abs(float(loss) - ref["loss"]) / ref["loss"],
+             "step_ms": marks[0].elapsed_time(marks[1]), "memory": mem,
+             "halo_exchanges": halo.exchanges, "halo_sent_bytes": halo.sent_bytes,
+             "halo_received_bytes": halo.received_bytes,
+             "ranks_equal": ranks_equal(torch, list(state.params.parameters()))}
+    train["grad_worst"], train["decoder_worst"] = grad_errs(grads[0])
+    grads.clear()
+    with grid_cotangent_fault(mesh):
+        step(fresh(), *batch, 1)
+    train["fault_decoder_worst"] = grad_errs(grads[0])[1]
+    fault_least = min(float((grads[0][n].float() - ref["grads"][n].cuda()).norm()
+                            / ref["grads"][n].cuda().norm())
+                      for n in names if n.startswith("texture_encoder."))
+    train["fault_decoder_least"] = fault_least
+    out["train"] = train
+    if not train["loss_rel_err"] <= SP_LOSS_TOL:
+        failures.append(f"{what}: loss {train['loss']} vs world 1's {ref['loss']}")
+    if not train["grad_worst"][1] <= TEX_GRAD_TOL["bfloat16"]:
+        failures.append(f"{what}: model-summed gradients vs world 1's {train['grad_worst']} > "
+                        f"{TEX_GRAD_TOL['bfloat16']}")
+    if not train["decoder_worst"][1] <= TEX_DECODER_TOL["bfloat16"]:
+        failures.append(f"{what}: the decoder's gradients vs world 1's by norm "
+                        f"{train['decoder_worst']} > {TEX_DECODER_TOL['bfloat16']}")
+    if not train["ranks_equal"]:
+        failures.append(f"{what}: the ranks' params differ after the step")
+    if fault_least <= TEX_DECODER_TOL["bfloat16"]:
+        failures.append(f"{what}: the planted fault (the grid cotangent model-summed) passed the "
+                        f"decoder's gate: {fault_least:.3e}")
+    del net, tx, fresh, grads, step, batch, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp12_recon(torch, failures, rank, mesh, shard, ref, per_run):
+    """Phase 12 (b) on one rank: per dtype SP_RECON_STEPS sharded recon
+    steps against world 1's (the per-sample losses of every step; step 1's
+    model-summed latent gradients by phase 5's per-group limits), the
+    ranks' latents after them; the planted fault; one reconstruct epoch's
+    best hypothesis."""
+    import dataclasses
+
+    from rendernet_tpu_torch.ops import halo
+    from rendernet_tpu_torch.recon.inverse import reconstruct
+
+    out = {}
+    what = f"phase 12 (b) rank {rank}"
+    model = sp_recon_model(torch)
+    target = shard.take(ref["target"].cuda())
+    for dname, cfg in sp_recon_configs().items():
+        want = ref[f"recon_{dname}"]
+        reset_counts()
+        halo.exchanges, halo.sent_bytes, halo.received_bytes = 0, 0, 0
+        res = sp_recon_run(torch, model, cfg, target, mesh)
+        _, by_shape = read_counts()
+        per_run["sp_recon" + ("32" if dname == "float32" else "16")] = check_step_counts(
+            failures, f"{what} {dname} steps", by_shape, SP_RECON_STEPS,
+            sharded_recon_launches(rank))
+        loss_err = max(float(((a - b).abs() / b.abs()).max())
+                       for a, b in zip(res["losses"], want["losses"]))
+        errs = sp_grad_rel(res["grads"], want["grads"])
+        row = {"losses": [p.tolist() for p in res["losses"]], "loss_rel_err": loss_err,
+               "grad_rel_err": errs, "tol": RECON_GRAD_TOL[dname], "step_ms": res["ms"],
+               "memory": res["memory"], "halo_exchanges": halo.exchanges // SP_RECON_STEPS,
+               "halo_sent_bytes": halo.sent_bytes // SP_RECON_STEPS,
+               "halo_received_bytes": halo.received_bytes // SP_RECON_STEPS,
+               "ranks_equal": ranks_equal(torch, res["latents"])}
+        if dname == "float32":
+            with pose_sum_fault():
+                fault = sp_recon_run(torch, model, cfg, target, mesh, n=1)
+            row["fault_grad_rel_err"] = sp_grad_rel(fault["grads"], want["grads"])
+        out[dname] = row
+        if not loss_err <= SP_LOSS_TOL:
+            failures.append(f"{what} {dname}: per-sample losses {loss_err:.3e} from world 1's")
+        bad = [n for n, e in errs.items() if not e <= RECON_GRAD_TOL[dname][n]]
+        if bad:
+            failures.append(f"{what} {dname}: model-summed latent gradients {bad} differ from "
+                            f"world 1's by {errs} (limits {RECON_GRAD_TOL[dname]})")
+        if not row["ranks_equal"]:
+            failures.append(f"{what} {dname}: the ranks' latents differ")
+        if dname == "float32" and row["fault_grad_rel_err"]["pose"] <= \
+                RECON_GRAD_TOL[dname]["pose"]:
+            failures.append(f"{what}: the planted fault (the pose gradient left out of the model "
+                            f"sum) passed the gate: {row['fault_grad_rel_err']}")
+    cfg = dataclasses.replace(sp_recon_configs()["float32"], inner_steps=SP_RECON_EPOCH_STEPS,
+                              max_epochs=1)
+    _, history, _ = reconstruct(model, target, cfg, mesh=mesh)
+    out["reconstruct_best"] = int(history[-1].argmin())
+    out["reconstruct_losses"] = history[-1].tolist()
+    if out["reconstruct_best"] != ref["best"]:
+        failures.append(f"{what}: reconstruct picked hypothesis {out['reconstruct_best']}, world "
+                        f"1 {ref['best']}")
+    return out
+
+
+def sp12_rank(rank: int, tmp: str) -> None:
+    """One rank of the 1 x 2 mesh (gloo, the one card) in phase 12: (a) the
+    texture path, (b) inverse rendering; writes ``tmp``/sp12_rank{rank}.json
+    and, on rank 0, the launches per forward and per step."""
+    import numpy as np
+    import torch
+
+    from rendernet_tpu_torch.nn import layers
+    from rendernet_tpu_torch.train import distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    failures, out, per_run = [], {"rank": rank}, {}
+    distributed.initialize_multihost(f"file://{tmp}/sp12_init", SP_MODEL, rank)
+    try:
+        mesh = distributed.make_mesh(n_data=1, n_model=SP_MODEL)
+        shard = distributed.spatial_sharding(mesh, 5)
+        ref = torch.load(os.path.join(tmp, "sp12_ref.pt"), map_location="cpu",
+                         weights_only=True)
+        t0 = time.perf_counter()
+        layers.WINOGRAD_2D = "pallas"
+        try:
+            out["texture"] = sp12_texture(torch, np, failures, rank, mesh, shard, ref, per_run)
+        finally:
+            layers.WINOGRAD_2D = False
+        out["texture_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cudnn_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            out["recon"] = sp12_recon(torch, failures, rank, mesh, shard, ref, per_run)
+        finally:
+            torch.backends.cudnn.deterministic = cudnn_det
+        out["recon_s"] = time.perf_counter() - t0
+        if rank == 0:
+            out["per_run"] = {run: {kid: [[list(k) if isinstance(k, tuple) else k, v]
+                                          for k, v in c.items()] for kid, c in counts.items()}
+                              for run, counts in per_run.items()}
+    except Exception as e:  # the rank's failure, reported through its file
+        failures.append(f"phase 12 rank {rank}: {e!r}")
+        raise
+    finally:
+        out["failures"] = failures
+        with open(os.path.join(tmp, f"sp12_rank{rank}.json"), "w") as f:
+            json.dump(out, f, default=str)
+        torch.distributed.destroy_process_group()
+
+
+def run_spatial_texture_recon(torch, failures, tmp):
+    """Phase 12: the world-1 references, then the two ranks
+    (``sp12_rank``). Returns (the results, rank 0's launches by run)."""
+    import numpy as np
+
+    from rendernet_tpu_torch.train import distributed
+
+    out, per_run = {}, {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["world1"] = sp12_world1(torch, np, failures, tmp)
+    out["world1_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = []
+    try:
+        distributed.launch(sp12_rank, SP_MODEL, (tmp,), timeout=400)
+    except Exception as e:  # recorded; the ranks' files say more
+        failures.append(f"phase 12 ranks: {e!r}")
+    finally:
+        for r in range(SP_MODEL):
+            path = os.path.join(tmp, f"sp12_rank{r}.json")
+            if os.path.exists(path):
+                with open(path) as f:
+                    ranks.append(json.load(f))
+    for r in ranks:
+        failures.extend(r["failures"])
+    if len(ranks) != SP_MODEL:
+        failures.append(f"phase 12: {len(ranks)} rank results")
+    out["ranks"] = ranks
+    out["ranks_s"] = time.perf_counter() - t0
+    for run, counts in (ranks[0].get("per_run", {}) if ranks else {}).items():
+        per_run[run] = {kid: {tuple(tuple(x) if isinstance(x, list) else x for x in k)
+                              if isinstance(k, list) else k: v for k, v in rows}
+                        for kid, rows in counts.items()}
+    log("spatial_texture_recon " + json.dumps(out, default=str))
+    return out, per_run
+
+
 # Device kernels of each kernel id in a profile, by substrings of their
 # (demangled) names.
 PROFILED = {"K1": ("k1_pass",), "K4": ("k4_adjoint",),
@@ -3927,6 +4583,13 @@ def main() -> int:
         main_out["spatial"], sp_per_run = run_spatial(torch, failures, tmp)
     per_step.update(sp_per_run)
     log(f"phase 11 (spatial sharding) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        main_out["spatial_texture_recon"], sp_per_run = run_spatial_texture_recon(
+            torch, failures, tmp)
+    per_step.update(sp_per_run)
+    log(f"phase 12 (the texture step and inverse rendering under a model axis) took "
+        f"{time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for (kid, label, dname), r in rows.items():

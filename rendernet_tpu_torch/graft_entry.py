@@ -5,7 +5,9 @@ the JAX package's. The dry run's phases: 1, one data-parallel train step;
 with 4 or more ranks, an even number, on a ``(n / 2, 2)`` mesh, 2, the
 dp + spatial forward (the grid's rows over the model axis, halo exchanges
 through the conv stacks) and 2b, one dp + spatial train step (the batch
-over data, the voxel and image rows over model).
+over data, the voxel and image rows over model); then 3, one data-parallel
+texture/face train step, and 4, an inverse-rendering scan of two steps with
+the pose hypotheses over the data axis, one per rank.
 
     python -c "from rendernet_tpu_torch import graft_entry; graft_entry.dryrun_multichip(4)"
 """
@@ -20,7 +22,9 @@ __all__ = ["entry", "dryrun_multichip", "DRYRUN_PHASES"]
 # The phases of dryrun_multichip, by the keys of its result.
 DRYRUN_PHASES = {"loss": "1: data-parallel train step",
                  "spatial_forward": "2: dp + spatial forward (output shape)",
-                 "spatial_loss": "2b: dp + spatial train step"}
+                 "spatial_loss": "2b: dp + spatial train step",
+                 "texture_loss": "3: data-parallel texture/face train step",
+                 "recon_losses": "4: recon scan, hypotheses over data (loss history [T, n])"}
 
 
 def entry(device=None):
@@ -75,6 +79,7 @@ def _dryrun_rank(rank: int, n: int, init: str, device, model_cfg, out: str) -> N
             raise FloatingPointError(f"rank {rank}: non-finite loss {res['loss']}")
         if n >= 4 and n % 2 == 0:
             res.update(_spatial_phases(rank, n, device, model_cfg, cfg, arrays))
+        res.update(_texture_and_recon_phases(rank, n, mesh, cfg, arrays, rng))
         if rank == 0:
             with open(out, "w") as f:
                 json.dump(res, f)
@@ -115,6 +120,65 @@ def _spatial_phases(rank: int, n: int, device, model_cfg, cfg, arrays) -> dict:
     return {"spatial_forward": list(img.shape), "spatial_loss": loss}
 
 
+def _texture_and_recon_phases(rank: int, n: int, mesh, cfg, arrays, rng) -> dict:
+    """Phase 3, one texture/face train step at ``TextureFaceConfig(new_size=32,
+    tex_base=4, tex_grid=16)``, patch 16, with the batch sharded one sample
+    per rank (textures, images and normals drawn after phase 1's arrays, as
+    JAX's dry run draws them), and phase 4, a
+    ``make_recon_step(scan_steps=2)`` run at ``ReconConfig(z_dim=16,
+    batch_size=n, inner_steps=2, new_size=32, resample="exact")``, each
+    rank on its hypothesis and its target; its loss history is gathered
+    over the ranks."""
+    import numpy as np
+    import torch
+
+    from rendernet_tpu_torch.models.decoders import (
+        init_recon_rendernet_params,
+        init_recon_texture_decoder_params,
+        init_shape_decoder_params,
+    )
+    from rendernet_tpu_torch.models.texture_face import TextureFaceConfig
+    from rendernet_tpu_torch.recon.inverse import (
+        Latents,
+        ReconConfig,
+        ReconModel,
+        initial_latents,
+        make_recon_step,
+    )
+    from rendernet_tpu_torch.train import distributed
+    from rendernet_tpu_torch.train.steps import create_texture_state, make_texture_train_step
+
+    tex = (rng.random((n, 128, 128, 3)).astype(np.float32),
+           rng.random((n, 128, 128, 3)).astype(np.float32),
+           rng.random((n, 199)).astype(np.float32))
+    mine = slice(rank, rank + 1)
+    texture_cfg = TextureFaceConfig(new_size=32, tex_base=4, tex_grid=16)
+    state, tx = create_texture_state(3, texture_cfg, cfg, device=mesh.device)
+    state = distributed.replicate(mesh, state)
+    step = make_texture_train_step(texture_cfg, cfg, tx, 16, mesh=mesh)
+    vox, images, normals, codes, poses = distributed.shard_batch(
+        mesh, tuple(a[mine] for a in (arrays[0], *tex, arrays[2])))
+    _, loss = step(state, vox, images, normals, codes, poses, 4)
+    tloss = float(loss)
+    if not np.isfinite(tloss):
+        raise FloatingPointError(f"rank {rank}: non-finite texture loss {tloss}")
+
+    rcfg = ReconConfig(z_dim=16, batch_size=n, inner_steps=2, new_size=32, resample="exact")
+    model = ReconModel(init_shape_decoder_params(7, z_dim=16, device=mesh.device),
+                       init_recon_texture_decoder_params(8, device=mesh.device),
+                       init_recon_rendernet_params(9, new_size=32, device=mesh.device))
+    lat = initial_latents(rcfg, device=mesh.device)
+    target = torch.from_numpy(rng.random((n, 128, 128, 3)).astype(np.float32)).to(mesh.device)
+    run = make_recon_step(model, rcfg, scan_steps=rcfg.inner_steps, mesh=mesh)
+    _, hist = run(Latents(*(t[mine] for t in lat)), target[mine])
+    parts = [torch.empty_like(hist) for _ in range(n)]
+    torch.distributed.all_gather(parts, hist.contiguous())
+    losses = torch.cat(parts, dim=1).cpu().numpy()
+    if losses.shape != (rcfg.inner_steps, n) or not np.isfinite(losses).all():
+        raise FloatingPointError(f"rank {rank}: recon loss history {losses}")
+    return {"texture_loss": tloss, "recon_losses": losses.tolist()}
+
+
 def dryrun_multichip(n_devices: int, device=None, model_cfg=None) -> dict:
     """The dry run over ``n_devices`` ranks (spawned processes, one process
     group), tiny shapes (new_size 32, patch 16; ``model_cfg`` default
@@ -123,9 +187,11 @@ def dryrun_multichip(n_devices: int, device=None, model_cfg=None) -> dict:
     phase 1, one shader train step with the batch sharded one sample per
     rank, the parameters replicated from rank 0 and the gradients
     all-reduced; with ``n_devices`` >= 4 and even, phases 2 and 2b on a
-    ``(n / 2, 2)`` mesh (:data:`DRYRUN_PHASES`). Returns rank 0's results
-    (``loss``, and ``spatial_forward`` / ``spatial_loss``), which must be
-    finite; raises if any rank fails."""
+    ``(n / 2, 2)`` mesh; then phase 3, one texture/face train step on the
+    data-parallel mesh and phase 4, an inverse-rendering scan with one pose
+    hypothesis per rank (:data:`DRYRUN_PHASES`). Returns rank 0's results (``loss``,
+    ``spatial_forward`` / ``spatial_loss``, ``texture_loss``,
+    ``recon_losses``), which must be finite; raises if any rank fails."""
     from rendernet_tpu_torch.models.shader import ShaderConfig
     from rendernet_tpu_torch.train.distributed import launch
 
@@ -140,4 +206,7 @@ def dryrun_multichip(n_devices: int, device=None, model_cfg=None) -> dict:
         print(f"dryrun_multichip({n_devices}): dp+spatial ok, out={tuple(res['spatial_forward'])}")
         print(f"dryrun_multichip({n_devices}): dp+spatial TRAIN ok, "
               f"loss={res['spatial_loss']:.4f}")
+    print(f"dryrun_multichip({n_devices}): texture dp ok, loss={res['texture_loss']:.4f}")
+    print(f"dryrun_multichip({n_devices}): recon scan ok, "
+          f"loss={sum(res['recon_losses'][-1]) / n_devices:.4f}")
     return res

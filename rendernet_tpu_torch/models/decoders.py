@@ -21,6 +21,8 @@ Child names mirror the TF scopes, so ``compat/jax_params.py`` carries the
 JAX parameter dicts over strictly. Each network runs in the dtype of its
 input (parameters stay float32 and are cast at each use); the sigmoid
 outputs are float32. In inverse rendering the parameters are frozen.
+Under spatial sharding the renderer takes a ``shard`` (as the shader
+network does); the two decoders run whole on every rank.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from rendernet_tpu_torch.nn.layers import (
     ResBlock,
     res_block_stack,
 )
+from rendernet_tpu_torch.ops.halo import RowShard
 
 __all__ = [
     "ShapeDecoder3D",
@@ -139,31 +142,41 @@ class ReconRenderNet(nn.Module):
             enc[head] = h
         self.encoder = enc
 
-    def _stack(self, prefix: str, n: int, x: torch.Tensor) -> torch.Tensor:
+    def _stack(self, prefix: str, n: int, x: torch.Tensor,
+               shard: RowShard | None = None) -> torch.Tensor:
         """A relu res stack, its skip conv and the fp32 shortcut add."""
         e = self.encoder
-        y = res_block_stack([e[f"{prefix}_{i}"] for i in range(1, n + 1)], x)
-        y = e[f"{prefix}_skip"]["con1_3X3"](y)
+        y = res_block_stack([e[f"{prefix}_{i}"] for i in range(1, n + 1)], x, shard=shard)
+        y = e[f"{prefix}_skip"]["con1_3X3"](y, shard=shard)
         return (y.float() + x.float()).to(x.dtype)
 
-    def _head(self, head: str, sfx: str, trunk: torch.Tensor) -> torch.Tensor:
+    def _head(self, head: str, sfx: str, trunk: torch.Tensor,
+              shard: RowShard | None = None) -> torch.Tensor:
         h = self.encoder[head]
         y = trunk
         for n in (6, 7, 8, 9):
-            y = h[f"e_conv{n}{sfx}"](y)
+            y = h[f"e_conv{n}{sfx}"](y, shard=shard)
         outer = f"e_conv11{sfx}" if sfx == "_1" else "e_conv11"
-        return torch.sigmoid(h[outer][f"e_conv11{sfx}"](y).float())
+        return torch.sigmoid(h[outer][f"e_conv11{sfx}"](y, shard=shard).float())
 
-    def forward(self, vox: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, vox: torch.Tensor, shard: RowShard | None = None,
+                extended: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``shard``: ``vox`` is this rank's rows of the camera grid (with
+        ``extended``, e_conv1's halo rows already in place, as the warp
+        emits them) and both heads return the rank's image rows; every conv
+        and deconv exchanges the rows it reads with the neighbouring ranks,
+        and e_conv4's raw depth collapse and 1x1 conv are local in the
+        rows."""
         e = self.encoder
-        x = e["e_conv3"](e["e_conv2"](e["e_conv1"](vox)))
-        x = self._stack("res1", 10, x)
+        x = e["e_conv1"](vox, shard=shard, **({"extended": True} if extended else {}))
+        x = e["e_conv3"](e["e_conv2"](x, shard=shard), shard=shard)
+        x = self._stack("res1", 10, x, shard)
         b, h, w, d, c = x.shape
         x = e["e_conv4"](x.reshape(b, h, w, d * c))  # raw depth collapse, channel d*C + c
-        x = self._stack("res2", 10, x)
-        x = e["e_conv5"](x)
-        trunk = self._stack("res3", 5, x)
-        return self._head("Image", "_1", trunk), self._head("Normal", "_2", trunk)
+        x = self._stack("res2", 10, x, shard)
+        x = e["e_conv5"](x, shard=shard)
+        trunk = self._stack("res3", 5, x, shard)
+        return self._head("Image", "_1", trunk, shard), self._head("Normal", "_2", trunk, shard)
 
 
 def _generator(seed) -> torch.Generator:

@@ -43,7 +43,7 @@ from rendernet_tpu_torch.ops.resample import (
 )
 
 __all__ = ["ShaderConfig", "ShaderRenderNet", "shader_forward", "init_shader_params",
-           "INPUT_HALO", "slab_rows"]
+           "INPUT_HALO", "slab_rows", "camera_warp"]
 
 # e_conv1's halo (5x5x5 stride 2): the camera-grid rows a rank's slab reads
 # from its neighbours, which each rank warps itself.
@@ -190,6 +190,30 @@ def slab_rows(shard: RowShard, patch: int) -> tuple:
     return r0 - INPUT_HALO[0], r1 + INPUT_HALO[1]
 
 
+def camera_warp(grid: torch.Tensor, view_params: torch.Tensor, new_size: int,
+                resample: str = "exact", compute_dtype: torch.dtype = torch.float32,
+                shard: RowShard | None = None) -> torch.Tensor:
+    """One camera-aligned warp of a ``[B, S, S, S, C]`` grid, differentiable
+    where grad mode is on: "exact" (direct trilinear) or "multipass" (the
+    pass plan on K1, K4 in its backward, in ``compute_dtype``). With
+    ``shard``: only the rank's camera rows and e_conv1's halo
+    (:func:`slab_rows`; the multipass path's last y pass emits just those
+    rows)."""
+    if resample not in ("exact", "multipass"):
+        raise ValueError(f"resample must be 'exact' or 'multipass', got {resample!r}")
+    if shard is not None:
+        args = (grid, view_params, (0, 0), new_size)
+        rows = slab_rows(shard, new_size)
+        if resample == "multipass":
+            return rotate_resample_camera_patch_multipass(
+                *args, new_size=new_size, compute_dtype=compute_dtype, rows=rows)
+        return rotate_resample_camera_patch(*args, new_size=new_size, rows=rows)
+    if resample == "multipass":
+        return rotate_resample_to_camera_multipass(grid, view_params, new_size=new_size,
+                                                   compute_dtype=compute_dtype)
+    return rotate_resample_to_camera(grid, view_params, new_size=new_size)
+
+
 def shader_forward(
     net: ShaderRenderNet,
     voxels: torch.Tensor,
@@ -219,26 +243,12 @@ def shader_forward(
     image rows, or with ``gather`` the whole image (every rank)."""
     from rendernet_tpu_torch.train.distributed import spatial_sharding
 
-    new_size = net.cfg.new_size
     shard = None
     if mesh is not None and mesh.shape["model"] > 1:
         shard = spatial_sharding(mesh, 5)
-    if resample not in ("exact", "multipass"):
-        raise ValueError(f"resample must be 'exact' or 'multipass', got {resample!r}")
+        voxels = shard.gather(voxels)
     with torch.no_grad():
-        if shard is not None:
-            args = (shard.gather(voxels), view_params, (0, 0), new_size)
-            rows = slab_rows(shard, new_size)
-            if resample == "multipass":
-                cam = rotate_resample_camera_patch_multipass(
-                    *args, new_size=new_size, compute_dtype=compute_dtype, rows=rows)
-            else:
-                cam = rotate_resample_camera_patch(*args, new_size=new_size, rows=rows)
-        elif resample == "multipass":
-            cam = rotate_resample_to_camera_multipass(
-                voxels, view_params, new_size=new_size, compute_dtype=compute_dtype)
-        else:
-            cam = rotate_resample_to_camera(voxels, view_params, new_size=new_size)
+        cam = camera_warp(voxels, view_params, net.cfg.new_size, resample, compute_dtype, shard)
     out = net(cam.to(compute_dtype), train=train, generator=dropout_generator, shard=shard,
               extended=shard is not None)
     return shard.gather(out) if gather and shard is not None else out

@@ -20,6 +20,12 @@ RenderNet_Texture_Face_Normal.py of the reference:
 
 :func:`texture_face_forward` warps the shape grid and the decoded texture
 grid independently and concatenates them on the channel axis (:240-263).
+Under spatial sharding (``train.distributed.spatial_sharding``) each rank
+of the model axis warps and renders its own rows, as the shader does
+(``models/shader.py``): the decoder runs whole on every rank, the warps
+emit the rank's camera rows plus e_conv1's halo, every conv and deconv of
+the trunk and both heads exchanges the rows it reads, and each head's
+output is the rank's image rows.
 The convs route as the shader's (``nn/layers.py``): e_conv1 and e_conv2 on
 the plain conv, e_conv3 / res1 / res1_skip on K2 (16 -> 16 channels), the
 res2 (512 wide) and res3 (256 wide) stacks on K3 with ``WINOGRAD_2D`` (K5
@@ -45,8 +51,8 @@ from rendernet_tpu_torch.nn.layers import (
     dropout,
     res_block_stack,
 )
-from rendernet_tpu_torch.ops.cuda_resample import rotate_resample_to_camera_multipass
-from rendernet_tpu_torch.ops.resample import rotate_resample_to_camera
+from rendernet_tpu_torch.models.shader import camera_warp
+from rendernet_tpu_torch.ops.halo import RowShard
 
 __all__ = [
     "TextureFaceConfig",
@@ -159,29 +165,34 @@ class TextureFaceRenderNet(nn.Module):
             enc[head] = h
         self.encoder = enc
 
-    def _stack(self, prefix: str, n: int, x: torch.Tensor, remat: bool,
-               preact: bool) -> torch.Tensor:
+    def _stack(self, prefix: str, n: int, x: torch.Tensor, remat: bool, preact: bool,
+               shard: RowShard | None) -> torch.Tensor:
         """A residual stack, its skip conv and the fp32 shortcut add."""
         shortcut = x
         x = res_block_stack([self.encoder[f"{prefix}_{i}"] for i in range(1, n + 1)], x,
-                            remat=remat, preact=preact)
-        x = self.encoder[f"{prefix}_skip"]["con1_3X3"](x)
+                            remat=remat, preact=preact, shard=shard)
+        x = self.encoder[f"{prefix}_skip"]["con1_3X3"](x, shard=shard)
         return (x.float() + shortcut.float()).to(shortcut.dtype)
 
-    def _head(self, head: str, sfx: str, trunk: torch.Tensor, unit) -> torch.Tensor:
+    def _head(self, head: str, sfx: str, trunk: torch.Tensor, unit,
+              shard: RowShard | None) -> torch.Tensor:
         h = self.encoder[head]
         x = trunk
         for n in (6, 7, 8, 9):
             x = unit(h[f"e_conv{n}{sfx}"], x)
-        last = h[f"e_conv10{sfx}"]
-        return torch.sigmoid(next(iter(last.values()))(x).float())
+        last = next(iter(h[f"e_conv10{sfx}"].values()))
+        return torch.sigmoid((last(x) if shard is None else last(x, shard=shard)).float())
 
     def forward(self, vox: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None,
-                cfg: TextureFaceConfig | None = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``train``, ``generator`` and ``cfg``: as
+                cfg: TextureFaceConfig | None = None, shard: RowShard | None = None,
+                extended: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``train``, ``generator``, ``cfg``, ``shard`` and ``extended``: as
         :meth:`~rendernet_tpu_torch.models.shader.ShaderRenderNet.forward`
-        (``cfg`` may change keep_prob, remat, preact_policy, scan_blocks)."""
+        (``cfg`` may change keep_prob, remat, preact_policy, scan_blocks).
+        With ``shard`` both heads return the rank's image rows, and the
+        dropout masks of the trunk and of both heads are the rows of the
+        whole run's masks."""
         e = self.encoder
         if cfg is None:
             cfg = self.cfg
@@ -189,19 +200,21 @@ class TextureFaceRenderNet(nn.Module):
                 != self.cfg:
             raise ValueError(f"cfg {cfg} does not describe this network ({self.cfg})")
 
-        def unit(mod, x):
-            return dropout(mod(x), cfg.keep_prob, generator, train)
+        def unit(mod, x, **kw):
+            y = mod(x) if shard is None else mod(x, shard=shard, **kw)
+            return dropout(y, cfg.keep_prob, generator, train, shard=shard)
 
-        x = vox
-        for name in ("e_conv1", "e_conv2", "e_conv3"):
+        x = unit(e["e_conv1"], vox, **({"extended": True} if extended else {}))
+        for name in ("e_conv2", "e_conv3"):
             x = unit(e[name], x)
         pre = cfg.preact_policy
-        x = self._stack("res1", cfg.res1_blocks, x, cfg.remat, pre)
-        x = e["projection_unit"](x)
-        x = self._stack("res2", cfg.res2_blocks, x, cfg.remat, pre)
+        x = self._stack("res1", cfg.res1_blocks, x, cfg.remat, pre, shard)
+        x = e["projection_unit"](x)  # a 1x1 conv over (depth, channel): local in the rows
+        x = self._stack("res2", cfg.res2_blocks, x, cfg.remat, pre, shard)
         x = unit(e["e_conv5"], x)
-        trunk = self._stack("res3", cfg.res3_blocks, x, cfg.remat, pre)
-        return self._head("Image", "_1", trunk, unit), self._head("Normal", "_2", trunk, unit)
+        trunk = self._stack("res3", cfg.res3_blocks, x, cfg.remat, pre, shard)
+        return (self._head("Image", "_1", trunk, unit, shard),
+                self._head("Normal", "_2", trunk, unit, shard))
 
 
 def texture_decoder(net: TextureFaceRenderNet, z: torch.Tensor) -> torch.Tensor:
@@ -217,19 +230,6 @@ def texture_decoder(net: TextureFaceRenderNet, z: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def _warp(grid: torch.Tensor, view_params: torch.Tensor, new_size: int, resample: str,
-          compute_dtype: torch.dtype) -> torch.Tensor:
-    """One camera-aligned warp of a ``[B, S, S, S, C]`` grid: "exact" (direct
-    trilinear) or "multipass" (the pass plan on K1, K4 in its backward, in
-    ``compute_dtype``)."""
-    if resample == "multipass":
-        return rotate_resample_to_camera_multipass(grid, view_params, new_size=new_size,
-                                                   compute_dtype=compute_dtype)
-    if resample == "exact":
-        return rotate_resample_to_camera(grid, view_params, new_size=new_size)
-    raise ValueError(f"resample must be 'exact' or 'multipass', got {resample!r}")
-
-
 def texture_face_forward(
     net: TextureFaceRenderNet,
     voxels: torch.Tensor,
@@ -240,19 +240,39 @@ def texture_face_forward(
     dropout_generator: torch.Generator | None = None,
     compute_dtype: torch.dtype = torch.float32,
     resample: str = "exact",
+    mesh=None,
+    gather: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Decode the texture grid, warp the shape grid and the texture grid
     (cast to float32) independently, concatenate them on the channel axis
     and run the two-head network: (albedo, normal). Gradients reach the
     decoder through the texture grid's warp (K4's voxel cotangent on the
-    multipass path); the shape grid and the pose are data."""
+    multipass path); the shape grid and the pose are data.
+
+    ``mesh`` (``train.distributed.make_mesh``) with a model axis above 1:
+    ``voxels`` is this rank's rows (axis 1) of the raw grid, which the
+    ranks all-gather (a rotation mixes every axis); every rank decodes the
+    whole texture grid, warps both grids to its slab of the camera rows
+    with e_conv1's halo and returns its slab of each head's image rows, or
+    with ``gather`` the whole images (every rank)."""
+    from rendernet_tpu_torch.train.distributed import spatial_sharding
+
     cfg = net.cfg
+    shard = None
+    if mesh is not None and mesh.shape["model"] > 1:
+        shard = spatial_sharding(mesh, 5)
+        voxels = shard.gather(voxels)
     tex = texture_decoder(net, texture_code.to(compute_dtype))
-    shape_cam = _warp(voxels.to(torch.float32), view_params, cfg.new_size, resample,
-                      compute_dtype)
-    tex_cam = _warp(tex.to(torch.float32), view_params, cfg.new_size, resample, compute_dtype)
+    shape_cam = camera_warp(voxels.to(torch.float32), view_params, cfg.new_size, resample,
+                            compute_dtype, shard)
+    tex_cam = camera_warp(tex.to(torch.float32), view_params, cfg.new_size, resample,
+                          compute_dtype, shard)
     both = torch.cat([shape_cam.to(compute_dtype), tex_cam.to(compute_dtype)], dim=4)
-    return net(both, train=train, generator=dropout_generator)
+    albedo, normal = net(both, train=train, generator=dropout_generator, shard=shard,
+                         extended=shard is not None)
+    if gather and shard is not None:
+        return shard.gather(albedo), shard.gather(normal)
+    return albedo, normal
 
 
 def init_texture_face_params(seed, cfg: TextureFaceConfig, device=None) -> TextureFaceRenderNet:

@@ -165,8 +165,13 @@ def to_torch_layout(w: torch.Tensor) -> torch.Tensor:
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """Parametric ReLU with a per-channel alpha (channels last)."""
-    return torch.clamp_min(x, 0.0) + alpha.to(x.dtype) * torch.clamp_max(x, 0.0)
+    """Parametric ReLU with a per-channel alpha (channels last), as JAX's
+    ``maximum(x, 0) + alpha * minimum(x, 0)``: at x = 0 exactly (zero
+    biases on an empty region of the grid) the gradient splits 0.5 / 0.5
+    as ``jnp.maximum`` / ``jnp.minimum``'s does, where ``clamp_min`` /
+    ``clamp_max`` would pass all of it to both terms."""
+    zero = x.new_zeros(())
+    return torch.maximum(x, zero) + alpha.to(x.dtype) * torch.minimum(x, zero)
 
 
 def _plain_conv(x: torch.Tensor, w: torch.Tensor, stride, ndim: int) -> torch.Tensor:

@@ -14,11 +14,21 @@ JAX runs the inner loop as one ``lax.scan``; here it is a Python loop of
 eager steps on the card. ``resample="auto"`` is the multipass warp (K1
 forward, K4 backward) on CUDA and the exact trilinear warp on the CPU, as
 JAX's "auto" is multipass on a TPU.
+
+Under spatial sharding (a mesh with a ``model`` axis above 1) each rank of
+a model group renders its rows of the camera grid and of the image: both
+decoders run whole on every rank, the warps emit the rank's camera rows
+with e_conv1's halo, the renderer exchanges halo rows through every conv
+and deconv (``models/decoders.py``), and Phong is per pixel. A rank's loss
+and latent gradients are partial sums over its rows; the step sums them
+over the model axis in fp32 before the update, so every rank applies the
+same one. With a ``data`` axis above 1 the pose hypotheses split over it
+and :func:`reconstruct` gathers each epoch's losses and latents, so every
+rank takes the global best hypothesis, as JAX's global arrays give it.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -31,9 +41,10 @@ from rendernet_tpu_torch.models.decoders import (
     ReconTextureDecoder,
     ShapeDecoder3D,
 )
-from rendernet_tpu_torch.ops.cuda_resample import rotate_resample_to_camera_multipass
+from rendernet_tpu_torch.models.shader import camera_warp, slab_rows
+from rendernet_tpu_torch.ops.halo import RowShard
 from rendernet_tpu_torch.ops.phong import generate_light_pos, phong_composite
-from rendernet_tpu_torch.ops.resample import rotate_resample_to_camera
+from rendernet_tpu_torch.train import distributed
 
 __all__ = [
     "ReconConfig",
@@ -110,9 +121,14 @@ def _dtype(cfg: ReconConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
-def recon_forward(model: ReconModel, latents: Latents, cfg: ReconConfig
+def recon_forward(model: ReconModel, latents: Latents, cfg: ReconConfig,
+                  shard: RowShard | None = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The differentiable pipeline -> (composite, albedo, normal, shape)."""
+    """The differentiable pipeline -> (composite, albedo, normal, shape).
+    ``shard`` (``train.distributed.spatial_sharding``): both grids are
+    warped to this rank's camera rows with e_conv1's halo (the last y pass
+    emits just those rows) and the composite, albedo and normal are the
+    rank's image rows; the shape is the whole grid."""
     b = latents.vector.shape[0]
     cdt = _dtype(cfg)
     shape = model.decoder(latents.vector.to(cdt))
@@ -122,19 +138,19 @@ def recon_forward(model: ReconModel, latents: Latents, cfg: ReconConfig
     method = cfg.resample
     if method == "auto":
         method = "multipass" if latents.vector.is_cuda else "exact"
-    if method == "multipass":
-        # The warp's data rides the compute dtype; geometry and the pose
-        # gradient stay float32 in the kernels.
-        warp = functools.partial(rotate_resample_to_camera_multipass, compute_dtype=cdt)
-    elif method == "exact":
-        warp = rotate_resample_to_camera
-    else:
+    if method not in ("multipass", "exact"):
         raise ValueError(f"resample must be 'auto', 'multipass' or 'exact', got {method!r}")
-    shape_cam = warp(shape, latents.pose, new_size=cfg.new_size)
-    tex_cam = warp(tex.float(), latents.pose, new_size=cfg.new_size)
+
+    def warp(grid, pose):
+        # The multipass warp's data rides the compute dtype; geometry and the
+        # pose gradient stay float32 in the kernels.
+        return camera_warp(grid, pose, cfg.new_size, method, cdt, shard)
+
+    shape_cam = warp(shape, latents.pose)
+    tex_cam = warp(tex.float(), latents.pose)
     both = torch.cat([shape_cam, tex_cam], dim=4)
 
-    albedo, normal = model.renderer(both.to(cdt))
+    albedo, normal = model.renderer(both.to(cdt), shard=shard, extended=shard is not None)
     light_col = torch.ones((b, 3), dtype=torch.float32, device=albedo.device)
     shading = phong_composite(normal, light_dir, light_col, cfg.ambient, cfg.k_diffuse,
                               black_background=False, with_mask=True)
@@ -142,10 +158,13 @@ def recon_forward(model: ReconModel, latents: Latents, cfg: ReconConfig
 
 
 def recon_per_sample_loss(model: ReconModel, latents: Latents, target: torch.Tensor,
-                          cfg: ReconConfig) -> torch.Tensor:
-    """Per-hypothesis MSE against the shaded target image -> ``[B]``."""
-    compos, _, _, _ = recon_forward(model, latents, cfg)
-    return torch.mean((target - compos) ** 2, dim=(1, 2, 3))
+                          cfg: ReconConfig, shard: RowShard | None = None) -> torch.Tensor:
+    """Per-hypothesis MSE against the shaded target image -> ``[B]``. With
+    ``shard``: ``target`` is this rank's image rows, and the result is the
+    rank's share, its rows' squared errors over the whole image's count."""
+    compos, _, _, _ = recon_forward(model, latents, cfg, shard)
+    loss = torch.mean((target - compos) ** 2, dim=(1, 2, 3))
+    return loss if shard is None else loss / shard.size
 
 
 def _freeze(model: ReconModel) -> None:
@@ -161,24 +180,38 @@ def make_recon_step(model: ReconModel, cfg: ReconConfig, scan_steps: Optional[in
     With it: ``scan_steps`` steps in a loop -> (latents, loss history [T,
     B]). Per-group learning rates as in the reference. ``loss_fn(model,
     latents, target, cfg) -> [B]`` swaps the forward model (default
-    :func:`recon_per_sample_loss`). Freezes ``model``. ``mesh``
-    (``train.distributed.make_mesh``): the step runs on each rank alone,
-    as JAX's; a model axis above 1 (spatial sharding) is not taken yet
-    and raises ``NotImplementedError``."""
-    if mesh is not None and mesh.shape["model"] > 1:
-        from rendernet_tpu_torch.train.distributed import MODEL_AXIS_TODO
+    :func:`recon_per_sample_loss`). Freezes ``model``.
 
-        raise NotImplementedError(MODEL_AXIS_TODO)
+    ``mesh`` (``train.distributed.make_mesh``): the hypotheses of a data
+    axis above 1 are independent, so each rank steps its own rows alone, as
+    JAX's. A model axis above 1 shards the rows (spatial sharding):
+    ``target`` is this rank's image rows (axis 1), ``new_size`` must divide
+    by 2 x the model axis, and the per-sample losses and the four latent
+    gradients (each rank's are partial sums over its rows; the pose's
+    arrive through every warp pass's parameter gradient, the windowed y
+    pass included) are summed over the model axis in fp32 before the
+    update, so every rank applies the same update and returns the same
+    losses. A custom ``loss_fn`` is then called with ``shard=`` (this
+    rank's ``RowShard``), receives the rank's target rows and returns its
+    share of each per-sample loss."""
+    shard = None
+    if mesh is not None and mesh.shape["model"] > 1:
+        shard = distributed.spatial_sharding(mesh, 5)
+        slab_rows(shard, cfg.new_size)  # refuses a grid the slabs cannot split
     if loss_fn is None:
         loss_fn = recon_per_sample_loss
+    kw = {} if shard is None else {"shard": shard}
     _freeze(model)
 
     def one_step(latents: Latents, target: torch.Tensor):
         leaves = [t.detach().requires_grad_(True) for t in latents]
         with torch.enable_grad():
-            per_sample = loss_fn(model, Latents(*leaves), target, cfg)
+            per_sample = loss_fn(model, Latents(*leaves), target, cfg, **kw)
             grads = torch.autograd.grad(per_sample.sum(), leaves, allow_unused=True)
         grads = [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)]
+        per_sample = per_sample.detach()
+        if shard is not None:
+            per_sample, *grads = distributed.model_sum([per_sample, *grads], mesh)
         pose_scale = torch.ones(3, device=latents.pose.device)  # no copy from the host
         pose_scale[1] = cfg.el_eta_scale
         with torch.no_grad():
@@ -188,7 +221,7 @@ def make_recon_step(model: ReconModel, cfg: ReconConfig, scan_steps: Optional[in
                 texture=latents.texture - cfg.tex_eta * grads[2],
                 light=latents.light - cfg.light_eta * grads[3],
             )
-        return new, per_sample.detach()
+        return new, per_sample
 
     if scan_steps is None:
         return one_step
@@ -268,10 +301,20 @@ def subdivided_latents(best: Latents, best_idx: int, phi_range: float, theta_ran
                    texture=tile(best.texture), light=tile(best.light))
 
 
+def _gather_data(t: torch.Tensor, mesh, dim: int) -> torch.Tensor:
+    """``t`` of every rank of this rank's data axis, concatenated along
+    ``dim`` in data order (``t`` itself without a data axis above 1)."""
+    if mesh is None or mesh.shape["data"] == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(mesh.shape["data"])]
+    torch.distributed.all_gather(parts, t.contiguous(), group=mesh.group)
+    return torch.cat(parts, dim=dim)
+
+
 def reconstruct(model: ReconModel, target: torch.Tensor, cfg: ReconConfig, seed: int = 0,
                 callback=None, run=None, dump_every: Optional[int] = None,
-                inner_callback=None, loss_fn=None, initial: Optional[Latents] = None
-                ) -> Tuple[Latents, np.ndarray, np.ndarray]:
+                inner_callback=None, loss_fn=None, initial: Optional[Latents] = None,
+                mesh=None) -> Tuple[Latents, np.ndarray, np.ndarray]:
     """The coarse-to-fine reconstruction, on the device of ``target``.
 
     Returns ``(latents, final_losses [epochs, B], loss_curves [epochs,
@@ -280,17 +323,41 @@ def reconstruct(model: ReconModel, target: torch.Tensor, cfg: ReconConfig, seed:
     loop in chunks of K steps and fires ``inner_callback(epoch, inner_step,
     latents, losses_chunk [K, B])`` after each. ``run`` reuses a runner of
     :func:`make_recon_step` (``scan_steps`` = ``dump_every`` when set, else
-    ``inner_steps``). The center-win test ``best_idx % 5 == 2`` is the JAX
-    package's, kept for parity."""
+    ``inner_steps``; built with the same ``mesh``). The center-win test
+    ``best_idx % 5 == 2`` is the JAX package's, kept for parity.
+
+    ``mesh`` (``train.distributed.make_mesh``): the steps are built on it
+    (:func:`make_recon_step`). With a data axis above 1 the ``B =
+    cfg.batch_size`` hypotheses split over it in data order (B must
+    divide): ``target`` holds this rank's hypotheses' targets (or one that
+    broadcasts), each chunk's losses and the latents are gathered over the
+    data axis, and every rank takes the global best hypothesis and the
+    same subdivision, as JAX's global arrays give. ``initial``, the
+    latents handed to the callbacks and the result are the whole ``B``
+    rows; with a model axis ``target`` is this rank's image rows."""
     chunk = dump_every or cfg.inner_steps
     if cfg.inner_steps % chunk:
         raise ValueError(f"dump_every={dump_every} must divide inner_steps={cfg.inner_steps}")
+    n_data = 1 if mesh is None else mesh.shape["data"]
+    if cfg.batch_size % n_data:
+        raise ValueError(f"{cfg.batch_size} hypotheses do not split over a data axis of {n_data}")
     if run is None:
-        run = make_recon_step(model, cfg, scan_steps=chunk, loss_fn=loss_fn)
+        run = make_recon_step(model, cfg, scan_steps=chunk, loss_fn=loss_fn, mesh=mesh)
     run_frozen = None
     if cfg.warmup_freeze_epochs > 0:
         run_frozen = make_recon_step(model, dataclasses.replace(cfg, tex_eta=0.0, light_eta=0.0),
-                                     scan_steps=chunk, loss_fn=loss_fn)
+                                     scan_steps=chunk, loss_fn=loss_fn, mesh=mesh)
+
+    def local(lat: Latents) -> Latents:  # this rank's hypotheses of the whole batch
+        if n_data == 1:
+            return lat
+        k = cfg.batch_size // n_data
+        d = torch.distributed.get_rank(mesh.group)
+        return Latents(*(t[d * k:(d + 1) * k] for t in lat))
+
+    def whole(lat: Latents) -> Latents:
+        return Latents(*(_gather_data(t, mesh, 0) for t in lat))
+
     latents = initial_latents(cfg, seed, device=target.device) if initial is None else initial
     phi_range, theta_range = cfg.phi_range0, cfg.theta_range0
     theta_pending = False
@@ -303,16 +370,18 @@ def reconstruct(model: ReconModel, target: torch.Tensor, cfg: ReconConfig, seed:
             pose = create_param_center(cfg.phi_mid0, cfg.phi_range0, cfg.theta_mid0, 0.0,
                                        cfg.batch_size, shape=cfg.grid_shape)
             latents = latents._replace(pose=torch.as_tensor(pose, device=target.device))
+    mine = local(latents)
     history, curves = [], []
     for epoch in range(cfg.max_epochs):
         epoch_run = (run_frozen if run_frozen is not None and epoch < cfg.warmup_freeze_epochs
                      else run)
         chunks = []
         for ci in range(cfg.inner_steps // chunk):
-            latents, losses = epoch_run(latents, target)
-            chunks.append(losses.cpu().numpy())
+            mine, losses = epoch_run(mine, target)
+            chunks.append(_gather_data(losses, mesh, 1).cpu().numpy())
             if inner_callback is not None:
-                inner_callback(epoch, (ci + 1) * chunk, latents, chunks[-1])
+                inner_callback(epoch, (ci + 1) * chunk, whole(mine), chunks[-1])
+        latents = whole(mine)
         curve = np.concatenate(chunks, axis=0)
         curves.append(curve)
         final = curve[-1]
@@ -329,4 +398,5 @@ def reconstruct(model: ReconModel, target: torch.Tensor, cfg: ReconConfig, seed:
                 else:
                     theta_range /= 2.0
             latents = subdivided_latents(latents, best_idx, phi_range, theta_range, cfg)
+            mine = local(latents)
     return latents, np.stack(history), np.stack(curves)

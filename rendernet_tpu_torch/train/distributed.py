@@ -29,10 +29,15 @@ from its neighbours (a halo exchange, the counterpart of the ones XLA
 inserts), the elementwise ops and the projection unit (a 1x1 conv over
 depth and channels, local in the rows) need none. The train step sums the
 loss and the gradients over the model axis in fp32 (each rank's are
-partial sums over its rows) before the data axis's mean.
-:func:`gather_rows` assembles the whole tensor. The texture step and
-inverse rendering do not take a model axis yet (ROADMAP.md queue 1).
-``data_sharding`` has no counterpart: a rank's tensor is its shard.
+partial sums over its rows) before the data axis's mean. The same holds
+for the texture/face model (forward and train step; every rank decodes
+the whole texture grid, and the gradient sum completes the decoder's) and
+for inverse rendering (``recon_forward``, ``make_recon_step``, which sums
+the per-sample losses and the latent gradients over the model axis, and
+``reconstruct``, which also gathers each epoch's losses and latents over
+the data axis, where the pose hypotheses split).
+:func:`gather_rows` assembles the whole tensor. ``data_sharding`` has no
+counterpart: a rank's tensor is its shard.
 """
 from __future__ import annotations
 
@@ -71,11 +76,6 @@ __all__ = [
 
 # Every collective of the group waits at most this long for the other ranks.
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
-
-# What the texture step and inverse rendering say to a model axis above 1.
-MODEL_AXIS_TODO = ("spatial sharding (a 'model' mesh axis above 1) covers the shader forward and "
-                   "the shader train step; the texture step and inverse rendering under a model "
-                   "axis are ROADMAP.md queue 1's open item")
 
 
 def world() -> Tuple[int, int]:

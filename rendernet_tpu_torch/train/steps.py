@@ -36,7 +36,9 @@ the cotangents) are summed over the model axis in fp32, then averaged over
 the data axis as without one (in ``cfg.allreduce_dtype``; JAX's bf16 path
 reduces over ``data`` only, so the model-axis sum stays fp32). The crop is
 shared, and the dropout seed is folded with the data rank only, so the
-ranks of a model group draw the rows of one mask.
+ranks of a model group draw the rows of one mask. The texture step shards
+the same way (:func:`texture_loss`): every rank decodes the whole texture
+grid, and the model-axis sum of the gradients completes the decoder's.
 """
 from __future__ import annotations
 
@@ -342,7 +344,7 @@ def create_texture_state(seed, model_cfg: TextureFaceConfig, cfg: TrainConfig,
 def texture_loss(net: TextureFaceRenderNet, model_cfg: TextureFaceConfig, cfg: TrainConfig,
                  patch_size: int, voxels, images, normals, textures, poses,
                  offsets: Optional[Sequence[int]] = None,
-                 drop_seed: int = 0) -> torch.Tensor:
+                 drop_seed: int = 0, shard=None) -> torch.Tensor:
     """The texture step's loss (``loss_fn`` of JAX's
     ``make_texture_train_step``, :330-370): decode the texture grid in the
     compute dtype, cast it to float32 and warp it under autograd (K1
@@ -350,18 +352,35 @@ def texture_loss(net: TextureFaceRenderNet, model_cfg: TextureFaceConfig, cfg: T
     ``patch_size < new_size`` crop both warps, the images and the normals
     at ``offsets``; concatenate, run the two heads and return MSE(albedo)
     + MSE(normal). With :data:`FUSE_TEXTURE_RESAMPLE` the two grids share
-    one differentiated warp where their resolutions match."""
+    one differentiated warp where their resolutions match.
+
+    ``shard`` (an ``ops/halo.py`` ``RowShard``): ``voxels``, ``images`` and
+    ``normals`` are this rank's rows (axis 1), gathered over the model axis;
+    the warps emit the rank's slab of the patch's camera rows with e_conv1's
+    halo (offsets (0, 0) at the full grid), the heads render its image
+    rows, and the loss is the rank's share: its rows' squared errors over
+    the whole patch's element count. Every rank decodes the whole texture
+    grid (the decoder has no dropout), so its parameter gradients are the
+    rank's partial sums, linear in its partial cotangent of the grid: the
+    step's model-axis sum of all gradients completes them. The grid's
+    cotangent itself is not summed (that would count the decoder's
+    gradients once per rank)."""
     cdt = _dtype(cfg.compute_dtype)
     voxels = voxels.to(torch.float32)
     images = _as_f32_image(images)
     normals = _as_f32_image(normals)
+    rows = None
+    if shard is not None:
+        voxels, images, normals = (shard.gather(t) for t in (voxels, images, normals))
+        offsets = (0, 0) if offsets is None else offsets
+        rows = slab_rows(shard, patch_size)
     tex_grid = texture_decoder(net, textures.to(cdt)).to(torch.float32)
     fused = FUSE_TEXTURE_RESAMPLE and voxels.shape[1:4] == tex_grid.shape[1:4]
 
     def warp(grid):
-        if patch_size == cfg.new_size:
+        if patch_size == cfg.new_size and shard is None:
             return _resample_full(grid, poses, cfg)
-        return _resample_patch(grid, poses, offsets, patch_size, cfg)
+        return _resample_patch(grid, poses, offsets, patch_size, cfg, rows=rows)
 
     if fused:
         both_c = warp(torch.cat([voxels, tex_grid], dim=4))
@@ -369,18 +388,21 @@ def texture_loss(net: TextureFaceRenderNet, model_cfg: TextureFaceConfig, cfg: T
         with torch.no_grad():
             shape_c = warp(voxels)
         both_c = torch.cat([shape_c, warp(tex_grid)], dim=4)
-    if patch_size == cfg.new_size:
+    if patch_size == cfg.new_size and shard is None:
         img_c, nrm_c = images, normals
     else:
         factor = images.shape[1] // cfg.new_size
-        img_c = crop_image(images, offsets, patch_size, factor)
-        nrm_c = crop_image(normals, offsets, patch_size, factor)
+        slab = None if shard is None else shard.rows(patch_size)
+        img_c = crop_image(images, offsets, patch_size, factor, slab)
+        nrm_c = crop_image(normals, offsets, patch_size, factor, slab)
     gen = None
     if model_cfg.keep_prob < 1.0:
         gen = torch.Generator(device=voxels.device).manual_seed(drop_seed)
-    albedo, normal = net(both_c.to(cdt), train=True, generator=gen, cfg=model_cfg)
-    return (shader_loss_from_images(albedo, img_c, greyscale=False)
+    albedo, normal = net(both_c.to(cdt), train=True, generator=gen, cfg=model_cfg, shard=shard,
+                         extended=shard is not None)
+    loss = (shader_loss_from_images(albedo, img_c, greyscale=False)
             + shader_loss_from_images(normal, nrm_c, greyscale=False))
+    return loss if shard is None else loss / shard.size  # the rank's share of the means
 
 
 def make_texture_train_step(model_cfg: TextureFaceConfig, cfg: TrainConfig,
@@ -393,11 +415,15 @@ def make_texture_train_step(model_cfg: TextureFaceConfig, cfg: TrainConfig,
         -> (state, loss)
 
     Crops, dropout seeds, grad accumulation and ``mesh`` as
-    :func:`make_shader_train_step`, but for a model axis above 1, which
-    raises ``NotImplementedError``; the loss is :func:`texture_loss`."""
-    if mesh is not None and mesh.shape["model"] > 1:
-        raise NotImplementedError(distributed.MODEL_AXIS_TODO)
+    :func:`make_shader_train_step`; the loss is :func:`texture_loss`. Under
+    spatial sharding each rank passes its rows of the voxels, images and
+    normals (axis 1) and the whole textures and poses of its batch rows;
+    the patch must divide by 2 x the model axis."""
     mesh = _data_parallel(mesh)
+    shard = None
+    if mesh is not None and mesh.shape["model"] > 1:
+        shard = distributed.spatial_sharding(mesh, 5)
+        slab_rows(shard, patch_size)  # refuses a patch the slabs cannot split
 
     def step(state: TrainState, voxels, images, normals, textures, poses, rng: int,
              offsets: Optional[Sequence[int]] = None):
@@ -406,6 +432,6 @@ def make_texture_train_step(model_cfg: TextureFaceConfig, cfg: TrainConfig,
             state, tx, voxels.shape[0], cfg.grad_accum_steps,
             lambda sl: texture_loss(state.params, model_cfg, cfg, patch_size, voxels[sl],
                                     images[sl], normals[sl], textures[sl], poses[sl],
-                                    offsets, drop_seed), mesh, cfg.allreduce_dtype)
+                                    offsets, drop_seed, shard), mesh, cfg.allreduce_dtype)
 
     return step

@@ -519,12 +519,18 @@ def test_cli_two_processes_on_the_cpu(ranks, tmp_path):
     assert not (tmp_path / "run1").exists()
 
 
-def test_graft_entry_dryrun_two_ranks():
-    """graft_entry.dryrun_multichip(2) on the CPU (a cut model): one step
-    over two spawned ranks, a finite loss; two ranks take no dp + spatial
-    phase (tests/test_torch_spatial.py runs four)."""
+def test_graft_entry_dryrun_two_ranks(monkeypatch):
+    """graft_entry.dryrun_multichip(2) on the CPU (a cut model, one thread
+    per rank): one step over two spawned ranks, a finite loss; two ranks
+    take no dp + spatial phase (tests/test_torch_spatial.py runs four), but
+    phases 3 and 4 (a data-parallel texture step, a recon scan with one
+    hypothesis per rank) run at any count, as JAX's do."""
     from rendernet_tpu_torch import graft_entry
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # read by each spawned rank's torch
 
     res = graft_entry.dryrun_multichip(2, device="cpu",
                                        model_cfg=tshader.ShaderConfig(**LOOP_ARCH))
-    assert set(res) == {"loss"} and np.isfinite(res["loss"]) and res["loss"] > 0
+    assert set(res) == {"loss", "texture_loss", "recon_losses"}
+    assert np.isfinite(res["loss"]) and res["loss"] > 0
+    assert np.isfinite(res["texture_loss"]) and np.asarray(res["recon_losses"]).shape == (2, 2)
