@@ -182,7 +182,10 @@ The kernels' launch counters are zeroed just before each run of phases 3
 to 8 and 10 to 12 (and of each A/B arm) and read just after; every run's counts are checked, shape by
 shape, against the counts its graph implies. K1's and K4's phase 2 rows
 name the path each launch took (``bulk`` or ``scalar``, from the
-wrappers' path counters); K3's carry the bytes of its bf16 V scratch; the
+wrappers' path counters); K3's carry the bytes of its V scratch; the fp32
+K2 and K3 rows are bound by three TF32 passes (495 TFLOP/s) and carry the
+one-pass bound on the fp32 CUDA cores (67 TFLOP/s, ``cuda_core_bound_ms``)
+beside it; the
 serving, training and recon profiles print K1's, K4's, K2's, K2w's, K3's,
 K6's, K5's and K5w's device time and share of busy time; a
 ``train_memory`` line gives K3's V scratch and K6's scratch per training
@@ -219,8 +222,9 @@ import tempfile
 import time
 import zlib
 
-# Published H100 SXM peaks (dense): bf16 tensor cores, fp32 CUDA cores, HBM3.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# Published H100 SXM peaks (dense): bf16 and TF32 tensor cores, fp32 CUDA
+# cores, HBM3.
+PEAK_FLOPS = {"bfloat16": 989e12, "tf32": 495e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
 # Kernel vs plain version, in the working dtype, as a fraction of max|plain|.
@@ -310,10 +314,18 @@ def time_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# The ops whose fp32 form runs every product as three TF32 passes (K2 at
+# C <= 32, every fp32 K2 case here; K3).
+TF32_OPS = ("conv3d", "conv3d_dgrad", "wino", "wino_dgrad")
+
+
 def bound_dtype(op: str, dname: str) -> str:
     """The peak rate that bounds a case's operations: K4's fp32 CUDA-core
-    math, K6's bf16 tensor-core passes (three for fp32 products), else the
-    storage dtype's."""
+    math, K6's bf16 tensor-core passes (three for fp32 products), the TF32
+    tensor cores for fp32 K2 and K3 (three passes, counted in the case's
+    flops), else the storage dtype's."""
+    if dname == "float32" and op in TF32_OPS:
+        return "tf32"
     return {"pass_bwd": "float32", "wino_wgrad": "bfloat16"}.get(op, dname)
 
 
@@ -715,13 +727,15 @@ def make_case(torch, op, spec, dtype, gen):
     xs, co = spec[0], spec[1]
     m = math.prod(xs[:-1])
     c = xs[-1]
+    # fp32 K2 / K3: three TF32 passes per product (bound_dtype)
+    passes = 3 if bound_dtype(op, str(dtype).split(".")[-1]) == "tf32" else 1
     if op == "conv3d":
         x = rnd(*xs)
         w = rnd(3, 3, 3, c, co, scale=1.0 / math.sqrt(27 * c))
         return (lambda: cuda_conv3d.nc_conv3d_forward(x, w),
                 lambda: cuda_conv3d.nc_conv3d_plain(x, w),
                 lambda: torch.nn.functional.conv3d(cf(x), w.permute(4, 3, 0, 1, 2), padding=1),
-                2.0 * m * co * 27 * c, item * (x.numel() + w.numel() + m * co), False)
+                passes * 2.0 * m * co * 27 * c, item * (x.numel() + w.numel() + m * co), False)
     if op == "conv3d_dgrad":  # gy [.., c] of a conv co -> c; the data gradient has co channels
         gy = rnd(*xs)
         w = rnd(3, 3, 3, co, c, scale=1.0 / math.sqrt(27 * co))
@@ -730,7 +744,8 @@ def make_case(torch, op, spec, dtype, gen):
         return (lambda: cuda_conv3d.nc_conv3d_forward(gy, wf),
                 lambda: cuda_conv3d.nc_conv3d_plain(gy, wf),
                 lambda: grad.conv3d_input(size, w.permute(4, 3, 0, 1, 2), cf(gy), padding=1),
-                2.0 * m * co * 27 * c, item * (gy.numel() + w.numel() + m * co), False)
+                passes * 2.0 * m * co * 27 * c, item * (gy.numel() + w.numel() + m * co),
+                False)
     if op == "conv3d_wgrad":
         x = rnd(*xs)
         gy = rnd(*xs[:-1], co)
@@ -747,7 +762,8 @@ def make_case(torch, op, spec, dtype, gen):
         return (lambda: cuda_winograd.wino_conv2d_forward(x, w),
                 lambda: cuda_winograd.wino_conv2d_plain(x, w),
                 lambda: torch.nn.functional.conv2d(cf(x), w.permute(3, 2, 0, 1), padding=1),
-                2.0 * 16 * tiles * c * co, item * (x.numel() + 16 * c * co + m * co), False)
+                passes * 2.0 * 16 * tiles * c * co, item * (x.numel() + 16 * c * co + m * co),
+                False)
     if op == "wino_dgrad":  # gy [.., c] of a conv co -> c; the data gradient has co channels
         gy = rnd(*xs)
         w = rnd(3, 3, co, c, scale=1.0 / math.sqrt(9 * co))
@@ -756,7 +772,8 @@ def make_case(torch, op, spec, dtype, gen):
         return (lambda: cuda_winograd.wino_conv2d_forward(gy, wf),
                 lambda: cuda_winograd.wino_conv2d_plain(gy, wf),
                 lambda: grad.conv2d_input(size, w.permute(3, 2, 0, 1), cf(gy), padding=1),
-                2.0 * 16 * tiles * c * co, item * (gy.numel() + 16 * c * co + m * co), False)
+                passes * 2.0 * 16 * tiles * c * co, item * (gy.numel() + 16 * c * co + m * co),
+                False)
     if op == "wino_wgrad":  # the split form (fp32 products) does three bf16 passes
         fp32_ops = spec[2]
         passes = 3 if cuda_winograd.wgrad_split(dtype, fp32_ops) else 1
@@ -892,11 +909,14 @@ def run_kernel_checks(torch, failures):
             kms = time_ms(torch, kern, 20)
             pms = time_ms(torch, plain, 5)
             lms = time_ms(torch, lib, 20) if lib is not None else None
-            bms, by = bound(flops, nbytes, bound_dtype(op, dname))
+            rate = bound_dtype(op, dname)
+            bms, by = bound(flops, nbytes, rate)
             row = dict(kernel=kid, shape=label, dtype=dname, max_abs_err=err,
                        max_abs_ref=scale, tol=tol, ok=ok, ms=kms, plain_ms=pms,
                        library_ms=lms, bound_ms=bms, bound_by=by, run=run,
                        key=case_key(op, spec))
+            if rate == "tf32":  # the bound of one fp32 pass on the CUDA cores, beside it
+                row["cuda_core_bound_ms"] = bound(flops / 3, nbytes, "float32")[0]
             if path is not None:
                 row["path"] = path
             if lib_err is not None:

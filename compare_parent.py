@@ -28,7 +28,11 @@ sources, into that tree's ``_build``):
    target, each timed synchronize to synchronize; median and mean; device
    busy time and idle share over one profiled step); where K6 is chosen, with the flag off, also the
    patch-128 step with ``cuda_winograd.WGRAD`` set to True and to "fp32"
-   (K6 in each operand form) on each tree, timed the same way.
+   (K6 in each operand form) on each tree, timed the same way; where K2 or
+   K3 is chosen, with the flag off, also the fp32 paths that run their fp32
+   forms: the fp32 batch-8 ``shader_forward`` on the Winograd route (the
+   render CLI's) and the fp32 inverse-rendering step at ``ReconConfig()``
+   (its default dtype), timed as their bf16 forms.
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 per kernel row of this tree (matched to the earlier revision's by kernel,
@@ -113,7 +117,7 @@ def _timed_steps(torch, step, state, batch):
         all(math.isfinite(x) for x in losses)
 
 
-def _e2e(torch, np, cs, conv2d: bool, wgrad: bool) -> dict:
+def _e2e(torch, np, cs, conv2d: bool, wgrad: bool, fp32: bool) -> dict:
     from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
     from rendernet_tpu_torch.nn import layers
     from rendernet_tpu_torch.ops import cuda_winograd
@@ -131,6 +135,10 @@ def _e2e(torch, np, cs, conv2d: bool, wgrad: bool) -> dict:
                                          resample="multipass")
             res["forward_ms"] = cs.time_ms(torch, fwd, 10)
             res["forward_idle_share"] = cs.profile_run(torch, fwd)["device_idle_share"]
+            if fp32 and not conv2d:
+                fwd32 = lambda: shader_forward(net, vox, pose,  # noqa: E731
+                                               compute_dtype=torch.float32, resample="multipass")
+                res["forward32_ms"] = cs.time_ms(torch, fwd32, 5)
         del net, vox, pose
         cfg = TrainConfig(batch_size=24, img_res=512, new_size=128, compute_dtype="bfloat16",
                           is_greyscale=True, e_eta=1e-5, moment_dtype="bfloat16")
@@ -153,25 +161,29 @@ def _e2e(torch, np, cs, conv2d: bool, wgrad: bool) -> dict:
         del state, tx, batch
         torch.cuda.empty_cache()
         model = cs.recon_model(torch)
-        rcfg = ReconConfig(compute_dtype="bfloat16", light_elevation=cs.RECON_LIGHT_ELEVATION)
-        step = make_recon_step(model, rcfg)
-        lat = initial_latents(rcfg, device="cuda")
-        gen = torch.Generator(device="cuda").manual_seed(11)
-        target = torch.rand(5, 512, 512, 3, generator=gen, device="cuda")
-        lat, _ = step(lat, target)  # warm-up
-        times, sums = [], []
-        for _ in range(RECON_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lat, per = step(lat, target)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            sums.append(per.sum())
-        res["recon16_ms"] = {"median": statistics.median(times), "mean": statistics.fmean(times)}
-        res["recon16_finite"] = all(math.isfinite(float(x)) for x in sums)
-        prof = cs.profile_run(torch, lambda: step(lat, target))
-        res["recon16_busy_ms"] = prof["device_busy_ms"]
-        res["recon16_idle_share"] = prof["device_idle_share"]
+        for dname, tag in (("bfloat16", "recon16"), ("float32", "recon32")):
+            if tag == "recon32" and not (fp32 and not conv2d):
+                continue
+            rcfg = ReconConfig(compute_dtype=dname, light_elevation=cs.RECON_LIGHT_ELEVATION)
+            step = make_recon_step(model, rcfg)
+            lat = initial_latents(rcfg, device="cuda")
+            gen = torch.Generator(device="cuda").manual_seed(11)
+            target = torch.rand(5, 512, 512, 3, generator=gen, device="cuda")
+            lat, _ = step(lat, target)  # warm-up
+            times, sums = [], []
+            for _ in range(RECON_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                lat, per = step(lat, target)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                sums.append(per.sum())
+            res[f"{tag}_ms"] = {"median": statistics.median(times),
+                                "mean": statistics.fmean(times)}
+            res[f"{tag}_finite"] = all(math.isfinite(float(x)) for x in sums)
+            prof = cs.profile_run(torch, lambda: step(lat, target))
+            res[f"{tag}_busy_ms"] = prof["device_busy_ms"]
+            res[f"{tag}_idle_share"] = prof["device_idle_share"]
     finally:
         layers.WINOGRAD_2D, layers.CUDA_CONV2D = False, False
         torch.cuda.empty_cache()
@@ -192,7 +204,8 @@ def run(tree: str, kids) -> None:
     _native.build_all()
     _kernel_rows(torch, cs, kids)
     for conv2d in (False, True) if {"K5", "K5w"} & set(kids) else (False,):
-        print("e2e " + json.dumps(_e2e(torch, np, cs, conv2d, "K6" in kids)), flush=True)
+        print("e2e " + json.dumps(_e2e(torch, np, cs, conv2d, "K6" in kids,
+                                       bool({"K2", "K3"} & set(kids)))), flush=True)
 
 
 def main() -> int:

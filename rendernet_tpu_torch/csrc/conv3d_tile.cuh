@@ -1,5 +1,6 @@
-// The tile walk, halo ring and shared-memory layouts that the bf16 tensor-
-// core paths of K2 (conv3d.cu) and K2w (conv3d_wgrad.cu) share.
+// The tile walk, halo ring and shared-memory layouts that the tensor-core
+// paths of K2 (conv3d.cu; bf16, and fp32 on narrower columns) and K2w
+// (conv3d_wgrad.cu) share.
 //
 // Positions [B, H, W, D] are cut into columns of TW x TD positions along W
 // and D (one (b, w-tile, d-tile) each), and every column into H rows, one
@@ -38,8 +39,10 @@ struct Geom {
   long long rows;   // B * nwt * ndt * H
 };
 
+// Columns of TWX W positions (TW unless said otherwise).
+template <int TWX = TW>
 __host__ inline Geom make_geom(int B, int H, int W, int D, int C) {
-  Geom g{B, H, W, D, C, (W + TW - 1) / TW, (D + TD - 1) / TD, 0};
+  Geom g{B, H, W, D, C, (W + TWX - 1) / TWX, (D + TD - 1) / TD, 0};
   g.rows = static_cast<long long>(B) * g.nwt * g.ndt * H;
   return g;
 }
@@ -49,11 +52,12 @@ struct Column {
 };
 
 // Column index -> (b, first w, first d); d-tiles vary fastest, then w-tiles.
+template <int TWX = TW>
 __device__ __forceinline__ Column column(const Geom& g, long long col) {
   Column c;
   c.d0 = static_cast<int>(col % g.ndt) * TD;
   col /= g.ndt;
-  c.w0 = static_cast<int>(col % g.nwt) * TW;
+  c.w0 = static_cast<int>(col % g.nwt) * TWX;
   c.b = static_cast<int>(col / g.nwt);
   return c;
 }
@@ -92,31 +96,33 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned r[4], uint32_t a) {
                : "r"(a));
 }
 
-// One halo plane of channels [c0, c0 + 8 NCH) of x into a ring slot at
-// shared address dst (generic pointer dstp), laid out [w'][d'][chunk]
-// swizzled: plane q of column c, zeros outside the volume and past C.
-// VEC: C % 8 == 0, so each 16-byte chunk is wholly inside or outside and
-// goes by cp.async; otherwise element by element, synchronously.
-template <int NCH, bool VEC>
-__device__ __forceinline__ void load_plane(const bf16* __restrict__ x, const Geom& g,
+// One halo plane of channels [c0, c0 + EPC NCH) of x (EPC = 16 /
+// sizeof(E) elements per 16-byte chunk) into a ring slot at shared address
+// dst (generic pointer dstp), laid out [w'][d'][chunk] swizzled: plane q of
+// column c (HWX = its W positions + 2), zeros outside the volume and past
+// C. VEC: C % EPC == 0, so each 16-byte chunk is wholly inside or outside
+// and goes by cp.async; otherwise element by element, synchronously.
+template <int NCH, bool VEC, typename E = bf16, int HWX = HW>
+__device__ __forceinline__ void load_plane(const E* __restrict__ x, const Geom& g,
                                            const Column& c, int q, int c0, uint32_t dst,
                                            unsigned char* dstp, int tid, int nthreads) {
+  constexpr int EPC = 16 / static_cast<int>(sizeof(E));
   const bool hin = q >= 0 && q < g.H;
   if constexpr (VEC) {
-    for (int i = tid; i < HW * HD * NCH; i += nthreads) {
+    for (int i = tid; i < HWX * HD * NCH; i += nthreads) {
       const int ch = i % NCH, p = i / NCH;
-      const int wi = c.w0 + p / HD - 1, di = c.d0 + p % HD - 1, cc = c0 + ch * 8;
+      const int wi = c.w0 + p / HD - 1, di = c.d0 + p % HD - 1, cc = c0 + ch * EPC;
       const bool ok = hin && wi >= 0 && wi < g.W && di >= 0 && di < g.D && cc < g.C;
-      const bf16* src = ok ? x + pix(g, c.b, q, wi, di) * g.C + cc : x;
+      const E* src = ok ? x + pix(g, c.b, q, wi, di) * g.C + cc : x;
       cp_async16(dst + swz<NCH>(p, ch), src, ok ? 16 : 0);
     }
   } else {
-    for (int i = tid; i < HW * HD * NCH * 8; i += nthreads) {
-      const int e = i % (NCH * 8), p = i / (NCH * 8);
+    for (int i = tid; i < HWX * HD * NCH * EPC; i += nthreads) {
+      const int e = i % (NCH * EPC), p = i / (NCH * EPC);
       const int wi = c.w0 + p / HD - 1, di = c.d0 + p % HD - 1, cc = c0 + e;
       const bool ok = hin && wi >= 0 && wi < g.W && di >= 0 && di < g.D && cc < g.C;
-      const bf16 v = ok ? x[pix(g, c.b, q, wi, di) * g.C + cc] : __float2bfloat16_rn(0.f);
-      *reinterpret_cast<bf16*>(dstp + swz<NCH>(p, e / 8) + (e % 8) * 2) = v;
+      const E v = ok ? x[pix(g, c.b, q, wi, di) * g.C + cc] : rn::from_f32<E>(0.f);
+      *reinterpret_cast<E*>(dstp + swz<NCH>(p, e / EPC) + (e % EPC) * sizeof(E)) = v;
     }
   }
 }
@@ -154,9 +160,8 @@ struct PlaneSeq {
 };
 
 // cp.async.wait_group for at most `pending` groups still in flight (0 or 1:
-// the ring keeps P = 2 planes ahead, one of which may still be loading).
+// the ring keeps at most 2 planes ahead, one of which may still be loading).
 __device__ __forceinline__ void wait_planes(int pending) {
-  static_assert(P == 2, "wait_planes covers P = 2");
   if (pending >= 1)
     rn::cp_async_wait<1>();
   else
@@ -167,10 +172,13 @@ __device__ __forceinline__ void wait_planes(int pending) {
 // col, plane h), `issue(seq, slot)` loads the next plane of seq into ring
 // slot `slot` and commits one cp.async group (it returns false when seq is
 // done, committing nothing); `row(col, h, m)` computes the row from slots
-// (m - 2) % R, (m - 1) % R and m % R (planes h - 1, h, h + 1).
-template <typename Issue, typename Row>
+// (m - 2) % RS, (m - 1) % RS and m % RS (planes h - 1, h, h + 1). A ring
+// of RS = PF + 3 slots keeps PF <= 2 planes loading ahead (K2's fp32 form:
+// RS = 4, PF = 1).
+template <int RS = R, int PF = P, typename Issue, typename Row>
 __device__ __forceinline__ void walk_rows(long long r0, long long r1, int H, Issue&& issue,
                                           Row&& row) {
+  static_assert(RS == PF + 3 && PF >= 1 && PF <= 2, "a ring of PF + 3 slots");
   PlaneSeq seq;
   seq.init(r0, r1, H);
   int issued = 0;  // planes issued (one cp.async group each)
@@ -181,13 +189,13 @@ __device__ __forceinline__ void walk_rows(long long r0, long long r1, int H, Iss
     if (issued <= m) {
       // A new run's planes: their slots held planes the previous row read.
       __syncthreads();
-      while (issued <= m) issue(seq, issued++ % R);
+      while (issued <= m) issue(seq, issued++ % RS);
     }
     wait_planes(issued - m - 1);
     __syncthreads();  // plane m is in every thread's view; row r - 1 is done
-    // Prefetch up to plane m + P: its slot held plane m - 3, which no row
+    // Prefetch up to plane m + PF: its slot held plane m - 3, which no row
     // from r on reads.
-    while (issued <= m + P && issue(seq, issued % R)) ++issued;
+    while (issued <= m + PF && issue(seq, issued % RS)) ++issued;
     row(r / H, h, m);
   }
   rn::cp_async_wait<0>();

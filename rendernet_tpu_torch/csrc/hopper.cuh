@@ -7,7 +7,9 @@
 // descriptors for 128-byte-
 // swizzled tiles in both majorities, the wgmma instructions themselves, and
 // the host-side tensor-map encoder, reached through the runtime's driver
-// entry point so that nothing links libcuda.
+// entry point so that nothing links libcuda. The fp32 forms of K3 and K2
+// (conv3d.cu) take its TF32 pieces: the hi / lo split, the TF32 wgmma and
+// mma.sync, and the 32-bit fragment load.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
@@ -329,6 +331,77 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
   if constexpr (N == 256) wgmma_m64n256k16<TA, TB>(d, da, db, scale_d);
 }
 
+// ---------------------------------------------------------------------------
+// fp32 products on the TF32 tensor cores, as three passes
+// ---------------------------------------------------------------------------
+// a split into hi = tf32(a) (10 stored mantissa bits, to nearest, ties away
+// from zero) and lo = tf32(a - hi), each an fp32 bit pattern whose low 13
+// bits are zero: a - hi is exact, so hi + lo holds a to 2^-22 of |a|, and
+// hi.hi + hi.lo + lo.hi errs by about 3 * 2^-22 of |a b| (the dropped
+// lo.lo and both remainders' rounding).
+__device__ __forceinline__ void tf32_split(float a, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(a));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(a - __uint_as_float(hi)));
+}
+
+// Four 8 x 4 tiles of 32-bit values from shared memory (ldmatrix's 8 x 8
+// b16 matrices, each b16 pair one 32-bit value): lanes 8 i .. 8 i + 7 give
+// the 16-byte row addresses of tile i, and lane l receives value l % 4 of
+// row l / 4 of tile i in r[i]. With tiles (rows 0-7, values 0-3), (rows
+// 8-15, values 0-3), (rows 0-7, values 4-7), (rows 8-15, values 4-7) of a
+// 16 x 8 tile that is mma's m16n8k8 TF32 A fragment, and per warp w of a
+// warpgroup (rows 16 w ..) the A operand of a TF32 wgmma.
+__device__ __forceinline__ void ldsm_x4_b32(uint32_t (&r)[4], uint32_t a) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// Keeps the compiler from reusing a wgmma's register A operand before the
+// wait that retires it: the registers are read (and kept) here.
+template <int R>
+__device__ __forceinline__ void fence_operand(uint32_t (&a)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// d (+)= A B over one k8 slice of TF32 operands: A a 64 x 8 tile in
+// registers (warp w of the warpgroup holds rows 16 w + lane / 4 (+ 8),
+// columns lane % 4 (+ 4) in a[0] (a[1]) and a[2] (a[3])), B a 64 x 8
+// K-major tile in shared memory (TF32 wgmma has no transpose mode: both
+// operands are K-major; a k8 slice is 32 bytes of each 128-byte swizzled
+// row, as a bf16 k16 slice). Accumulators as wgmma_m64n64k16's.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                    uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+// c += a b for a 16 x 8 TF32 A (row major) and an 8 x 8 TF32 B (column
+// major) with an fp32 16 x 8 C, in mma.sync's m16n8k8 fragment layouts.
+__device__ __forceinline__ void mma_tf32(float c[4], const uint32_t a[4], const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
 // An fp32 add to global memory that returns nothing (no load latency). From
 // the same thread to the same address, such adds land in program order, so
 // a weight gradient's later accumulator chains add to the first chain's
@@ -381,6 +454,24 @@ inline bool make_bf16_map(CUtensorMap* map, const void* base, int rank, const lo
     if (i + 1 < rank) s[i] = static_cast<cuuint64_t>(strides[i]);
   }
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+                const_cast<void*>(base), d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same for an fp32 tensor (box[0] * 4 <= 128).
+inline bool make_f32_map(CUtensorMap* map, const void* base, int rank, const long long* dims,
+                         const long long* strides, const int* box) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (!encode) return false;
+  cuuint64_t d[3], s[2];
+  cuuint32_t b[3], e[3] = {1, 1, 1};
+  for (int i = 0; i < rank; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    b[i] = static_cast<cuuint32_t>(box[i]);
+    if (i + 1 < rank) s[i] = static_cast<cuuint64_t>(strides[i]);
+  }
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, static_cast<cuuint32_t>(rank),
                 const_cast<void*>(base), d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -8,7 +8,7 @@
 // once to the storage type. Those are the reference's rounding points; only
 // the order of the fp32 sums in M and Y differs.
 //
-// bf16 (the main path): three kernels on one stream, one wrapper call.
+// Three kernels on one stream, one wrapper call (bf16 first; fp32 below).
 //   k3_weight_transform  w [3,3,C,K] -> U [16,K,C]: K-major, so both GEMM
 //                        operands are K-major and need no transpose mode.
 //   k3_input_transform   x [B,H,W,C] -> V [16,T,C] (T = B*H/2*W/2 tiles),
@@ -62,40 +62,45 @@
 // MB at res2 batch 8, 0.16 ms at 3.35 TB/s), and the transform kernels run
 // before the GEMMs without overlap.
 //
-// fp32: the CUDA-core kernel (k3_fp32_kernel) of the first port, unchanged:
-// a block owns one row of up to 32 tiles, 64 output channels and all 16
-// frequencies, walks C in chunks of 16 (cp.async, double-buffered),
-// transforms the slab to V in shared memory, and each thread accumulates 4
-// tiles x 1 channel x 16 frequencies in registers. U is [16, C, K] there.
+// fp32 (the render CLI, the fp32 forward and recon step, the gradient
+// checks): the same three kernels on fp32 operands, with every product on
+// the TF32 tensor cores as three passes. V [16, T, C] and U stay fp32, and
+// M and Y are summed in fp32 (the reference's rounding points); only the
+// products change. The weight transform writes U as its TF32 split, hi =
+// tf32(u) and lo = tf32(u - hi), planes [2, 16, K, C] (small, so split
+// once); V stays one fp32 plane (537 MB at res2 batch 8, twice that as two
+// planes) and each consumer warp splits its rows of a stage in registers:
+// ldmatrix moves the 32-bit values (an 8 x 4 tile per b16 8 x 8 matrix)
+// straight into wgmma's register A layout, and per k8 slice three
+// wgmma.m64n64k8 TF32, hi.hi + hi.lo + lo.hi, go into one fp32
+// accumulator (3 * 2^-22 of each product, where bf16 passes would leave
+// about 3 * 2^-16). TF32 wgmma has no transpose mode, so both operands are
+// K-major, as in bf16. A k8 slice is the same 32 bytes of a 128-byte
+// swizzled row as a bf16 k16 slice: a stage holds 32 channels, the V tile
+// (16 KB) and U's hi and lo tiles (8 KB each), 32 KB, so six stages take
+// 192 KB. A slice is one wgmma group, waited for before the next slice's
+// split (ptxas serializes wgmma whose register operands are written while
+// a group is in flight, and the fold's accumulators leave no room for
+// larger groups): the two consumer warpgroups overlap each other's waits.
+// The tensor cores' fp32 sums do not round to nearest at each step: their
+// error grew with the chain (7e-6 of max|y| at res2 with one chain over
+// all of C, half that at res3, and the fp32 forward's logits moved 7e-5 of
+// their spread), so M restarts every stage (a chain of 12) and the stages'
+// M are summed with ordinary fp32 adds before the frequency's fold (1.4e-6
+// at res2; folding each stage's M into the phases instead gave the same
+// error at 4.16 ms against 3.65).
+// C % 32 != 0 (C % 16 is what the wrapper admits) reads zeros past C from
+// both boxes; where K % 128 != 0 the last cluster's second CTA owns a block
+// of channels past K, reads zeros for U and writes nothing.
+// Bound: three TF32 passes, 3 * 2.75e11 flops at res2 batch 8, 1.67 ms at
+// 495 TFLOP/s; V is written and read once in fp32 (1.07 GB, 0.32 ms).
+#include <type_traits>
 #include <utility>
 
 #include "hopper.cuh"
 #include "winograd_transform.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// fp32 storage: CUDA-core kernel
-// ---------------------------------------------------------------------------
-constexpr int TT = 32;   // Winograd tiles per block (along W)
-constexpr int BN = 64;   // output channels per block
-constexpr int CK = 16;   // input channels per chunk
-constexpr int NT = 512;  // threads per block
-constexpr int XW = 2 * TT + 2;
-// Padded shared-memory row strides: the float4 reads of V are free of bank
-// conflicts.
-constexpr int VLD = TT + 8;  // V rows [16][CK][VLD]
-constexpr int ULD = BN + 8;  // U rows [16][CK][ULD]
-constexpr int XS = 4 * XW * CK, US = 16 * CK * ULD, VS = 16 * CK * VLD;
-static_assert(TT * CK == NT, "one (tile, channel) of the input transform per thread");
-// xs[2][4][XW][CK] and us[2][16][CK][ULD] (double-buffered, filled by
-// cp.async), vs[16][CK][VLD].
-constexpr size_t F32_SMEM = sizeof(float) * (2 * XS + 2 * US + VS);
-
-using rn::cp_async16;
-using rn::cp_async_commit;
-using rn::cp_async_wait;
-using rn::input_transform;
 
 // U = G g G^T of one (c, k), g[r][s] = w[r, s, c, k], in fp32. The products
 // are exact (G holds 0, +-1/2, 1), so only the sums round, left to right as
@@ -118,153 +123,33 @@ __device__ __forceinline__ void weight_transform(const float g[3][3], float u[16
   }
 }
 
-__device__ __forceinline__ void store_tile(const float m[16], float* __restrict__ y, int b,
-                                           int th, int tw, int n, int H, int W, int K) {
-  float r0[4], r1[4];
-#pragma unroll
-  for (int k2 = 0; k2 < 4; ++k2) {
-    r0[k2] = (m[k2] + m[4 + k2]) + m[8 + k2];
-    r1[k2] = (m[4 + k2] - m[8 + k2]) - m[12 + k2];
-  }
-  const float out[2][2] = {{(r0[0] + r0[1]) + r0[2], (r0[1] - r0[2]) - r0[3]},
-                           {(r1[0] + r1[1]) + r1[2], (r1[1] - r1[2]) - r1[3]}};
-#pragma unroll
-  for (int p1 = 0; p1 < 2; ++p1)
-#pragma unroll
-    for (int p2 = 0; p2 < 2; ++p2) {
-      const long long pix = (static_cast<long long>(b) * H + 2 * th + p1) * W + 2 * tw + p2;
-      y[pix * K + n] = out[p1][p2];
-    }
-}
-
-__global__ void __launch_bounds__(NT) k3_fp32_kernel(const float* __restrict__ x,
-                                                     const float* __restrict__ u,
-                                                     float* __restrict__ y, int H, int W, int C,
-                                                     int K) {
-  constexpr int EPV = 4;  // floats per 16-byte copy
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);
-  float* us = xs + 2 * XS;
-  float* vs = us + 2 * US;
-
-  const int nw = W / 2;
-  const int ngroups = (nw + TT - 1) / TT;
-  const int tw0 = (blockIdx.x % ngroups) * TT;
-  const int n0 = (blockIdx.x / ngroups) * BN;
-  const int th = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const float* xb = x + static_cast<long long>(b) * H * W * C;
-
-  // Stage channel chunk c0 into buffer st: the 4 x XW input slab (zeros
-  // outside the image: the SAME halo) and the [16, CK, BN] slice of U.
-  auto prefetch = [&](int c0, int st) {
-    float* xd = xs + st * XS;
-    float* ud = us + st * US;
-    for (int i = tid; i < XS / EPV; i += NT) {
-      const int e = i * EPV;
-      const int c = e % CK, col = (e / CK) % XW, r = e / (CK * XW);
-      const int hh = 2 * th - 1 + r, ww = 2 * tw0 - 1 + col;
-      const bool in = hh >= 0 && hh < H && ww >= 0 && ww < W;
-      const float* src = in ? xb + (static_cast<long long>(hh) * W + ww) * C + c0 + c : xb;
-      cp_async16(xd + e, src, in ? 16 : 0);
-    }
-    for (int i = tid; i < 16 * CK * BN / EPV; i += NT) {
-      const int e = i * EPV;
-      const int n = e % BN, c = (e / BN) % CK, f = e / (BN * CK);
-      cp_async16(ud + (f * CK + c) * ULD + n,
-                 u + (static_cast<long long>(f) * C + c0 + c) * K + n0 + n, 16);
-    }
-    cp_async_commit();
-  };
-
-  float acc[4][16];  // [tile][frequency]
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-#pragma unroll
-    for (int f = 0; f < 16; ++f) acc[t][f] = 0.f;
-
-  const int nchunks = C / CK;
-  prefetch(0, 0);
-  for (int k = 0; k < nchunks; ++k) {
-    const int st = k & 1;
-    if (k + 1 < nchunks) {
-      prefetch((k + 1) * CK, st ^ 1);  // overlaps this chunk's work
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    {  // V for tile t, channel c
-      const float* xc = xs + st * XS;
-      const int t = tid / CK, c = tid % CK;
-      float d[4][4], v[16];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int s = 0; s < 4; ++s) d[r][s] = xc[(r * XW + 2 * t + s) * CK + c];
-      input_transform(d, v);
-#pragma unroll
-      for (int f = 0; f < 16; ++f) vs[(f * CK + c) * VLD + t] = v[f];
-    }
-    __syncthreads();
-    const float* uc = us + st * US;
-    // thread = (channel n, tiles 4tg..4tg+3); the 4 tiles' V values are
-    // one float4 (a broadcast: a warp shares tg), U is conflict-free.
-    const int n = tid % BN, tg = tid / BN;
-#pragma unroll 1
-    for (int c = 0; c < CK; ++c)
-#pragma unroll
-      for (int f = 0; f < 16; ++f) {
-        const float uv = uc[(f * CK + c) * ULD + n];
-        const float4 v4 = *reinterpret_cast<const float4*>(vs + (f * CK + c) * VLD + tg * 4);
-        acc[0][f] = fmaf(v4.x, uv, acc[0][f]);
-        acc[1][f] = fmaf(v4.y, uv, acc[1][f]);
-        acc[2][f] = fmaf(v4.z, uv, acc[2][f]);
-        acc[3][f] = fmaf(v4.w, uv, acc[3][f]);
-      }
-    __syncthreads();  // the next prefetch overwrites this chunk's buffers
-  }
-
-  const int n = tid % BN, tg = tid / BN;
-#pragma unroll
-  for (int t = 0; t < 4; ++t)
-    if (tw0 + tg * 4 + t < nw) store_tile(acc[t], y, b, th, tw0 + tg * 4 + t, n0 + n, H, W, K);
-}
-
-// U [16][C][K] for the fp32 kernel, one (c, k) per thread.
-__global__ void k3_fp32_weights(const float* __restrict__ w, float* __restrict__ u,
-                                long long ck) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= ck) return;
-  float g[3][3], v[16];
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-#pragma unroll
-    for (int s = 0; s < 3; ++s) g[r][s] = w[(r * 3 + s) * ck + i];
-  weight_transform(g, v);
-#pragma unroll
-  for (int f = 0; f < 16; ++f) u[f * ck + i] = v[f];
-}
-
 // ---------------------------------------------------------------------------
-// bf16 storage: transforms, then wgmma + TMA GEMMs with the fold
+// The GEMMs with the fold, on wgmma fed by TMA
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 
 constexpr int GM = 128;  // tiles per block: two consumer warpgroups x 64
 constexpr int GN = 64;   // output channels per block
-constexpr int GK = 64;   // input channels per stage: one 128-byte swizzle row
-constexpr int STAGES = 6;
-constexpr int A_BYTES = GM * GK * 2;  // V tile, 16 KB (half of it loaded by each CTA of a pair)
-constexpr int B_BYTES = GN * GK * 2;  // U tile, 8 KB
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int ROW = 128; // bytes of a swizzled tile row: a stage's channels
 constexpr int GEMM_THREADS = 384;  // warpgroups 0, 1 consume; 2 produces
 // Releases of a stage that its producer waits for: each consumer warp of
 // both CTAs of the pair (either CTA's multicast writes into both).
 constexpr int RELEASES = 2 * 8;
-constexpr size_t GEMM_SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * sizeof(uint64_t);
-static_assert(A_BYTES % 1024 == 0 && STAGE_BYTES % 1024 == 0,
-              "128-byte-swizzled tiles start on 1024-byte boundaries");
+
+// The GEMM's stage in each storage type: one 128-byte row of channels (64
+// bf16 or 32 fp32), the V tile and one U tile, or in fp32 U's hi and lo.
+template <bool F32>
+struct Gemm {
+  using T = typename std::conditional<F32, float, bf16>::type;
+  static constexpr int GK = ROW / static_cast<int>(sizeof(T));  // input channels per stage
+  static constexpr int A_BYTES = GM * ROW;  // V tile, 16 KB (each CTA of a pair loads half)
+  static constexpr int U_BYTES = GN * ROW;  // a U tile, 8 KB
+  static constexpr int STAGE_BYTES = A_BYTES + (F32 ? 2 : 1) * U_BYTES;
+  static constexpr int STAGES = 6;
+  static constexpr size_t SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * sizeof(uint64_t);
+  static_assert(A_BYTES % 1024 == 0 && U_BYTES % 1024 == 0 && STAGE_BYTES % 1024 == 0,
+                "128-byte-swizzled tiles start on 1024-byte boundaries");
+};
 
 using rn::at;
 using rn::fence_regs;
@@ -283,29 +168,59 @@ __device__ __forceinline__ void fold_into(const float (&m)[32], float (&y)[32]) 
 }
 
 // A consumer warpgroup's state, per thread.
+template <bool F32>
 struct Consumer {
+  using G = Gemm<F32>;
   uint32_t tiles;      // shared address of stage 0
   uint32_t full;       // shared address of full[0]; empty[0] follows STAGES later
   uint32_t peer_empty; // the peer CTA's empty[0], as a shared::cluster address
   uint32_t lane;
   int a_off, nk;
   int i;               // the next stage to consume, counted over all frequencies
-  float acc[32];       // M of the current frequency
+  uint32_t a_row, a_x; // fp32: this lane's ldmatrix row (bytes) and its chunk swizzle
+  float acc[32];       // M of the current frequency (fp32: of the current stage)
+  float tot[32];       // fp32: M of the current frequency, summed over its stages
   float y[4][32];      // output phases p1 * 2 + p2
 
-  // Frequency F: its GEMM over all C chunks, one wgmma group per stage with
-  // one group left in flight, then the fold into the output phases.
+  // Frequency F: its GEMM over all C chunks, then the fold into the output
+  // phases (fp32: M summed stage by stage in fp32 adds).
   template <int F>
   __device__ __forceinline__ void frequency() {
+    if constexpr (F32) {
+#pragma unroll
+      for (int q = 0; q < 32; ++q) tot[q] = 0.f;
+      for (int kc = 0; kc < nk; ++kc, ++i) {
+        stage_tf32();
+#pragma unroll
+        for (int q = 0; q < 32; ++q) tot[q] += acc[q];
+      }
+      fold<F>(tot);
+    } else {
+      gemm_bf16();
+      fold<F>(acc);
+    }
+  }
+
+  template <int F>
+  __device__ __forceinline__ void fold(const float (&m)[32]) {
+    constexpr int k1 = F / 4, k2 = F % 4;
+    fold_into<at(0, k1) * at(0, k2)>(m, y[0]);
+    fold_into<at(0, k1) * at(1, k2)>(m, y[1]);
+    fold_into<at(1, k1) * at(0, k2)>(m, y[2]);
+    fold_into<at(1, k1) * at(1, k2)>(m, y[3]);
+  }
+
+  // bf16: one wgmma group per stage with one group left in flight.
+  __device__ __forceinline__ void gemm_bf16() {
     for (int kc = 0; kc < nk; ++kc, ++i) {
-      const uint32_t slot = i % STAGES;
-      mbar_wait(full + 8 * slot, (i / STAGES) & 1);
-      const uint32_t st = tiles + slot * STAGE_BYTES;
+      const uint32_t slot = i % G::STAGES;
+      mbar_wait(full + 8 * slot, (i / G::STAGES) & 1);
+      const uint32_t st = tiles + slot * G::STAGE_BYTES;
       const uint64_t da = sw128_desc(st + a_off);
-      const uint64_t db = sw128_desc(st + A_BYTES);
+      const uint64_t db = sw128_desc(st + G::A_BYTES);
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < GK / 16; ++j) rn::wgmma<GN, 0, 0>(acc, da + 2 * j, db + 2 * j, kc | j);
+      for (int j = 0; j < G::GK / 16; ++j) rn::wgmma<GN, 0, 0>(acc, da + 2 * j, db + 2 * j, kc | j);
       wgmma_commit();
       wgmma_wait<1>();  // stage i - 1's group has retired: release its slot
       if (kc > 0) release(i - 1);
@@ -313,16 +228,44 @@ struct Consumer {
     wgmma_wait<0>();
     release(i - 1);
     fence_regs(acc);
-    constexpr int k1 = F / 4, k2 = F % 4;
-    fold_into<at(0, k1) * at(0, k2)>(acc, y[0]);
-    fold_into<at(0, k1) * at(1, k2)>(acc, y[1]);
-    fold_into<at(1, k1) * at(0, k2)>(acc, y[2]);
-    fold_into<at(1, k1) * at(1, k2)>(acc, y[3]);
+  }
+
+  // fp32, stage i: per k8 slice, this warp's 16 rows of V by ldmatrix,
+  // split into hi and lo in registers, then hi.hi + hi.lo + lo.hi against
+  // U's two tiles as one wgmma group, waited for before the next slice's
+  // split: a split while a group is in flight makes ptxas serialize every
+  // wgmma (C7513), and groups of 2 or 4 slices spill into serialization
+  // (C7512). The registers stay reserved (fence_operand) until the wait. M
+  // restarts here (a chain of one stage) for the caller to sum.
+  __device__ __forceinline__ void stage_tf32() {
+    const uint32_t slot = i % G::STAGES;
+    mbar_wait(full + 8 * slot, (i / G::STAGES) & 1);
+    const uint32_t st = tiles + slot * G::STAGE_BYTES;
+    const uint64_t dh = sw128_desc(st + G::A_BYTES);
+    const uint64_t dl = sw128_desc(st + G::A_BYTES + G::U_BYTES);
+#pragma unroll
+    for (int j = 0; j < G::GK / 8; ++j) {
+      // 16-byte chunk 2 j (+ 1) of this lane's row, swizzled by row % 8
+      uint32_t v[4], ah[4], al[4];
+      rn::ldsm_x4_b32(v, st + a_off + a_row + ((2 * j ^ a_x) << 4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) rn::tf32_split(__uint_as_float(v[e]), ah[e], al[e]);
+      wgmma_fence();
+      rn::wgmma_m64n64k8_tf32(acc, ah, dh + 2 * j, j);
+      rn::wgmma_m64n64k8_tf32(acc, ah, dl + 2 * j, 1);
+      rn::wgmma_m64n64k8_tf32(acc, al, dh + 2 * j, 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      rn::fence_operand(ah);
+      rn::fence_operand(al);
+    }
+    release(i);  // every group that read this stage has retired
+    fence_regs(acc);
   }
 
   __device__ __forceinline__ void release(int j) {
-    const uint32_t off = 8 * (STAGES + j % STAGES);
-    rn::mbar_arrive_pair_lane0(full + off, peer_empty + off - 8 * STAGES, lane);
+    const uint32_t off = 8 * (G::STAGES + j % G::STAGES);
+    rn::mbar_arrive_pair_lane0(full + off, peer_empty + off - 8 * G::STAGES, lane);
   }
 
   template <int... F>
@@ -333,25 +276,29 @@ struct Consumer {
 
 // Blocks come in clusters of two along the output channels: both CTAs of
 // a pair own the same 128 tiles, and each loads half of every V tile and
-// multicasts it to both, so a V tile leaves L2 once per pair.
+// multicasts it to both, so a V tile leaves L2 once per pair. The channel
+// blocks per tile block are rounded up to an even count: where K % 128 != 0
+// the last one lies past K (zeros from U's box, nothing written).
+template <bool F32>
 __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(GEMM_THREADS, 1)
     k3_gemm_fold(const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap umap,
-                 bf16* __restrict__ y, int T, int H, int W, int C, int K) {
+                 typename Gemm<F32>::T* __restrict__ y, int T, int H, int W, int C, int K) {
+  using G = Gemm<F32>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t tiles = (rn::smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t full = tiles + STAGES * STAGE_BYTES;  // full[s]: full + 8 s
-  const uint32_t empty = full + 8 * STAGES;            // empty[s]: empty + 8 s
-  const int nblk_n = K / GN;
+  const uint32_t full = tiles + G::STAGES * G::STAGE_BYTES;  // full[s]: full + 8 s
+  const uint32_t empty = full + 8 * G::STAGES;               // empty[s]: empty + 8 s
+  const int nblk_n = (K / GN + 1) & ~1;
   const int n0 = (blockIdx.x % nblk_n) * GN;
   const int m0 = (blockIdx.x / nblk_n) * GM;
-  const int nk = C / GK;
+  const int nk = (C + G::GK - 1) / G::GK;
   const uint32_t rank = rn::cluster_rank();
   // The warpgroup index, broadcast from lane 0 so that the compiler sees
   // the branch between the roles as uniform across each warp.
   const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < G::STAGES; ++s) {
       rn::mbar_init(full + 8 * s, 1);
       rn::mbar_init(empty + 8 * s, RELEASES);
     }
@@ -363,31 +310,38 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(GEMM_THREADS, 1)
   if (wg == 2) {  // producer: one thread keeps the ring full
     if (threadIdx.x == 256) {
       const int total = 16 * nk;
-      const uint32_t half = rank * (A_BYTES / 2);  // this CTA's half of each V tile
+      const uint32_t half = rank * (G::A_BYTES / 2);  // this CTA's half of each V tile
       const int m_half = m0 + GM / 2 * static_cast<int>(rank);
-      for (int L = 0; L < total + STAGES; ++L) {
-        const uint32_t slot = L % STAGES;
+      for (int L = 0; L < total + G::STAGES; ++L) {
+        const uint32_t slot = L % G::STAGES;
         // Slot reuse: both CTAs' consumers have released stage L - STAGES.
         // The last STAGES waits let every release, remote ones included,
         // land before this CTA exits.
-        if (L >= STAGES) mbar_wait(empty + 8 * slot, ((L / STAGES) - 1) & 1);
+        if (L >= G::STAGES) mbar_wait(empty + 8 * slot, ((L / G::STAGES) - 1) & 1);
         if (L >= total) continue;
-        const uint32_t st = tiles + slot * STAGE_BYTES, bar = full + 8 * slot;
-        const int c = (L % nk) * GK, f = L / nk;
-        rn::mbar_expect_tx(bar, STAGE_BYTES);
+        const uint32_t st = tiles + slot * G::STAGE_BYTES, bar = full + 8 * slot;
+        const int c = (L % nk) * G::GK, f = L / nk;
+        rn::mbar_expect_tx(bar, G::STAGE_BYTES);
         rn::tma_load_3d_multicast(st + half, &vmap, c, m_half, f, bar, 3);
-        rn::tma_load_3d(st + A_BYTES, &umap, c, n0, f, bar);
+        rn::tma_load_3d(st + G::A_BYTES, &umap, c, n0, f, bar);
+        if constexpr (F32)  // U's lo plane
+          rn::tma_load_3d(st + G::A_BYTES + G::U_BYTES, &umap, c, n0, 16 + f, bar);
       }
     }
   } else {
-    Consumer g;
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    Consumer<F32> g;
     g.tiles = tiles;
     g.full = full;
     g.peer_empty = rn::cluster_address(empty, rank ^ 1);
-    g.lane = threadIdx.x % 32;
-    g.a_off = wg * (A_BYTES / 2);
+    g.lane = lane;
+    g.a_off = wg * (G::A_BYTES / 2);
     g.nk = nk;
     g.i = 0;
+    // ldmatrix: lanes 8 q .. 8 q + 7 address rows 8 (q % 2) + lane % 8 of
+    // this warp's 16, in 16-byte chunk 2 j + q / 2 of the slice
+    g.a_row = (16 * warp + 8 * ((lane / 8) & 1) + lane % 8) * ROW;
+    g.a_x = ((lane / 8) >> 1) ^ (lane % 8);
 #pragma unroll
     for (int p = 0; p < 4; ++p)
 #pragma unroll
@@ -395,11 +349,11 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(GEMM_THREADS, 1)
 #pragma unroll
     for (int i = 0; i < 32; ++i) g.acc[i] = 0.f;
     g.run(std::make_integer_sequence<int, 16>{});
+    if (n0 >= K) return;
 
     // wgmma's accumulator layout: warp w of the warpgroup holds rows
     // 16 w + lane / 4 (+ 8), columns 8 j + 2 (lane % 4) (+ 1) in registers
     // 4 j (+ 1) and 4 j + 2 (+ 1).
-    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
     const int nh = H / 2, nw = W / 2;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -410,11 +364,15 @@ __global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(GEMM_THREADS, 1)
       for (int p = 0; p < 4; ++p) {
         const long long pix =
             (static_cast<long long>(b) * H + 2 * th + p / 2) * W + 2 * tw + p % 2;
-        bf16* row = y + pix * K + n0 + 2 * (lane % 4);
+        typename G::T* row = y + pix * K + n0 + 2 * (lane % 4);
 #pragma unroll
-        for (int j = 0; j < GN / 8; ++j)
-          *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
-              __floats2bfloat162_rn(g.y[p][4 * j + 2 * half], g.y[p][4 * j + 2 * half + 1]);
+        for (int j = 0; j < GN / 8; ++j) {
+          const float v0 = g.y[p][4 * j + 2 * half], v1 = g.y[p][4 * j + 2 * half + 1];
+          if constexpr (F32)
+            *reinterpret_cast<float2*>(row + 8 * j) = make_float2(v0, v1);
+          else
+            *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(v0, v1);
+        }
       }
     }
   }
@@ -430,21 +388,66 @@ __global__ void __launch_bounds__(256) k3_input_transform(const bf16* __restrict
       x, v, static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x, B, H, W, C);
 }
 
-// U [16][K][C] from w [3][3][C][K]: a block transposes a 32 x 32 (c, k)
-// tile of all 9 taps through shared memory, so that reads run along k and
-// writes along c.
-__global__ void __launch_bounds__(256) k3_weight_transform(const bf16* __restrict__ w,
-                                                           bf16* __restrict__ u, int C, int K) {
+// The same in fp32, V kept fp32: one thread per (tile, 4 channels).
+__global__ void __launch_bounds__(256) k3_input_transform_f32(const float* __restrict__ x,
+                                                              float* __restrict__ v, int B, int H,
+                                                              int W, int C) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int nh = H / 2, nw = W / 2, cg = C / 4;
+  const long long T = static_cast<long long>(B) * nh * nw;
+  if (i >= T * cg) return;
+  const int c = static_cast<int>(i % cg) * 4;
+  const long long t = i / cg;
+  const int tw = static_cast<int>(t % nw), th = static_cast<int>((t / nw) % nh);
+  const int b = static_cast<int>(t / (static_cast<long long>(nw) * nh));
+  float4 raw[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int hh = 2 * th - 1 + r, ww = 2 * tw - 1 + s;
+      raw[r][s] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (hh >= 0 && hh < H && ww >= 0 && ww < W)
+        raw[r][s] = __ldg(reinterpret_cast<const float4*>(
+            x + ((static_cast<long long>(b) * H + hh) * W + ww) * C + c));
+    }
+  float out[4][16];
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    float d[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const float4 q = raw[r][s];
+        d[r][s] = ch == 0 ? q.x : ch == 1 ? q.y : ch == 2 ? q.z : q.w;
+      }
+    rn::input_transform(d, out[ch]);
+  }
+#pragma unroll
+  for (int f = 0; f < 16; ++f)
+    *reinterpret_cast<float4*>(v + (f * T + t) * C + c) =
+        make_float4(out[0][f], out[1][f], out[2][f], out[3][f]);
+}
+
+// U from w [3][3][C][K]: a block transposes a 32 x 32 (c, k) tile of all 9
+// taps through shared memory, so that reads run along k and writes along c.
+// bf16: U [16][K][C]; fp32: U's TF32 split, planes hi [16][K][C] and lo
+// [16][K][C] after it.
+template <typename T>
+__global__ void __launch_bounds__(256) k3_weight_transform(const T* __restrict__ w,
+                                                           T* __restrict__ u, int C, int K) {
   __shared__ float tile[9][32][33];
   const int c0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
   for (int e = threadIdx.x; e < 9 * 32 * 32; e += 256) {
     const int tap = e / 1024, cc = (e / 32) % 32, kk = e % 32;
     const long long src = (static_cast<long long>(tap) * C + c0 + cc) * K + k0 + kk;
-    tile[tap][cc][kk] = __bfloat162float(w[src]);
+    tile[tap][cc][kk] = c0 + cc < C ? rn::to_f32(w[src]) : 0.f;
   }
   __syncthreads();
   for (int e = threadIdx.x; e < 32 * 32; e += 256) {
     const int cc = e % 32, kk = e / 32;
+    if (c0 + cc >= C) continue;
     float g[3][3], v[16];
 #pragma unroll
     for (int r = 0; r < 3; ++r)
@@ -452,64 +455,77 @@ __global__ void __launch_bounds__(256) k3_weight_transform(const bf16* __restric
       for (int s = 0; s < 3; ++s) g[r][s] = tile[r * 3 + s][cc][kk];
     weight_transform(g, v);
 #pragma unroll
-    for (int f = 0; f < 16; ++f)
-      u[(static_cast<long long>(f) * K + k0 + kk) * C + c0 + cc] = __float2bfloat16_rn(v[f]);
+    for (int f = 0; f < 16; ++f) {
+      const long long o = (static_cast<long long>(f) * K + k0 + kk) * C + c0 + cc;
+      if constexpr (std::is_same<T, float>::value) {
+        uint32_t hi, lo;
+        rn::tf32_split(v[f], hi, lo);
+        u[o] = __uint_as_float(hi);
+        u[16LL * K * C + o] = __uint_as_float(lo);
+      } else {
+        u[o] = __float2bfloat16_rn(v[f]);
+      }
+    }
   }
 }
 
-// A bf16 [16][rows][C] tensor as a 3D map with a box of 64 channels x
-// box_rows rows x 1 frequency, 128-byte swizzle, zeros past the edges.
-bool make_map(CUtensorMap* map, const void* base, long long rows, int C, int box_rows) {
-  const long long dims[3] = {C, rows, 16}, strides[2] = {2LL * C, 2LL * rows * C};
-  const int box[3] = {GK, box_rows, 1};
-  return rn::make_bf16_map(map, base, 3, dims, strides, box);
+// A [planes][rows][C] tensor of the storage type as a 3D map with a box of
+// one 128-byte row of channels x box_rows rows x 1 plane, 128-byte
+// swizzle, zeros past the edges.
+template <bool F32>
+bool make_map(CUtensorMap* map, const void* base, long long rows, int C, int planes,
+              int box_rows) {
+  const int item = F32 ? 4 : 2;
+  const long long dims[3] = {C, rows, planes};
+  const long long strides[2] = {static_cast<long long>(item) * C, item * rows * C};
+  const int box[3] = {ROW / item, box_rows, 1};
+  return F32 ? rn::make_f32_map(map, base, 3, dims, strides, box)
+             : rn::make_bf16_map(map, base, 3, dims, strides, box);
 }
 
-int launch_bf16(const bf16* x, const bf16* w, bf16* u, bf16* v, bf16* y, int B, int H, int W,
-                int C, int K, cudaStream_t s) {
+template <typename E>
+int launch(const E* x, const E* w, E* u, E* v, E* y, int B, int H, int W, int C, int K,
+           cudaStream_t s) {
+  constexpr bool F32 = std::is_same<E, float>::value;
+  using G = Gemm<F32>;
   const long long T = static_cast<long long>(B) * (H / 2) * (W / 2);
   CUtensorMap vmap, umap;
-  if (!make_map(&vmap, v, T, C, GM / 2) || !make_map(&umap, u, K, C, GN))
+  if (!make_map<F32>(&vmap, v, T, C, 16, GM / 2) ||
+      !make_map<F32>(&umap, u, K, C, F32 ? 32 : 16, GN))
     return static_cast<int>(cudaErrorInvalidValue);
-  k3_weight_transform<<<dim3(C / 32, K / 32), 256, 0, s>>>(w, u, C, K);
-  const long long nthreads = T * (C / 8);
-  k3_input_transform<<<static_cast<unsigned>((nthreads + 255) / 256), 256, 0, s>>>(x, v, B, H,
-                                                                                    W, C);
+  k3_weight_transform<E><<<dim3((C + 31) / 32, K / 32), 256, 0, s>>>(w, u, C, K);
+  if constexpr (F32) {
+    const long long nthreads = T * (C / 4);
+    k3_input_transform_f32<<<static_cast<unsigned>((nthreads + 255) / 256), 256, 0, s>>>(
+        x, v, B, H, W, C);
+  } else {
+    const long long nthreads = T * (C / 8);
+    k3_input_transform<<<static_cast<unsigned>((nthreads + 255) / 256), 256, 0, s>>>(x, v, B, H,
+                                                                                      W, C);
+  }
   const cudaError_t err = cudaFuncSetAttribute(
-      k3_gemm_fold, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(GEMM_SMEM));
+      k3_gemm_fold<F32>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(G::SMEM));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((T + GM - 1) / GM) * (K / GN);
-  k3_gemm_fold<<<blocks, GEMM_THREADS, GEMM_SMEM, s>>>(vmap, umap, y, static_cast<int>(T), H, W,
-                                                       C, K);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_f32(const float* x, const float* w, float* u, float* y, int B, int H, int W, int C,
-               int K, cudaStream_t s) {
-  const long long ck = static_cast<long long>(C) * K;
-  k3_fp32_weights<<<static_cast<unsigned>((ck + 255) / 256), 256, 0, s>>>(w, u, ck);
-  const cudaError_t err = cudaFuncSetAttribute(
-      k3_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(F32_SMEM));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int nw = W / 2;
-  const dim3 grid(((nw + TT - 1) / TT) * (K / BN), H / 2, B);
-  k3_fp32_kernel<<<grid, NT, F32_SMEM, s>>>(x, u, y, H, W, C, K);
+  const unsigned blocks = static_cast<unsigned>((T + GM - 1) / GM) * ((K / GN + 1) & ~1);
+  k3_gemm_fold<F32><<<blocks, GEMM_THREADS, G::SMEM, s>>>(vmap, umap, y, static_cast<int>(T), H,
+                                                          W, C, K);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x [B, H, W, C], w [3, 3, C, K], y [B, H, W, K], all 16-byte aligned; H, W
-// even (the wrapper's envelope guarantees these). Scratch: fp32, u
-// [16, C, K] and v unused, C % 16 == 0, K % 64 == 0; bf16, u [16, K, C]
-// and v [16, B * H/2 * W/2, C], C % 64 == 0, K % 128 == 0.
+// even (the wrapper's envelope guarantees these). Scratch: v [16, B * H/2 *
+// W/2, C] in the storage type; u [16, K, C] in bf16 (C % 64 == 0, K % 128
+// == 0), the hi and lo planes [2, 16, K, C] in fp32 (C % 16 == 0, K % 64 ==
+// 0).
 extern "C" int rn_winograd(const void* x, const void* w, void* u, void* v, void* y, int dtype,
                            int B, int H, int W, int C, int K, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_f32(static_cast<const float*>(x), static_cast<const float*>(w),
-                      static_cast<float*>(u), static_cast<float*>(y), B, H, W, C, K, s);
-  return launch_bf16(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                     static_cast<bf16*>(u), static_cast<bf16*>(v), static_cast<bf16*>(y), B, H,
-                     W, C, K, s);
+    return launch(static_cast<const float*>(x), static_cast<const float*>(w),
+                  static_cast<float*>(u), static_cast<float*>(v), static_cast<float*>(y), B, H,
+                  W, C, K, s);
+  return launch(static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(u),
+                static_cast<bf16*>(v), static_cast<bf16*>(y), B, H, W, C, K, s);
 }

@@ -91,20 +91,43 @@ def nc_conv3d_wgrad_plain(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
 # The bf16 tensor-core kernels' column of positions (csrc/conv3d_tile.cuh:
 # TW x TD): a row is TILE_W x TILE_D positions of one (b, h).
 TILE_W, TILE_D = 8, 32
+# K2's fp32 tensor-core kernel (csrc/conv3d.cu: F_TW, F_RING, F_CO): rows of
+# TILE_W_F32 x TILE_D positions, a ring of RING_F32 halo planes, at most
+# CO_F32 output channels' weights per CTA (co = 64 runs two slices).
+TILE_W_F32, RING_F32, CO_F32 = 4, 4, 32
+SMEM_PER_SM = 233472  # an H100 SM's shared memory; 1 KB of it is reserved per CTA
 
 
-def conv3d_rows(x_shape) -> int:
-    """Rows of the bf16 kernels' walk: one per (b, W tile, D tile, h)."""
+def conv3d_rows(x_shape, dtype: torch.dtype = torch.bfloat16) -> int:
+    """Rows of the tensor-core kernels' walk: one per (b, W tile, D tile,
+    h), with the dtype's W tile."""
     b, h, w, d, _ = x_shape
-    return b * -(-w // TILE_W) * -(-d // TILE_D) * h
+    tw = TILE_W_F32 if dtype == torch.float32 else TILE_W
+    return b * -(-w // tw) * -(-d // TILE_D) * h
 
 
-def conv3d_plan(x_shape, n_sm: int) -> int:
-    """K2's persistent grid on its bf16 tensor-core path: one CTA per SM
-    (its weights and ring take most of an SM's shared memory), never more
-    CTAs than rows. CTA i walks rows ``[rows * i // grid, rows * (i + 1) //
-    grid)``."""
-    return min(conv3d_rows(x_shape), n_sm)
+def tf32_smem_bytes(c: int, co: int) -> int:
+    """Shared memory of one CTA of K2's fp32 kernel (``tf32_smem_bytes``):
+    the resident weights of C rounded up to 16 or 32 channels and the CTA's
+    slice of co, and the ring of halo planes."""
+    cp, cs = (16 if c <= 16 else 32), min(co, CO_F32)
+    return 128 + 27 * cp * cs * 4 + RING_F32 * (TILE_W_F32 + 2) * (TILE_D + 2) * cp * 4
+
+
+def conv3d_plan(x_shape, n_sm: int, dtype: torch.dtype = torch.bfloat16, co: int = 32) -> int:
+    """K2's persistent grid (CTAs per slice of output channels) on its
+    tensor-core paths, never more CTAs than rows; CTA i of a slice walks
+    rows ``[rows * i // grid, rows * (i + 1) // grid)``. bf16: one CTA per
+    SM (its weights and ring take most of an SM's shared memory). fp32: as
+    many CTAs as the SMs hold by shared memory (two at 16 input channels),
+    shared among the slices of co (two at co = 64). C > 32 runs the
+    CUDA-core kernel, which ignores the grid."""
+    c = x_shape[-1]
+    if dtype != torch.float32 or c > 32:
+        return min(conv3d_rows(x_shape), n_sm)
+    per_sm = SMEM_PER_SM // (tf32_smem_bytes(c, co) + 1024)
+    slices = max(co // CO_F32, 1)
+    return min(conv3d_rows(x_shape, dtype), max(n_sm * per_sm // slices, 1))
 
 
 def wgrad_plan(dtype: torch.dtype, x_shape, co: int, n_sm: int):
@@ -159,9 +182,9 @@ def nc_conv3d_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, h, wd, d, co), dtype=x.dtype, device=x.device)
     lib = _native.load("conv3d")
     lib.rn_conv3d.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    grid = conv3d_plan(x.shape, _native.sm_count(x.device.index), x.dtype, co)
     rc = lib.rn_conv3d(x.data_ptr(), wk.data_ptr(), out.data_ptr(), _native.dtype_code(x.dtype),
-                       b, h, wd, d, c, co, conv3d_plan(x.shape, _native.sm_count(x.device.index)),
-                       _native.stream_ptr(x))
+                       b, h, wd, d, c, co, grid, _native.stream_ptr(x))
     _native.check(lib, rc, "K2 conv3d")
     global launches
     launches += 1

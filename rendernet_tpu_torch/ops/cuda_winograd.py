@@ -137,32 +137,32 @@ def _check(x: torch.Tensor, other: torch.Tensor, what: str) -> None:
 def _kernel_fits(x_shape, k: int, dtype: torch.dtype) -> bool:
     """What K3 itself needs: NHWC, even H and W; in bf16 C % 64 (one
     64-channel stage of the wgmma GEMMs) and K % 128 (pairs of 64-channel
-    blocks, one per CTA of a cluster), in fp32 C % 16 and K % 64. The data
-    gradient runs K3 on the io-swapped weights, whose channel counts the
-    envelope's multiples of 128 keep in range."""
+    blocks, one per CTA of a cluster), in fp32 C % 16 and K % 64 (the GEMM
+    reads zeros past C in its 32-channel stages, and a cluster's second
+    block past K writes nothing). The data gradient runs K3 on the
+    io-swapped weights, whose channel counts the envelope's multiples of
+    128 keep in range."""
     cstep, kstep = (64, 128) if dtype == torch.bfloat16 else (16, 64)
     return (len(x_shape) == 4 and x_shape[1] % 2 == 0 and x_shape[2] % 2 == 0
             and x_shape[3] % cstep == 0 and k % kstep == 0)
 
 
 def v_scratch_bytes(x_shape, dtype: torch.dtype) -> int:
-    """Bytes of the V scratch ``[16, B * H/2 * W/2, C]`` that one bf16 K3
-    call allocates (its input transform's output); fp32 calls use none."""
-    if dtype != torch.bfloat16:
-        return 0
+    """Bytes of the V scratch ``[16, B * H/2 * W/2, C]`` that one K3 call
+    allocates (its input transform's output), in the storage dtype."""
     b, h, w, c = x_shape
-    return 16 * b * (h // 2) * (w // 2) * c * 2
+    return 16 * b * (h // 2) * (w // 2) * c * torch.tensor([], dtype=dtype).element_size()
 
 
 def wino_conv2d_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The K3 wrapper: SAME stride-1 3x3 conv ``[B,H,W,C] @ [3,3,C,K]`` via
     Winograd. A CUDA tensor runs the K3 kernel (raising on a shape the
     kernel cannot take); a CPU tensor runs the plain version. The C entry
-    first forms U = G w G^T (fp32, cast to ``x.dtype``) into a scratch
-    buffer; in bf16 it then writes V = B^T d B into a second scratch
-    ``[16, tiles, C]`` and runs the 16 GEMMs and the output transform, in
-    fp32 it runs the fused CUDA-core convolution. One launch is counted
-    per call."""
+    forms U = G w G^T in fp32 into a scratch buffer (cast to bf16
+    ``[16, K, C]``, or in fp32 its TF32 split, hi and lo planes ``[2, 16,
+    K, C]``), writes V = B^T d B into a second scratch ``[16, tiles, C]``
+    in ``x.dtype``, and runs the 16 GEMMs (fp32 products as three TF32
+    passes) and the output transform. One launch is counted per call."""
     if x.device.type == "cpu":
         return wino_conv2d_plain(x, w)
     _check(x, w, "wino_conv2d")
@@ -175,7 +175,7 @@ def wino_conv2d_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x = _native.aligned(x)
     w = w.to(x.dtype).contiguous()
     bf16 = x.dtype == torch.bfloat16
-    u = torch.empty((16, k, c) if bf16 else (16, c, k), dtype=x.dtype, device=x.device)
+    u = torch.empty((16, k, c) if bf16 else (2, 16, k, c), dtype=x.dtype, device=x.device)
     v = torch.empty(v_scratch_bytes(x.shape, x.dtype) // x.element_size(), dtype=x.dtype,
                     device=x.device)
     out = torch.empty((b, h, wd, k), dtype=x.dtype, device=x.device)

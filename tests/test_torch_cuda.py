@@ -53,8 +53,9 @@ def test_resample_pass_kernel(cuda, dtype):
 
 # K2 / K2w cases: every (C, co) of C in {16, 24, 32} and co in {16, 32, 64};
 # batches 1, 5 and 24 (24 at the res1 training shape); W and D that are not
-# multiples of the bf16 kernels' 8 x 32 tile; C % 8 != 0 (the planes staged
-# element by element); C = 8 and C > 32 (the CUDA-core kernel in bf16).
+# multiples of the bf16 kernels' 8 x 32 tile (or fp32's 4 x 32); C % 8 != 0
+# (the bf16 planes staged element by element); C = 8 and C > 32 (the
+# CUDA-core kernel in either dtype).
 CONV3D_CASES = [((1, 4, 8, 32, c), co) for c in (16, 24, 32) for co in (16, 32, 64)] + [
     ((5, 8, 8, 32, 32), 32), ((24, 64, 64, 32, 32), 32), ((2, 5, 10, 24, 24), 64),
     ((2, 4, 8, 20, 32), 32), ((2, 4, 8, 16, 20), 32), ((1, 4, 8, 8, 16), 16),
@@ -90,6 +91,36 @@ def test_winograd_kernel(cuda, dtype, xs, co):
     got = cuda_winograd.wino_conv2d(x, w)
     assert cuda_winograd.launches_by_shape[tuple(xs), co] == before + 1
     _close(got, cuda_winograd.wino_conv2d_plain(x, w), dtype)
+
+
+@pytest.mark.parametrize("op,xs,co", [
+    ("wino", (8, 6, 10, 48), 64),      # C % 32 != 0 (half a stage), K % 128 != 0
+    ("wino", (8, 4, 8, 272), 192),     # both again: 3 channel blocks, the pair's 4th past K
+    ("wino", (8, 6, 70, 256), 320),    # K % 128 != 0 at a ragged tile count
+    ("conv3d", (2, 3, 10, 16, 18), 32),  # C % 4 != 0 (element-wise staging), W and D partial rows
+    ("conv3d", (2, 3, 10, 16, 18), 64),  # the same in two slices of 32 output channels
+    ("conv3d", (3, 2, 8, 40, 12), 16),   # C % 4 == 0 below 16, a partial second D tile, H = 2
+])
+def test_fp32_tensor_core_edges(cuda, op, xs, co):
+    """The fp32 forms of K3 and K2 (three TF32 passes) at their tiles'
+    edges, against their plain versions at 1e-4 of max|y|, one launch each.
+    The K3 shapes lie outside the Winograd envelope (which keeps C and K
+    multiples of 128): the forward wrapper takes what the kernel takes."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn(*xs, generator=g, device=cuda)
+    c = xs[-1]
+    if op == "wino":
+        w = torch.randn(3, 3, c, co, generator=g, device=cuda) / (3 * c ** 0.5)
+        counts, fwd, plain = (cuda_winograd.launches_by_shape, cuda_winograd.wino_conv2d_forward,
+                              cuda_winograd.wino_conv2d_plain)
+    else:
+        w = torch.randn(3, 3, 3, c, co, generator=g, device=cuda) / (27 * c) ** 0.5
+        counts, fwd, plain = (cuda_conv3d.launches_by_shape, cuda_conv3d.nc_conv3d_forward,
+                              cuda_conv3d.nc_conv3d_plain)
+    before = counts[tuple(xs), co]
+    got = fwd(x, w)
+    assert counts[tuple(xs), co] == before + 1
+    _close(got, plain(x, w), torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

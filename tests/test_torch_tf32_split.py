@@ -1,0 +1,205 @@
+"""The arithmetic and the host side of K3's and K2's fp32 forms, on the CPU.
+
+Both kernels run fp32 products on the TF32 tensor cores as three passes:
+each operand a is split into hi = tf32(a) (to nearest, ties away from zero,
+10 stored mantissa bits: ``cvt.rna.tf32.f32``) and lo = tf32(a - hi), and
+hi.hi + hi.lo + lo.hi go into one fp32 sum (K3 on wgmma, its V split in
+registers and U split by its weight transform; K2 on mma.sync, both split
+in registers). A numpy emulation of that split holds every product to
+within 3 x 2^-22 (1 + 2^-10) of |a b| (the dropped lo.lo and both
+remainders' rounding; the 2^-10 covers lo's size past 2^-11 |a|), the 16
+GEMMs of a Winograd conv and the 27-tap GEMM of a 3-D conv to that bound of
+their sums of |a| |b|, and one whole emulated conv of each kind to a tenth
+of ``chip_smoke.KERNEL_TOL["float32"]`` (1e-4 of max|y|) of the port's
+plain version and of JAX's function. K2's fp32 plan is held to covering
+every position once on its 4-wide rows, and its shared memory, from the
+kernel's compiled constants, to what a CTA may use.
+"""
+from __future__ import annotations
+
+import pathlib
+import re
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rendernet_tpu.ops import pallas_conv3d, pallas_winograd
+from rendernet_tpu_torch.ops import cuda_conv3d, cuda_winograd
+from rendernet_tpu_torch.ops.winograd import _AT, input_transform, transform_weights
+
+KERNEL_TOL = 1e-4  # chip_smoke.KERNEL_TOL["float32"]: a kernel against its plain version
+BOUND = 3 * 2.0 ** -22 * (1 + 2.0 ** -10)
+BLOCK_SMEM = 232448  # shared memory one CTA may use on an H100
+CSRC = pathlib.Path(cuda_conv3d.__file__).parents[1] / "csrc"
+
+
+def _tf32(a):
+    """``cvt.rna.tf32.f32``: the magnitude rounded to 10 stored mantissa
+    bits, half away from zero, sign kept (finite values)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    mag = ((u & np.uint32(0x7FFFFFFF)) + np.uint32(0x1000)) & np.uint32(0x7FFFE000)
+    return (mag | (u & np.uint32(0x80000000))).view(np.float32)
+
+
+def _split(a):
+    """(hi, lo) as float64: hi = tf32(a), lo = tf32(a - hi), a - hi in fp32
+    (exact)."""
+    a = np.asarray(a, np.float32)
+    hi = _tf32(a)
+    return hi.astype(np.float64), _tf32(a - hi).astype(np.float64)
+
+
+def _three_pass(a, b):
+    """hi.hi + hi.lo + lo.hi of matrices a [.., M, K] and b [.., K, N], each
+    product and sum in float64."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def test_tf32_rounding():
+    """The emulated cvt.rna: 13 low bits cleared, ties away from zero."""
+    ulp = 2.0 ** -10
+    a = np.array([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 2 - 2.0 ** -23, 1 + 1.5 * ulp, 0.0],
+                 np.float32)
+    np.testing.assert_array_equal(_tf32(a), np.array([1 + ulp, -(1 + ulp), 1, 1 + 2 * ulp, 0],
+                                                     np.float32))
+    x = np.random.default_rng(0).standard_normal(4096).astype(np.float32)
+    assert not (_tf32(x).view(np.uint32) & 0x1FFF).any()
+    assert (np.abs(_tf32(x) - x) <= 2.0 ** -11 * np.abs(x)).all()
+
+
+def _wino_operands():
+    """V and U of the card check's ragged K3 shape, [8, 6, 70, 256] -> 128."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((8, 6, 70, 256)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 256, 128)) / np.sqrt(9 * 256)).astype(np.float32)
+    v = input_transform(torch.from_numpy(x), torch.float32).numpy()
+    u = transform_weights(torch.from_numpy(w), torch.float32).numpy()
+    return x, w, v, u
+
+
+def _conv3d_operands():
+    """K2's operands at a res1-like [2, 4, 8, 32, 32] -> 32: the 27-tap
+    patches [positions, 27 C] (SAME zeros) and the weights [27 C, co]."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 4, 8, 32, 32)).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 3, 32, 32)) / np.sqrt(27 * 32)).astype(np.float32)
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (1, 1), (0, 0)))
+    b, h, wd, d, c = x.shape
+    patches = np.concatenate([xp[:, i:i + h, j:j + wd, k:k + d, :].reshape(-1, c)
+                              for i in range(3) for j in range(3) for k in range(3)], axis=1)
+    return x, w, patches, w.reshape(27 * c, -1)
+
+
+@pytest.mark.parametrize("which", ["winograd", "conv3d"])
+def test_split_products_bound(which):
+    """Each three-pass product within BOUND of |a b|, and each GEMM's sums
+    within BOUND of the sums of |a| |b| (float64 sums: the split alone)."""
+    if which == "winograd":
+        _, _, v, u = _wino_operands()
+        a, b = v[5, :64, :64].ravel(), u[5, :64, :64].ravel()
+        pairs = [(v[f], u[f]) for f in (0, 5, 10, 15)]
+    else:
+        _, _, patches, wm = _conv3d_operands()
+        a = np.repeat(patches[:64], wm.shape[1], axis=1).ravel()
+        b = np.tile(wm.ravel(), 64)
+        pairs = [(patches, wm)]
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    got = ah * bh + ah * bl + al * bh
+    exact = a.astype(np.float64) * b
+    assert (np.abs(got - exact) <= BOUND * np.abs(exact)).all()
+    for lhs, rhs in pairs:
+        exact = lhs.astype(np.float64) @ rhs.astype(np.float64)
+        mag = np.abs(lhs).astype(np.float64) @ np.abs(rhs).astype(np.float64)
+        assert (np.abs(_three_pass(lhs, rhs) - exact) <= BOUND * mag).all()
+
+
+def test_emulated_winograd_conv():
+    """The whole fp32 K3 at [8, 6, 70, 256] -> 128, emulated: the 16 GEMMs
+    in three passes, then Y = A^T M A, against ``wino_conv2d_plain`` and
+    JAX's ``wino_conv2d`` (its Pallas kernel in interpret mode)."""
+    x, w, v, u = _wino_operands()
+    m = _three_pass(v, u).reshape(4, 4, 8, 3, 35, 128)
+    at = _AT.astype(np.float64)
+    y = np.einsum("pa,qb,abtrsk->trpsqk", at, at, m).reshape(8, 6, 70, 128)
+    plain = cuda_winograd.wino_conv2d_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    jax_y = np.asarray(pallas_winograd.wino_conv2d(jnp.asarray(x), jnp.asarray(w)))
+    for want in (plain, jax_y):
+        assert np.abs(y - want).max() <= 0.1 * KERNEL_TOL * np.abs(want).max()
+
+
+def test_emulated_conv3d():
+    """The whole fp32 K2 at [2, 4, 8, 32, 32] -> 32, emulated: the 27 * C
+    products in three passes, against ``nc_conv3d_plain`` and JAX's
+    ``nc_conv3d`` (interpret mode)."""
+    x, w, patches, wm = _conv3d_operands()
+    y = _three_pass(patches, wm).reshape(*x.shape[:4], -1)
+    plain = cuda_conv3d.nc_conv3d_plain(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    jax_y = np.asarray(pallas_conv3d.nc_conv3d(jnp.asarray(x), jnp.asarray(w)))
+    for want in (plain, jax_y):
+        assert np.abs(y - want).max() <= 0.1 * KERNEL_TOL * np.abs(want).max()
+
+
+def _constants():
+    src = (CSRC / "conv3d.cu").read_text()
+    tile = (CSRC / "conv3d_tile.cuh").read_text()
+    const = {n: int(re.search(rf"constexpr int {n} = (\d+);", src)[1])
+             for n in ("F_TW", "F_RING", "F_CO")}
+    const["TD"] = int(re.search(r"constexpr int TD = (\d+);", tile)[1])
+    return const
+
+
+def test_tf32_kernel_constants_and_shared_memory():
+    """The fp32 kernel's compiled tile (F_TW, F_RING, F_CO, TD) is the
+    plan's, and its shared memory (128 bytes of alignment, the resident
+    weights of the channel step CP and a CTA's output slice, F_RING halo
+    planes of (F_TW + 2) x (TD + 2) x CP values) fits a CTA at every
+    (CP, slice), and the CTAs the plan puts on one SM fit the SM."""
+    k = _constants()
+    assert (k["F_TW"], k["F_RING"], k["F_CO"], k["TD"]) == (
+        cuda_conv3d.TILE_W_F32, cuda_conv3d.RING_F32, cuda_conv3d.CO_F32, cuda_conv3d.TILE_D)
+    for cp in (16, 32):
+        for co in (16, 32, 64):
+            cs = min(co, k["F_CO"])
+            smem = 128 + 27 * cp * cs * 4 + k["F_RING"] * (k["F_TW"] + 2) * (k["TD"] + 2) * cp * 4
+            assert smem == cuda_conv3d.tf32_smem_bytes(cp, co) <= BLOCK_SMEM
+            per_sm = cuda_conv3d.SMEM_PER_SM // (smem + 1024)
+            assert per_sm >= 1
+            grid = cuda_conv3d.conv3d_plan((8, 64, 64, 32, cp), 132, torch.float32, co)
+            assert grid * max(co // k["F_CO"], 1) <= 132 * per_sm
+    assert cuda_conv3d.tf32_smem_bytes(32, 32) == 215168  # res1, 32 -> 32
+
+
+# The models' fp32 shapes (serving, gradient check, recon, texture), the
+# card tests' ragged ones (co = 64 in two slices, C % 4 != 0, D and W not
+# whole tiles).
+F32_SHAPES = [((8, 64, 64, 32, 32), 32), ((8, 64, 64, 32, 16), 32), ((8, 64, 64, 32, 32), 16),
+              ((5, 64, 64, 32, 16), 16), ((2, 5, 10, 24, 24), 64), ((2, 4, 8, 20, 32), 32),
+              ((2, 4, 6, 16, 18), 16), ((1, 3, 5, 40, 8), 64)]
+
+
+@pytest.mark.parametrize("x_shape,co", F32_SHAPES)
+def test_tf32_plan_covers_every_position_once(x_shape, co):
+    """The fp32 kernel's rows (4 W x 32 D of one (b, h), decoded as the
+    kernel's ``column<F_TW>`` does) split into the plan's contiguous ranges
+    per slice of co, for the plan's grid and others: every output position
+    of every slice exactly once."""
+    b_, h_, w_, d_, _ = x_shape
+    tw, td = cuda_conv3d.TILE_W_F32, cuda_conv3d.TILE_D
+    rows = cuda_conv3d.conv3d_rows(x_shape, torch.float32)
+    assert rows == b_ * -(-w_ // tw) * -(-d_ // td) * h_
+    slices = max(co // cuda_conv3d.CO_F32, 1)
+    plan = cuda_conv3d.conv3d_plan(x_shape, 132, torch.float32, co)
+    assert 1 <= plan <= rows
+    for grid in sorted({1, 7, plan, rows}):
+        seen = np.zeros((slices, b_, h_, w_, d_), np.int32)
+        for sl in range(slices):
+            for i in range(grid):
+                for r in range(rows * i // grid, rows * (i + 1) // grid):
+                    col, h = divmod(r, h_)
+                    rest, dt = divmod(col, -(-d_ // td))
+                    b, wt = divmod(rest, -(-w_ // tw))
+                    seen[sl, b, h, wt * tw:wt * tw + tw, dt * td:dt * td + td] += 1
+        assert (seen == 1).all(), (x_shape, co, grid)

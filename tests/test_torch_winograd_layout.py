@@ -1,4 +1,4 @@
-"""The operand layouts of K3's bf16 path against the JAX package, on the CPU.
+"""The operand layouts of K3's GEMMs against the JAX package, on the CPU.
 
 K3 writes V = B^T d B into a scratch ``[16, tiles, C]`` and U = G w G^T as
 ``[16, K, C]`` (both GEMM operands K-major) before its wgmma GEMMs. The
@@ -71,11 +71,12 @@ def test_weight_transform_kmajor_matches_jax(dtype):
 
 @pytest.mark.parametrize("b,h,w,c", [(8, 64, 64, 1024), (24, 32, 32, 512), (8, 6, 70, 256)])
 def test_v_scratch_bytes(b, h, w, c):
-    """The V scratch is 16 bf16 values per tile and input channel in bf16,
-    none in fp32 (the CUDA-core path transforms in shared memory)."""
+    """The V scratch is 16 values per tile and input channel in the storage
+    dtype: bf16, and fp32 (kept one fp32 plane, split in registers)."""
     assert cuda_winograd.v_scratch_bytes((b, h, w, c), torch.bfloat16) == (
         16 * b * (h // 2) * (w // 2) * c * 2)
-    assert cuda_winograd.v_scratch_bytes((b, h, w, c), torch.float32) == 0
+    assert cuda_winograd.v_scratch_bytes((b, h, w, c), torch.float32) == (
+        16 * b * (h // 2) * (w // 2) * c * 4)
 
 
 def test_envelope_fits_the_kernel_both_ways():
