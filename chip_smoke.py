@@ -23,7 +23,9 @@ Phases, all of them on every run:
      convolutions; ``F.grid_sample``'s kernel ``grid_sampler_2d`` for K1
      and its backward ``grid_sampler_2d_backward`` for K4, whose errors
      against the plain version are printed, not gated: bf16 grids round
-     the positions);
+     the positions; the device kernels of cuDNN's fp32 K5w call at res2 by
+     name), then the fp32 K5 / K5w at several accumulator chain lengths
+     (``chains``: error and ms);
   3. serving: run the render CLI (fp32, ``--fast --resample multipass
      --rotate --sweep_batch 8``: 72 frames, 9 batch-8 forwards) on a
      procedural voxel, then one bf16 ``shader_forward`` at batch 8, both at
@@ -315,15 +317,16 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 # The ops whose fp32 form runs every product as three TF32 passes (K2 at
-# C <= 32, every fp32 K2 case here; K3).
-TF32_OPS = ("conv3d", "conv3d_dgrad", "wino", "wino_dgrad")
+# C <= 32, every fp32 K2 case here; K3; K5 and its data gradient; K5w).
+TF32_OPS = ("conv3d", "conv3d_dgrad", "wino", "wino_dgrad", "conv2d", "conv2d_dgrad",
+            "conv2d_wgrad")
 
 
 def bound_dtype(op: str, dname: str) -> str:
     """The peak rate that bounds a case's operations: K4's fp32 CUDA-core
     math, K6's bf16 tensor-core passes (three for fp32 products), the TF32
-    tensor cores for fp32 K2 and K3 (three passes, counted in the case's
-    flops), else the storage dtype's."""
+    tensor cores for fp32 K2, K3, K5 and K5w (three passes, counted in the
+    case's flops), else the storage dtype's."""
     if dname == "float32" and op in TF32_OPS:
         return "tf32"
     return {"pass_bwd": "float32", "wino_wgrad": "bfloat16"}.get(op, dname)
@@ -415,6 +418,10 @@ def _conv2d_cases():
 
 
 CONV2D_CASES = _conv2d_cases()
+# Rows whose library call is also profiled once, its device kernels printed
+# by name (``library_kernels``): cuDNN's fp32 K5w at res2, which runs under
+# three TF32 passes' bound with TF32 off.
+LIBRARY_KERNELS = {("K5w", "train res2 [64, 64, 8, 1024]->1024", "float32")}
 
 
 def _texture_cases():
@@ -754,7 +761,7 @@ def make_case(torch, op, spec, dtype, gen):
                 lambda: grad.conv3d_weight(cf(x), (co, c, 3, 3, 3), cf(gy), padding=1),
                 2.0 * m * 27 * c * co, item * (x.numel() + gy.numel()) + 4 * 27 * c * co, True)
     if op.startswith("conv2d"):
-        return conv2d_case(torch, op, spec, dtype, rnd, m, c)
+        return conv2d_case(torch, op, spec, dtype, rnd, m, c, passes)
     tiles = xs[0] * (xs[1] // 2) * (xs[2] // 2)
     if op == "wino":
         x = rnd(*xs)
@@ -822,9 +829,10 @@ def library_as_plain(op, spec, out):
     return gv.reshape(bc, r, lanes), gp.reshape(bc, r, ol)
 
 
-def conv2d_case(torch, op, spec, dtype, rnd, m, c):
-    """make_case for K5 and K5w on HWNC inputs [H, W, B, C]. The cuDNN
-    yardstick runs on channels-last (NHWC) copies, with no epilogue."""
+def conv2d_case(torch, op, spec, dtype, rnd, m, c, passes):
+    """make_case for K5 and K5w on HWNC inputs [H, W, B, C] (``passes``:
+    three TF32 passes per product in fp32). The cuDNN yardstick runs on
+    channels-last (NHWC) copies, with no epilogue."""
     from rendernet_tpu_torch.ops import cuda_conv2d
 
     grad = torch.nn.grad
@@ -835,7 +843,7 @@ def conv2d_case(torch, op, spec, dtype, rnd, m, c):
     def nchw(t):  # HWNC -> an NCHW view of a channels-last copy
         return t.permute(2, 0, 1, 3).contiguous().permute(0, 3, 1, 2)
 
-    flops = 2.0 * m * 9 * c * co
+    flops = passes * 2.0 * m * 9 * c * co
     if op == "conv2d_wgrad":
         x, gz = rnd(*xs), rnd(h, wd, b, co)
         xl, gl = nchw(x), nchw(gz)
@@ -923,6 +931,9 @@ def run_kernel_checks(torch, failures):
                 row["library_max_abs_err"] = lib_err
             if kid == "K3":
                 row["v_scratch_bytes"] = cuda_winograd.v_scratch_bytes(spec[0], dtype)
+            if (kid, label, dname) in LIBRARY_KERNELS:  # what the cuDNN yardstick runs
+                row["library_kernels"] = [
+                    {"kernel": k, "count": n, "ms": us / 1e3} for k, n, us in _profile(torch, lib)[0]]
             rows[kid, label, dname] = row
             tag = {None: "ragged", "check": "check"}.get(run, "kernel")
             log(f"{tag} " + json.dumps(row))
@@ -930,6 +941,47 @@ def run_kernel_checks(torch, failures):
                 failures.append(f"{kid} {label} {dname}: err {err:.3e} > {tol:.3e}")
             torch.cuda.empty_cache()
     return rows
+
+
+# The fp32 K5 / K5w accumulator chains swept (cuda_conv2d.CHAIN_STAGES_F32,
+# stages of 32 channels of one tap; MAX_CHAIN_STEPS_F32, steps of 32
+# pixels): the first of each list is the kernels' own, the last one chain
+# over the whole sum (K5 at res2: 9 C / 32 = 288 stages).
+K5_CHAINS = (1, 2, 8, 288)
+K5W_CHAINS = (32, 8, 128, 1 << 20)
+
+
+def chain_sweep(torch) -> dict:
+    """The fp32 K5 (res2 prelu, batch 8) and K5w (res2, batch 8) at several
+    accumulator chain lengths: error against the plain version as a
+    fraction of max|plain|, and ms per call. The tensor cores' fp32 sums
+    lose precision along a chain; this is what the kernels' lengths were
+    chosen from."""
+    from rendernet_tpu_torch.ops import cuda_conv2d as cc
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    xs, c = (64, 64, 8, 1024), 1024
+    x = torch.randn(*xs, generator=gen, device="cuda")
+    w = torch.randn(3, 3, c, c, generator=gen, device="cuda") / math.sqrt(9 * c)
+    kw = dict(bias=torch.randn(c, generator=gen, device="cuda") * 0.1, act="prelu",
+              alpha=torch.rand(c, generator=gen, device="cuda") * 0.3)
+    gz = torch.randn(*xs[:3], c, generator=gen, device="cuda")
+    out = {"k5": [], "k5w": []}
+    sweeps = (("k5", "CHAIN_STAGES_F32", K5_CHAINS, lambda: cc.conv2d_hwnc(x, w, **kw),
+               cc.conv2d_hwnc_plain(x, w, **kw)),
+              ("k5w", "MAX_CHAIN_STEPS_F32", K5W_CHAINS, lambda: cc.conv2d_wgrad(x, gz),
+               cc.conv2d_wgrad_plain(x, gz)))
+    for key, name, chains, fn, ref in sweeps:
+        own = getattr(cc, name)
+        try:
+            for chain in chains:
+                setattr(cc, name, chain)
+                err = float((fn() - ref).abs().max()) / float(ref.abs().max())
+                out[key].append({"chain": chain, "err_rel": err, "ms": time_ms(torch, fn, 10)})
+        finally:
+            setattr(cc, name, own)
+    log("chains " + json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -4343,8 +4395,10 @@ def run_spatial_texture_recon(torch, failures, tmp):
 # (demangled) names.
 PROFILED = {"K1": ("k1_pass",), "K4": ("k4_adjoint",),
             "K2": ("conv3d_mma_kernel", "conv3d_core_kernel"), "K2w": ("conv3d_wgrad_",),
-            "K3": ("k3_",), "K6": ("k6_",), "K5": ("conv2d_wgmma_kernel", "conv2d_f32_kernel"),
-            "K5w": ("wgrad_wgmma_kernel", "::wgrad_f32_kernel", "::wgrad_reduce_kernel")}
+            "K3": ("k3_",), "K6": ("k6_",),
+            "K5": ("conv2d_wgmma_kernel", "conv2d_tf32_kernel", "::tf32_split_kernel"),
+            "K5w": ("wgrad_wgmma_kernel", "wgrad_tf32_kernel", "tf32_split_cmajor",
+                    "::wgrad_reduce_kernel")}
 
 
 def _profile(torch, fn):
@@ -4564,6 +4618,8 @@ def main() -> int:
     kernel_sass(failures)
     t0 = time.perf_counter()
     rows = run_kernel_checks(torch, failures)
+    chain_sweep(torch)
+    torch.cuda.empty_cache()
     log(f"phase 2 (kernels) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:

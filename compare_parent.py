@@ -32,7 +32,11 @@ sources, into that tree's ``_build``):
    K3 is chosen, with the flag off, also the fp32 paths that run their fp32
    forms: the fp32 batch-8 ``shader_forward`` on the Winograd route (the
    render CLI's) and the fp32 inverse-rendering step at ``ReconConfig()``
-   (its default dtype), timed as their bf16 forms.
+   (its default dtype), timed as their bf16 forms; where K5 or K5w is
+   chosen, with the flag on, the fp32 paths that run their fp32 forms: the
+   fp32 batch-8 forward, the fp32 ``ReconConfig()`` step and the fp32
+   batch-8 patch-128 training step (the gradient check's configuration;
+   two warm-up steps, then FP32_STEPS).
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 per kernel row of this tree (matched to the earlier revision's by kernel,
@@ -59,6 +63,7 @@ from pathlib import Path
 
 E2E_STEPS = 8
 RECON_STEPS = 8
+FP32_STEPS = 4
 
 
 def _bits(torch, outs) -> int:
@@ -102,11 +107,11 @@ def _kernel_rows(torch, cs, kids):
             torch.cuda.empty_cache()
 
 
-def _timed_steps(torch, step, state, batch):
-    """Two warm-up steps, then E2E_STEPS steps, each timed synchronize to
+def _timed_steps(torch, step, state, batch, n=E2E_STEPS):
+    """Two warm-up steps, then ``n`` steps, each timed synchronize to
     synchronize: (state, {"median", "mean"} ms, every loss finite)."""
     times, losses = [], []
-    for i in range(2 + E2E_STEPS):
+    for i in range(2 + n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, loss = step(state, *batch, 1)
@@ -118,6 +123,8 @@ def _timed_steps(torch, step, state, batch):
 
 
 def _e2e(torch, np, cs, conv2d: bool, wgrad: bool, fp32: bool) -> dict:
+    """One route's end-to-end readings; ``fp32``: also the fp32 paths (with
+    the flag off where K2 or K3 is chosen, on where K5 or K5w is)."""
     from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
     from rendernet_tpu_torch.nn import layers
     from rendernet_tpu_torch.ops import cuda_winograd
@@ -135,7 +142,7 @@ def _e2e(torch, np, cs, conv2d: bool, wgrad: bool, fp32: bool) -> dict:
                                          resample="multipass")
             res["forward_ms"] = cs.time_ms(torch, fwd, 10)
             res["forward_idle_share"] = cs.profile_run(torch, fwd)["device_idle_share"]
-            if fp32 and not conv2d:
+            if fp32:
                 fwd32 = lambda: shader_forward(net, vox, pose,  # noqa: E731
                                                compute_dtype=torch.float32, resample="multipass")
                 res["forward32_ms"] = cs.time_ms(torch, fwd32, 5)
@@ -160,9 +167,19 @@ def _e2e(torch, np, cs, conv2d: bool, wgrad: bool, fp32: bool) -> dict:
                 cuda_winograd.WGRAD = False
         del state, tx, batch
         torch.cuda.empty_cache()
+        if fp32 and conv2d:  # the fp32 gradient-check step's configuration, timed
+            cfg32 = TrainConfig(batch_size=8, img_res=512, new_size=128, compute_dtype="float32",
+                                is_greyscale=True, e_eta=1e-5)
+            batch = cs.bench_batch(torch, np, 8)
+            state, tx = create_shader_state(0, mcfg, cfg32, device="cuda")
+            step = make_shader_train_step(mcfg, cfg32, tx, 128)
+            state, res["step32_128_ms"], res["step32_finite"] = _timed_steps(
+                torch, step, state, batch, n=FP32_STEPS)
+            del state, tx, batch
+            torch.cuda.empty_cache()
         model = cs.recon_model(torch)
         for dname, tag in (("bfloat16", "recon16"), ("float32", "recon32")):
-            if tag == "recon32" and not (fp32 and not conv2d):
+            if tag == "recon32" and not fp32:
                 continue
             rcfg = ReconConfig(compute_dtype=dname, light_elevation=cs.RECON_LIGHT_ELEVATION)
             step = make_recon_step(model, rcfg)
@@ -203,9 +220,10 @@ def run(tree: str, kids) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     _native.build_all()
     _kernel_rows(torch, cs, kids)
-    for conv2d in (False, True) if {"K5", "K5w"} & set(kids) else (False,):
-        print("e2e " + json.dumps(_e2e(torch, np, cs, conv2d, "K6" in kids,
-                                       bool({"K2", "K3"} & set(kids)))), flush=True)
+    fp32_on = bool({"K5", "K5w"} & set(kids))
+    for conv2d in (False, True) if fp32_on else (False,):
+        fp32 = fp32_on if conv2d else bool({"K2", "K3"} & set(kids))
+        print("e2e " + json.dumps(_e2e(torch, np, cs, conv2d, "K6" in kids, fp32)), flush=True)
 
 
 def main() -> int:

@@ -60,19 +60,31 @@
 //     gives them 168 registers a thread, as it does 384: BN = 256 keeps its
 //     128 accumulators in them, and the epilogue works four column pairs
 //     at a time so as not to spill.
-// fp32: CUDA-core FMAs; a block owns 128 pixels x 128 output channels,
-// walks K in steps of 16 channels of one tap staged with cp.async (three
-// steps in flight), each thread owning 8 pixels x 8 channels; tap (ky, kx)
-// reads row m + ((ky - 1) W + kx - 1) B, masked to zero outside the image.
+// fp32 (conv2d_tf32_kernel): the same persistent pipeline with every
+// product on the TF32 tensor cores as three passes, hi.hi + hi.lo + lo.hi
+// (hi = tf32(a), lo = tf32(a - hi): 3 * 2^-22 of each product). TF32 wgmma
+// has no transpose mode, so both shared-memory operands are K-major: a
+// pre-pass (tf32_split_kernel) writes x's split as two planes [H][W B][C]
+// (the same 3-D maps and SAME halo as bf16) and the weights', which the
+// wrapper lays out K-major as [9][co][C] (C contiguous), as two planes.
+// All three passes then read shared memory, and a wgmma group stays in
+// flight as in bf16. A k8 slice is 32 bytes of a 128-byte swizzled row, so
+// a stage is 32 channels of one tap: both activation planes' boxes (128
+// pixels, 16 KB each) and both weight planes' (128 output channels, 16 KB
+// each; CTA rank r of the pair loads plane r into both), 64 KB, three
+// stages. The tensor cores' fp32 sums lose precision along an accumulator
+// chain (as winograd.cu's fp32 GEMM found), so the accumulators
+// restart every `chain` stages (cuda_conv2d.CHAIN_STAGES_F32) and the
+// chains are summed in fp32 adds beside them (tot): 2 x 64 registers a
+// thread, which holds the tile to BN = 128 output channels. The epilogue is
+// the bf16 one's arithmetic on tot, stored as fp32.
+// Bound: three TF32 passes, 3 * 6.18e11 flops at res2 batch 8, 3.75 ms at
+// 495 TFLOP/s; the split reads x once and writes it twice (0.12 ms).
 #include <cuda_bf16.h>
 
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int BM = 128;  // pixels (GEMM rows) per block
-constexpr int BN = 128;  // output channels per block
-constexpr int NT = 256;  // threads per block
 
 struct Geom {
   int H, W, B, C, co, M;  // M = H * W * B
@@ -86,72 +98,29 @@ struct Epi {
   int act;             // 0 none, 1 PReLU, 2 ReLU
 };
 
-using rn::cp_async16;
-using rn::cp_async_commit;
-using rn::cp_async_wait;
-
-// A GEMM row: pixel m = (h W + w) B + b, in range or not.
-struct Row {
-  int m, h, w;
-  bool in;
-};
-
-__device__ __forceinline__ Row row_of(const Geom& g, int m) {
-  Row r;
-  r.m = m;
-  r.in = m < g.M;
-  const int hw = r.in ? m / g.B : 0;
-  r.w = hw % g.W;
-  r.h = hw / g.W;
-  return r;
-}
-
-// The pixel that tap (ky, kx) reads for row r, and whether it is inside
-// the image (outside it reads as zero: the SAME halo).
-__device__ __forceinline__ bool tap_pixel(const Geom& g, const Row& r, int ky, int kx,
-                                          long long& pix) {
-  const int hs = r.h + ky - 1, ws = r.w + kx - 1;
-  pix = r.m + (static_cast<long long>(ky - 1) * g.W + (kx - 1)) * g.B;
-  return r.in && hs >= 0 && hs < g.H && ws >= 0 && ws < g.W;
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
 __device__ __forceinline__ float activate(const Epi& e, int n, float v) {
   if (e.act == 1) return v < 0.f ? e.alpha[n] * v : v;  // max(v, 0) + alpha min(v, 0)
   if (e.act == 2) return v < 0.f ? 0.f : v;
   return v;
 }
 
-// The epilogue of two neighbouring output channels n, n + 1 of pixel m.
-template <typename T>
-__device__ __forceinline__ void epilogue2(const Epi& e, T* __restrict__ y, int m, int n, int co,
-                                          float v0, float v1) {
+// The fp32 epilogue of two neighbouring output channels n, n + 1 of pixel m.
+__device__ __forceinline__ void epilogue2(const Epi& e, float* __restrict__ y, int m, int n,
+                                          int co, float v0, float v1) {
   const long long i = static_cast<long long>(m) * co + n;
   if (e.bias) {
     v0 += e.bias[n];
     v1 += e.bias[n + 1];
   }
-  if (e.z) store2(static_cast<T*>(e.z) + i, v0, v1);
+  if (e.z) *reinterpret_cast<float2*>(static_cast<float*>(e.z) + i) = make_float2(v0, v1);
   v0 = activate(e, n, v0);
   v1 = activate(e, n + 1, v1);
   if (e.res) {
-    const float2 r = load2(static_cast<const T*>(e.res) + i);
+    const float2 r = *reinterpret_cast<const float2*>(static_cast<const float*>(e.res) + i);
     v0 += r.x;
     v1 += r.y;
   }
-  store2(y + i, v0, v1);
+  *reinterpret_cast<float2*>(y + i) = make_float2(v0, v1);
 }
 
 // ---------------------------------------------------------------------------
@@ -379,129 +348,216 @@ int launch_wgmma(const void* x, const void* w, __nv_bfloat16* y, const Geom& g, 
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA-core FMAs
+// fp32: the same persistent GEMM on the TF32 tensor cores, three passes
 // ---------------------------------------------------------------------------
-namespace f32 {
-constexpr int BK = 16, STAGES = 3;
-constexpr int ALD = BK + 4, BLD = BN + 4;
-constexpr int A_STAGE = BM * ALD, B_STAGE = BK * BLD;
-constexpr int SMEM = STAGES * (A_STAGE + B_STAGE) * 4;
-}  // namespace f32
+namespace tf {
+constexpr int BN = 128;                   // output channels per tile (acc + tot: 128 registers)
+constexpr int BK = 32;                    // input channels per stage: one 128-byte row of fp32
+constexpr int A_BYTES = wg::BM * BK * 4;  // one activation plane's box, 16 KB
+constexpr int W_BYTES = BN * BK * 4;      // one weight plane's box, 16 KB
+constexpr int STAGE_BYTES = 2 * A_BYTES + 2 * W_BYTES;
+constexpr int STAGES = 3;                 // 192 KB of ring
+constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+static_assert(A_BYTES % 1024 == 0 && W_BYTES % 1024 == 0, "swizzled boxes on 1024-byte lines");
+}  // namespace tf
 
-__global__ void __launch_bounds__(NT, 2) conv2d_f32_kernel(const float* __restrict__ x,
-                                                           const float* __restrict__ w,
-                                                           float* __restrict__ y, Geom g,
-                                                           Epi e) {
-  using namespace f32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);  // [STAGES][BM][ALD]
-  float* Bs = As + STAGES * A_STAGE;           // [STAGES][BK][BLD]
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-
-  const int arow = tid >> 2, acol = (tid & 3) * 4;
-  const Row rows[2] = {row_of(g, m0 + arow), row_of(g, m0 + arow + 64)};
-  const int brow = tid >> 5, bcol = (tid & 31) * 4;
-  const int kchunks = g.C / BK, nsteps = 9 * kchunks;
-
-  auto load = [&](int t, int st) {
-    const int tap = t / kchunks, c0 = (t - tap * kchunks) * BK;
-    const int ky = tap / 3, kx = tap - ky * 3;
-    float* a = As + st * A_STAGE;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      long long pix;
-      const bool in = tap_pixel(g, rows[i], ky, kx, pix);
-      cp_async16(a + (arow + 64 * i) * ALD + acol, in ? x + pix * g.C + c0 + acol : x,
-                 in ? 16 : 0);
-    }
-    float* b = Bs + st * B_STAGE;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int k = brow + 8 * i;
-      cp_async16(b + k * BLD + bcol,
-                 w + (static_cast<long long>(tap) * g.C + c0 + k) * g.co + n0 + bcol, 16);
-    }
-  };
-
-  // thread (ty, tx): pixels ty + 16 i, channels 4 tx + 64 j + q
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsteps) load(s, s);
-    cp_async_commit();
+// The pre-pass: the TF32 split of x (nx values) and of the K-major weights
+// (nw values; both counts multiples of 4, both 16-byte aligned), hi =
+// tf32(a) and lo = tf32(a - hi) (rn::tf32_split): x's hi planes at dst,
+// its lo planes nx values later, then the weights' the same way from dst +
+// 2 nx.
+__global__ void __launch_bounds__(256) tf32_split_kernel(const float* __restrict__ x, long long nx,
+                                                        const float* __restrict__ w, long long nw,
+                                                        float* __restrict__ dst) {
+  const long long n4 = (nx + nw) / 4;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n4;
+       i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const bool is_x = i < nx / 4;
+    const long long j = is_x ? i : i - nx / 4;
+    const float4 v = reinterpret_cast<const float4*>(is_x ? x : w)[j];
+    float* base = is_x ? dst : dst + 2 * nx;
+    uint4 hi, lo;
+    rn::tf32_split(v.x, hi.x, lo.x);
+    rn::tf32_split(v.y, hi.y, lo.y);
+    rn::tf32_split(v.z, hi.z, lo.z);
+    rn::tf32_split(v.w, hi.w, lo.w);
+    reinterpret_cast<uint4*>(base)[j] = hi;
+    reinterpret_cast<uint4*>(base + (is_x ? nx : nw))[j] = lo;
   }
-  for (int t = 0; t < nsteps; ++t) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (t + STAGES - 1 < nsteps) load(t + STAGES - 1, (t + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const float* a = As + (t % STAGES) * A_STAGE;
-    const float* b = Bs + (t % STAGES) * B_STAGE;
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float av[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) av[i] = a[(ty + 16 * i) * ALD + k];
-      const float4 b0 = *reinterpret_cast<const float4*>(b + k * BLD + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(b + k * BLD + tx * 4 + 64);
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
+}
 
+// As conv2d_wgmma_kernel, on the TF32 split planes of x ([H][W * B][C] hi
+// and lo maps) and of the weights (K-major, one map [18][co][C]: taps 0-8
+// hi, 9-17 lo): a
+// stage is one tap's 32 channels, the activation boxes of both planes (128
+// pixels each) and the two weight boxes (128 output channels each; CTA
+// rank r loads plane r, multicast into both CTAs). Per stage and k8 slice
+// three wgmma.m64n128k8 TF32, hi.hi + hi.lo + lo.hi. The accumulators
+// restart every `chain` stages; the chains' sums are added in fp32 in
+// `tot`, in stage order, and the epilogue runs on that total.
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(wg::THREADS, 1)
+    conv2d_tf32_kernel(const __grid_constant__ CUtensorMap xhi,
+                       const __grid_constant__ CUtensorMap xlo,
+                       const __grid_constant__ CUtensorMap wmap, float* __restrict__ y, Geom g,
+                       Epi e, int tiles_per_row, int chain) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (rn::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = ring + tf::STAGES * tf::STAGE_BYTES;  // full[s]: full + 8 s
+  const uint32_t empty = full + 8 * tf::STAGES;               // empty[s]: empty + 8 s
+  const int wb = g.W * g.B;
+  const int ntiles_n = g.co / tf::BN;
+  const int npairs = (g.H * tiles_per_row + 1) / 2 * ntiles_n;
+  const int nc = g.C / tf::BK;  // channel chunks per tap
+  const int nk = 9 * nc;        // stages per tile
+  const int cluster = blockIdx.x / 2, nclusters = gridDim.x / 2;
+  const uint32_t rank = rn::cluster_rank();
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < tf::STAGES; ++s) {
+      rn::mbar_init(full + 8 * s, 1);
+      rn::mbar_init(empty + 8 * s, wg::RELEASES);
+    }
+    rn::fence_mbar_init();
+  }
+  rn::cluster_sync();
+
+  if (warp == 8) {  // producer: one thread keeps the ring full
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (int q = cluster; q < npairs; q += nclusters) {
+        const Tile tl = tile_of(q, rank, tiles_per_row, ntiles_n, tf::BN);
+        for (int k = 0; k < nk; ++k, ++it) {
+          const int tap = k / nc, c0 = (k - tap * nc) * tf::BK;
+          const int ky = tap / 3, kx = tap - 3 * ky;
+          const uint32_t slot = it % tf::STAGES;
+          if (it >= tf::STAGES) rn::mbar_wait(empty + 8 * slot, ((it / tf::STAGES) - 1) & 1);
+          const uint32_t st = ring + slot * tf::STAGE_BYTES, bar = full + 8 * slot;
+          rn::mbar_expect_tx(bar, tf::STAGE_BYTES);
+          const int m = tl.m0 + (kx - 1) * g.B, h = tl.h + ky - 1;
+          rn::tma_load_3d(st, &xhi, c0, m, h, bar);
+          rn::tma_load_3d(st + tf::A_BYTES, &xlo, c0, m, h, bar);
+          rn::tma_load_3d_multicast(st + 2 * tf::A_BYTES + rank * tf::W_BYTES, &wmap, c0, tl.n0,
+                                    9 * rank + tap, bar, 3);
+        }
+      }
+      for (int d = 0; d < tf::STAGES; ++d, ++it)
+        if (it >= tf::STAGES)
+          rn::mbar_wait(empty + 8 * (it % tf::STAGES), ((it / tf::STAGES) - 1) & 1);
+    }
+    return;
+  }
+
+  const int wgi = warp / 4;
+  const uint32_t lane = threadIdx.x % 32;
+  const int row = wgi * 64 + (warp % 4) * 16 + static_cast<int>(lane) / 4;
+  const uint32_t peer_empty = rn::cluster_address(empty, rank ^ 1);
+  float acc[tf::BN / 2], tot[tf::BN / 2];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= g.M) continue;
+  for (int i = 0; i < tf::BN / 2; ++i) acc[i] = 0.f;
+  int it = 0;
+  for (int q = cluster; q < npairs; q += nclusters) {
+    const Tile tl = tile_of(q, rank, tiles_per_row, ntiles_n, tf::BN);
+    for (int k0 = 0; k0 < nk; k0 += chain) {
+      const int k1 = k0 + chain < nk ? k0 + chain : nk;
+      for (int k = k0; k < k1; ++k, ++it) {
+        const uint32_t slot = it % tf::STAGES;
+        rn::mbar_wait(full + 8 * slot, (it / tf::STAGES) & 1);
+        const uint32_t st = ring + slot * tf::STAGE_BYTES;
+        const uint64_t ah = rn::sw128_desc(st + wgi * (tf::A_BYTES / 2));
+        const uint64_t al = rn::sw128_desc(st + tf::A_BYTES + wgi * (tf::A_BYTES / 2));
+        const uint64_t bh = rn::sw128_desc(st + 2 * tf::A_BYTES);
+        const uint64_t bl = rn::sw128_desc(st + 2 * tf::A_BYTES + tf::W_BYTES);
+        rn::wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = n0 + tx * 4 + 64 * j;
-      epilogue2(e, y, m, n, g.co, acc[i][4 * j], acc[i][4 * j + 1]);
-      epilogue2(e, y, m, n + 2, g.co, acc[i][4 * j + 2], acc[i][4 * j + 3]);
+        for (int j = 0; j < tf::BK / 8; ++j)
+          rn::wgmma_tf32x3<tf::BN>(acc, ah + 2 * j, al + 2 * j, bh + 2 * j, bl + 2 * j,
+                                   (k - k0) | j);
+        rn::wgmma_commit();
+        rn::wgmma_wait<1>();  // stage it - 1's group has retired: release its slot
+        if (k > k0) {
+          const uint32_t off = 8 * ((it - 1) % tf::STAGES);
+          rn::mbar_arrive_pair_lane0(empty + off, peer_empty + off, lane);
+        }
+      }
+      rn::wgmma_wait<0>();
+      const uint32_t off = 8 * ((it - 1) % tf::STAGES);
+      rn::mbar_arrive_pair_lane0(empty + off, peer_empty + off, lane);
+      rn::fence_regs(acc);
+#pragma unroll
+      for (int i = 0; i < tf::BN / 2; ++i) tot[i] = k0 == 0 ? acc[i] : tot[i] + acc[i];
+    }
+    if (tl.h >= g.H) continue;  // the odd pixel tile's partner
+    const int m = tl.m0 + row;
+    const int p = tl.h * wb + m;
+    const int n = tl.n0 + 2 * static_cast<int>(lane % 4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (m + 8 * h >= wb) continue;
+#pragma unroll
+      for (int j = 0; j < tf::BN / 8; ++j)
+        epilogue2(e, y, p + 8 * h, n + 8 * j, g.co, tot[4 * j + 2 * h], tot[4 * j + 2 * h + 1]);
     }
   }
 }
 
+// The fp32 form: x and w split into TF32 hi / lo planes in `split` (x's
+// [2][H * W * B][C], then w's [2][9][co][C]), then the GEMM on their maps
+// (boxes of 32 channels x 128 pixels or output channels x 1, 128-byte
+// swizzle, zeros past every edge).
+int launch_tf32(const float* x, const float* w, float* split, float* y, const Geom& g,
+                const Epi& e, int grid, int chain, cudaStream_t s) {
+  const long long wb = static_cast<long long>(g.W) * g.B;
+  const long long nx = static_cast<long long>(g.M) * g.C, nw = 9LL * g.co * g.C;
+  float* xs = split;
+  float* ws = split + 2 * nx;
+  const long long blocks = ((nx + nw) / 4 + 255) / 256;
+  tf32_split_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      x, nx, w, nw, split);
+  const long long xdims[3] = {g.C, wb, g.H}, xstr[2] = {4LL * g.C, 4LL * g.C * wb};
+  const long long wdims[3] = {g.C, g.co, 18}, wstr[2] = {4LL * g.C, 4LL * g.co * g.C};
+  const int xbox[3] = {tf::BK, wg::BM, 1}, wbox[3] = {tf::BK, tf::BN, 1};
+  CUtensorMap xhi, xlo, wmap;
+  if (!rn::make_f32_map(&xhi, xs, 3, xdims, xstr, xbox) ||
+      !rn::make_f32_map(&xlo, xs + nx, 3, xdims, xstr, xbox) ||
+      !rn::make_f32_map(&wmap, ws, 3, wdims, wstr, wbox))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv2d_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tf::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const int pairs = rn::max_active_pairs(conv2d_tf32_kernel, wg::THREADS, tf::SMEM);
+  if (pairs < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  grid = grid < 2 * pairs ? grid : 2 * pairs;
+  const int tiles_per_row = static_cast<int>((wb + wg::BM - 1) / wg::BM);
+  conv2d_tf32_kernel<<<grid, wg::THREADS, tf::SMEM, s>>>(xhi, xlo, wmap, y, g, e, tiles_per_row,
+                                                         chain);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// x [H, W, B, C], w [3, 3, C, co] (16-byte aligned, in the storage type);
+// x [H, W, B, C], w (16-byte aligned, in the storage type): bf16 [3, 3, C,
+// co] as it lies, fp32 K-major [9][co][C] (cuda_conv2d.kernel_weights);
 // bias, alpha: fp32 [co] or null (alpha required for act 1); res, y, z:
 // [H, W, B, co] in the storage type (res and z may be null). C % 32 == 0,
-// co % 128 == 0. grid: the bf16 kernel's persistent CTAs, an even count (2
-// per cluster; cuda_conv2d.conv2d_plan), cut to the clusters the card can
-// hold at once; the fp32 kernel takes one block per 128 x 128 tile and
-// ignores it.
+// co % 128 == 0. grid: the persistent CTAs, an even count (2 per cluster;
+// cuda_conv2d.conv2d_plan), cut to the clusters the card can hold at once.
+// fp32: split, the scratch for the TF32 planes (2 (H W B C + 9 co C)
+// floats), and chain, the stages per accumulator chain.
 extern "C" int rn_conv2d(const void* x, const void* w, const void* bias, const void* alpha,
-                         const void* res, void* y, void* z, int dtype, int act, int H, int W,
-                         int B, int C, int co, int grid, void* stream) {
+                         const void* res, void* y, void* z, void* split, int dtype, int act,
+                         int H, int W, int B, int C, int co, int grid, int chain, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = static_cast<long long>(H) * W * B;
-  const long long mtiles = (M + BM - 1) / BM;
-  if (C <= 0 || C % 32 || co <= 0 || co % BN || act < 0 || act > 2 || (act == 1 && !alpha) ||
-      M <= 0 || M >= (1LL << 31) || mtiles > 65535 || (dtype != 0 && (grid < 2 || grid % 2)))
+  if (C <= 0 || C % 32 || co <= 0 || co % 128 || act < 0 || act > 2 || (act == 1 && !alpha) ||
+      M <= 0 || M >= (1LL << 31) || grid < 2 || grid % 2 || (dtype == 0 && (!split || chain < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{H, W, B, C, co, static_cast<int>(M)};
   const Epi e{static_cast<const float*>(bias), static_cast<const float*>(alpha), res, z, act};
-  if (dtype != 0) {
-    __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
-    return co % 256 == 0 ? launch_wgmma<256>(x, w, yb, g, e, grid, s)
-                         : launch_wgmma<128>(x, w, yb, g, e, grid, s);
-  }
-  const cudaError_t err = cudaFuncSetAttribute(
-      conv2d_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f32::SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  conv2d_f32_kernel<<<dim3(co / BN, static_cast<unsigned>(mtiles)), NT, f32::SMEM, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y), g, e);
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0)
+    return launch_tf32(static_cast<const float*>(x), static_cast<const float*>(w),
+                       static_cast<float*>(split), static_cast<float*>(y), g, e, grid, chain, s);
+  __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
+  return co % 256 == 0 ? launch_wgmma<256>(x, w, yb, g, e, grid, s)
+                       : launch_wgmma<128>(x, w, yb, g, e, grid, s);
 }

@@ -51,63 +51,35 @@
 // a CTA splits its item into that many equal chains, stores the first
 // chain's sums into its partial and adds each later chain's to it, in
 // order, from the same threads.
-// fp32: the CUDA-core kernel of the first port: a block owns one tap, 128
-// input and 128 output channels over a chunk of pixels (the same chunk
-// plan as the parts) and walks it 16 pixels a step, the shifted activation
-// rows (zero outside the image) and the cotangent rows staged in shared
-// memory with cp.async, each thread owning 8 input x 8 output channels.
+// fp32 (wgrad_tf32_kernel): the same items, parts, chains and pipeline with
+// every product on the TF32 tensor cores as three passes, hi.hi + hi.lo +
+// lo.hi (hi = tf32(a), lo = tf32(a - hi)). TF32 wgmma has no transpose
+// mode, so both shared-memory operands must be K-major, with the pixels
+// along the rows: a pre-pass (tf32_split_cmajor) writes x and gz
+// channel-major, [C][H][W Bp] and [co][H][W Bp] with the batch padded to
+// Bp, a multiple of 4 (zeros), each as hi and lo planes (at res2 batch 8,
+// 268 MB read and 537 MB written). x's 3-D map over that layout, boxes of
+// 32 pixels x 1 row x 64 channels, reads tap (ky, kx) at a shift of (kx -
+// 1) Bp along W Bp (now the inner axis: a TMA box's inner coordinate must
+// fall on 16 bytes, hence Bp) and ky - 1 along H, so the zeros outside the
+// image are still the SAME halo. A stage is 32 pixels
+// (a k8 slice is 32 bytes of a 128-byte swizzled row): the two row
+// blocks' boxes in both planes (32 KB) and the BN cotangent rows in both
+// planes (BN / 64 boxes a plane, CTA rank r of the pair loading plane r
+// into both), 96 KB at BN = 256, so two stages (three at BN = 128). The
+// chains restart every cuda_conv2d.MAX_CHAIN_STEPS_F32 steps, its own
+// length: the tensor cores' fp32 sums lose precision along a chain.
+// Bound: three TF32 passes, 3 * 6.18e11 flops at res2 batch 8, 3.75 ms at
+// 495 TFLOP/s.
 #include <cuda_bf16.h>
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // input channels (GEMM rows) per block
-constexpr int BN = 128;  // output channels per block
-constexpr int NT = 256;
-
 struct Geom {
-  int H, W, B, C, co, M, parts;  // parts: pixel parts (bf16) or chunks (fp32)
+  int H, W, B, C, co, M, parts;  // parts: pixel parts, added in order
 };
-
-using rn::cp_async16;
-using rn::cp_async_commit;
-using rn::cp_async_wait;
-
-// Pixel p of [p_begin, p_end) as tap (ky, kx) reads it: the source pixel,
-// and whether p is in the chunk and the source inside the image.
-__device__ __forceinline__ bool tap_source(const Geom& g, int p, int p_end, int ky, int kx,
-                                           long long& src) {
-  if (p >= p_end) return false;
-  const int hw = p / g.B;
-  const int w = hw % g.W, h = hw / g.W;
-  const int hs = h + ky - 1, ws = w + kx - 1;
-  src = p + (static_cast<long long>(ky - 1) * g.W + (kx - 1)) * g.B;
-  return hs >= 0 && hs < g.H && ws >= 0 && ws < g.W;
-}
-
-// Block (n tile, (tap, c tile), chunk): its tap, first input channel,
-// first output channel and pixel range.
-struct Tile {
-  int ky, kx, c0, n0, p_begin, p_end;
-  long long out;  // offset of gw[tap][c0][n0] in the partial sums
-};
-
-__device__ __forceinline__ Tile tile_of(const Geom& g) {
-  Tile t;
-  const int ctiles = g.C / BM;
-  const int tap = blockIdx.y / ctiles;
-  t.ky = tap / 3;
-  t.kx = tap - t.ky * 3;
-  t.c0 = (blockIdx.y - tap * ctiles) * BM;
-  t.n0 = blockIdx.x * BN;
-  const int chunk = blockIdx.z;
-  t.p_begin = static_cast<int>(static_cast<long long>(g.M) * chunk / g.parts);
-  t.p_end = static_cast<int>(static_cast<long long>(g.M) * (chunk + 1) / g.parts);
-  t.out = (static_cast<long long>(chunk) * 9 * g.C + static_cast<long long>(tap) * g.C + t.c0) *
-              g.co + t.n0;
-  return t;
-}
 
 // ---------------------------------------------------------------------------
 // bf16: persistent wgmma GEMM fed by TMA
@@ -311,86 +283,224 @@ int launch_wgmma(const void* x, const void* gz, float* dst, const Geom& g, int g
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA-core FMAs
+// fp32: the same persistent GEMM on the TF32 tensor cores, three passes
 // ---------------------------------------------------------------------------
-namespace f32 {
-constexpr int BK = 16, STAGES = 3, LD = 128 + 4;
-constexpr int STAGE = BK * LD;
-constexpr int SMEM = STAGES * 2 * STAGE * 4;
-}  // namespace f32
+namespace tf {
+constexpr int BKP = 32;             // pixels per stage: one 128-byte row of fp32
+constexpr int BOX = 64 * BKP * 4;   // one 64-channel x 32-pixel box, 8 KB
+constexpr int A_BYTES = 4 * BOX;    // the two row blocks' hi and lo boxes
+template <int TN>
+struct Cfg {
+  static constexpr int STAGE_BYTES = A_BYTES + 2 * (TN / 64) * BOX;
+  static constexpr int STAGES = TN == 256 ? 2 : 3;  // 192 KB of ring either way
+  static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
+  static_assert(STAGE_BYTES % 1024 == 0, "swizzled boxes start on 1024-byte boundaries");
+};
+}  // namespace tf
 
-__global__ void __launch_bounds__(NT, 2) wgrad_f32_kernel(const float* __restrict__ x,
-                                                          const float* __restrict__ gz,
-                                                          float* __restrict__ part, Geom g) {
-  using namespace f32;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Xs = reinterpret_cast<float*>(smem);
-  float* Gs = Xs + STAGES * STAGE;
-  const int tid = threadIdx.x;
-  const Tile tl = tile_of(g);
-  const int nsteps = (tl.p_end - tl.p_begin + BK - 1) / BK;
-  const int prow = tid >> 5, col = (tid & 31) * 4;
+// K5w's pre-pass: x [H][W B][C] and gz [H][W B][co] -> their TF32 splits,
+// channel-major with the batch padded to Bp (a multiple of 4): x's hi as
+// [C][H][Rp] (a row's pixel w Bp + b) and its lo after it, so [2 C][H][Rp],
+// then gz's as [2 co][H][Rp]; zeros at b >= B and past W Bp (Rp, a
+// multiple of 32). Block rows blockIdx.y < C / 32 take x, the others gz; a
+// block turns a 32 x 32 (pixel, channel) tile through shared memory, so
+// that reads run along the channels and writes along the pixels. A tap's
+// shift along the pixels, (kx - 1) Bp, is then a multiple of 16 bytes,
+// which a TMA box's inner coordinate must be (an illegal instruction
+// otherwise).
+__global__ void __launch_bounds__(256) tf32_split_cmajor(const float* __restrict__ x,
+                                                        const float* __restrict__ gz,
+                                                        float* __restrict__ dst, int W, int B,
+                                                        int Bp, int C, int co, int Rp) {
+  __shared__ float tile[32][33];
+  const bool is_x = static_cast<int>(blockIdx.y) < C / 32;
+  const float* __restrict__ src = is_x ? x : gz;
+  const int S = is_x ? C : co;
+  const int s0 = (is_x ? blockIdx.y : blockIdx.y - C / 32) * 32;
+  const int r0 = blockIdx.x * 32, h = blockIdx.z, H = gridDim.z;
+  if (!is_x) dst += 2LL * C * H * Rp;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int i = ty; i < 32; i += 8) {
+    const int w = (r0 + i) / Bp, b = (r0 + i) - w * Bp;
+    tile[i][tx] = w < W && b < B
+                      ? src[((static_cast<long long>(h) * W + w) * B + b) * S + s0 + tx]
+                      : 0.f;
+  }
+  __syncthreads();
+  const long long plane = static_cast<long long>(S) * H * Rp;
+  for (int i = ty; i < 32; i += 8) {
+    uint32_t hi, lo;
+    rn::tf32_split(tile[tx][i], hi, lo);
+    const long long o = (static_cast<long long>(s0 + i) * H + h) * Rp + r0 + tx;
+    dst[o] = __uint_as_float(hi);
+    dst[plane + o] = __uint_as_float(lo);
+  }
+}
 
-  auto load = [&](int t, int st) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = prow + 8 * i;
-      const int p = tl.p_begin + t * BK + r;
-      long long src = 0;
-      const bool in = tap_source(g, p, tl.p_end, tl.ky, tl.kx, src);
-      cp_async16(Xs + st * STAGE + r * LD + col, in ? x + src * g.C + tl.c0 + col : x,
-                 in ? 16 : 0);
-      const bool gin = p < tl.p_end;
-      cp_async16(Gs + st * STAGE + r * LD + col,
-                 gin ? gz + static_cast<long long>(p) * g.co + tl.n0 + col : gz, gin ? 16 : 0);
+// As wgrad_wgmma_kernel, on the TF32 split planes, channel-major: x as a
+// map [2 C][H][Rp] (hi, then lo from channel C) and gz as [2 co][H][Rp], a
+// row's pixels w Bp + b, boxes of 32 pixels x 1 row x 64 channels (an odd
+// row pair's partner, at channels past C, reads lo values or zeros and
+// stores nothing). Both operands are then
+// K-major (pixels along the 128-byte rows, TF32 wgmma has no transpose
+// mode); tap (ky, kx) reads x's boxes at (m0 + (kx - 1) Bp, h + ky - 1,
+// c0), so the zeros outside [0, W Bp) x [0, H) (TMA's fill, and the
+// pre-pass's padding) are still the SAME halo, and padded pixels meet
+// zero cotangents. A stage is 32 pixels: the CTA's two
+// row blocks in both planes and the BN cotangent rows in both planes (CTA
+// rank r of the pair loads plane r into both). Per stage and k8 slice
+// three wgmma.m64nBNk8 TF32, hi.hi + hi.lo + lo.hi. Chains of at most
+// `chain` steps, stored and added as in bf16.
+template <int TN>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(wg::THREADS, 1)
+    wgrad_tf32_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap gmap, float* __restrict__ dst, Geom g,
+                      int chain) {
+  using Cf = tf::Cfg<TN>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t ring = (rn::smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = ring + Cf::STAGES * Cf::STAGE_BYTES;  // full[s]: full + 8 s
+  const uint32_t empty = full + 8 * Cf::STAGES;               // empty[s]: empty + 8 s
+  const int bp = (g.B + 3) / 4 * 4;
+  const int steps_per_row = (g.W * bp + tf::BKP - 1) / tf::BKP;
+  const int steps = g.H * steps_per_row;
+  const int rpairs = 9 * g.C / 128, ntiles_n = g.co / TN;
+  const int nitems = g.parts * ((rpairs + 1) / 2) * ntiles_n;
+  const int cluster = blockIdx.x / 2, nclusters = gridDim.x / 2;
+  const uint32_t rank = rn::cluster_rank();
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cf::STAGES; ++s) {
+      rn::mbar_init(full + 8 * s, 1);
+      rn::mbar_init(empty + 8 * s, wg::RELEASES);
     }
-  };
-
-  // thread (ty, tx): input channels 4 ty + 64 i + q, output channels 4 tx + 64 j + q
-  const int ty = tid >> 4, tx = tid & 15;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsteps) load(s, s);
-    cp_async_commit();
+    rn::fence_mbar_init();
   }
-  for (int t = 0; t < nsteps; ++t) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    if (t + STAGES - 1 < nsteps) load(t + STAGES - 1, (t + STAGES - 1) % STAGES);
-    cp_async_commit();
-    const float* a = Xs + (t % STAGES) * STAGE;
-    const float* b = Gs + (t % STAGES) * STAGE;
+  rn::cluster_sync();
+
+  if (warp == 8) {  // producer: one thread keeps the ring full
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (int q = cluster; q < nitems; q += nclusters) {
+        const Item itm = item_of(q, rank, rpairs, ntiles_n, TN, g.parts, steps);
+        int tap[2], c0[2];
+        row_block(2 * itm.rp, tap[0], c0[0]);
+        row_block(2 * itm.rp + 1, tap[1], c0[1]);
+        for (int s = itm.s_begin; s < itm.s_end; ++s, ++it) {
+          const int h = s / steps_per_row, m0 = (s - h * steps_per_row) * tf::BKP;
+          const uint32_t slot = it % Cf::STAGES;
+          if (it >= Cf::STAGES) rn::mbar_wait(empty + 8 * slot, ((it / Cf::STAGES) - 1) & 1);
+          const uint32_t st = ring + slot * Cf::STAGE_BYTES, bar = full + 8 * slot;
+          rn::mbar_expect_tx(bar, Cf::STAGE_BYTES);
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(a + k * LD + ty * 4);
-      const float4 a1 = *reinterpret_cast<const float4*>(a + k * LD + ty * 4 + 64);
-      const float4 b0 = *reinterpret_cast<const float4*>(b + k * LD + tx * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(b + k * LD + tx * 4 + 64);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+          for (int r = 0; r < 2; ++r) {
+            const int ky = tap[r] / 3, kx = tap[r] - 3 * ky;
+            const int m = m0 + (kx - 1) * bp, hs = h + ky - 1;
+            rn::tma_load_3d(st + r * tf::BOX, &xmap, m, hs, c0[r], bar);
+            rn::tma_load_3d(st + (2 + r) * tf::BOX, &xmap, m, hs, g.C + c0[r], bar);
+          }
+          // this CTA's plane of the cotangent boxes, into both CTAs of the pair
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+          for (int b = 0; b < TN / 64; ++b)
+            rn::tma_load_3d_multicast(st + tf::A_BYTES + (rank * (TN / 64) + b) * tf::BOX, &gmap,
+                                      m0, h, rank * g.co + itm.n0 + 64 * b, bar, 3);
+        }
+      }
+      for (int d = 0; d < Cf::STAGES; ++d, ++it)
+        if (it >= Cf::STAGES)
+          rn::mbar_wait(empty + 8 * (it % Cf::STAGES), ((it / Cf::STAGES) - 1) & 1);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wgi owns row block 2 rp + wgi of each item
+  const int wgi = warp / 4;
+  const uint32_t lane = threadIdx.x % 32;
+  const int row = (warp % 4) * 16 + static_cast<int>(lane) / 4;
+  const uint32_t peer_empty = rn::cluster_address(empty, rank ^ 1);
+  float acc[TN / 2];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  for (int i = 0; i < TN / 2; ++i) acc[i] = 0.f;
+  int it = 0;
+  for (int q = cluster; q < nitems; q += nclusters) {
+    const Item itm = item_of(q, rank, rpairs, ntiles_n, TN, g.parts, steps);
+    int tap, c0;
+    row_block(2 * itm.rp + wgi, tap, c0);
+    float* out = dst + static_cast<long long>(itm.p) * 9 * g.C * g.co +
+                 (static_cast<long long>(tap) * g.C + c0 + row) * g.co + itm.n0 +
+                 2 * static_cast<int>(lane % 4);
+    const int len = itm.s_end - itm.s_begin;
+    const int nchains = (len + chain - 1) / chain;
+    for (int ch = 0; ch < nchains; ++ch) {
+      const int nk = itm.s_begin + len * (ch + 1) / nchains - (itm.s_begin + len * ch / nchains);
+      for (int k = 0; k < nk; ++k, ++it) {
+        const uint32_t slot = it % Cf::STAGES;
+        rn::mbar_wait(full + 8 * slot, (it / Cf::STAGES) & 1);
+        const uint32_t st = ring + slot * Cf::STAGE_BYTES;
+        const uint64_t ah = rn::sw128_desc(st + wgi * tf::BOX);
+        const uint64_t al = rn::sw128_desc(st + (2 + wgi) * tf::BOX);
+        const uint64_t bh = rn::sw128_desc(st + tf::A_BYTES);
+        const uint64_t bl = rn::sw128_desc(st + tf::A_BYTES + (TN / 64) * tf::BOX);
+        rn::wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < tf::BKP / 8; ++j)
+          rn::wgmma_tf32x3<TN>(acc, ah + 2 * j, al + 2 * j, bh + 2 * j, bl + 2 * j, k | j);
+        rn::wgmma_commit();
+        rn::wgmma_wait<1>();  // stage it - 1's group has retired: release its slot
+        if (k > 0) {
+          const uint32_t off = 8 * ((it - 1) % Cf::STAGES);
+          rn::mbar_arrive_pair_lane0(empty + off, peer_empty + off, lane);
+        }
+      }
+      rn::wgmma_wait<0>();
+      const uint32_t off = 8 * ((it - 1) % Cf::STAGES);
+      rn::mbar_arrive_pair_lane0(empty + off, peer_empty + off, lane);
+      rn::fence_regs(acc);
+      if (itm.rp >= rpairs) continue;  // the odd row pair's partner
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j) {
+          float* o = out + 8LL * half * g.co + 8 * j;
+          const float v0 = acc[4 * j + 2 * half], v1 = acc[4 * j + 2 * half + 1];
+          if (ch == 0) {
+            *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+          } else {
+            rn::red_add(o, v0);
+            rn::red_add(o + 1, v1);
+          }
+        }
     }
   }
-  cp_async_wait<0>();
+}
 
-  float* dst = part + tl.out;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int c = ty * 4 + 64 * (i / 4) + (i % 4);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      *reinterpret_cast<float4*>(dst + static_cast<long long>(c) * g.co + tx * 4 + 64 * j) =
-          make_float4(acc[i][4 * j], acc[i][4 * j + 1], acc[i][4 * j + 2], acc[i][4 * j + 3]);
-  }
+// The fp32 form: x and gz split into channel-major TF32 planes in `split`
+// (x's [2 C][H][Rp], then gz's [2 co][H][Rp]; Bp = B rounded up to 4, Rp =
+// W Bp rounded up to 32), then the GEMM on their maps (boxes of 32 pixels
+// x 1 row x 64 channels, 128-byte swizzle, zeros past every edge).
+template <int TN>
+int launch_tf32(const float* x, const float* gz, float* split, float* dst, const Geom& g,
+                int grid, int chain, cudaStream_t s) {
+  using Cf = tf::Cfg<TN>;
+  const int bp = (g.B + 3) / 4 * 4, rp = (g.W * bp + 31) / 32 * 32;
+  tf32_split_cmajor<<<dim3(rp / 32, (g.C + g.co) / 32, g.H), 256, 0, s>>>(x, gz, split, g.W, g.B,
+                                                                          bp, g.C, g.co, rp);
+  const long long xdims[3] = {rp, g.H, 2 * g.C}, gdims[3] = {rp, g.H, 2 * g.co};
+  const long long str[2] = {4LL * rp, 4LL * rp * g.H};
+  const int box[3] = {tf::BKP, 1, 64};
+  CUtensorMap xmap, gmap;
+  if (!rn::make_f32_map(&xmap, split, 3, xdims, str, box) ||
+      !rn::make_f32_map(&gmap, split + 2LL * g.C * g.H * rp, 3, gdims, str, box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = cudaFuncSetAttribute(
+      wgrad_tf32_kernel<TN>, cudaFuncAttributeMaxDynamicSharedMemorySize, Cf::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const int pairs = rn::max_active_pairs(wgrad_tf32_kernel<TN>, wg::THREADS, Cf::SMEM);
+  if (pairs < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  grid = grid < 2 * pairs ? grid : 2 * pairs;
+  wgrad_tf32_kernel<TN><<<grid, wg::THREADS, Cf::SMEM, s>>>(xmap, gmap, dst, g, chain);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // out[i] = sum over chunks, in chunk order, of part[chunk][i].
@@ -408,31 +518,32 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ part, float* __res
 // x [H, W, B, C], gz [H, W, B, co] (one storage type, 16-byte aligned);
 // part: the workspace of parts * 9 * C * co floats (unused with one part);
 // out [3, 3, C, co] fp32. C % 128 == 0, co % 128 == 0. parts and grid come
-// from cuda_conv2d.wgrad_plan: bf16, the pixel parts (at most the H *
-// ceil(W B / 64) steps) and the persistent CTAs, an even count (2 per
-// cluster), cut to the clusters the card can hold at once; fp32, the pixel
-// chunks (the grid is one block per (tap, 128 x 128 tile, chunk), and
-// `grid` is ignored).
-extern "C" int rn_conv2d_wgrad(const void* x, const void* gz, void* part, void* out, int dtype,
-                               int H, int W, int B, int C, int co, int parts, int grid,
-                               void* stream) {
+// from cuda_conv2d.wgrad_plan: the pixel parts (at most the H * ceil(W B /
+// 64) steps in bf16, H * ceil(W Bp / 32) in fp32) and the persistent CTAs, an
+// even count (2 per cluster), cut to the clusters the card can hold at
+// once. fp32: split, the scratch of the TF32 planes (2 (C + co) H Rp
+// floats: launch_tf32), and chain, the most steps of an
+// accumulator chain (bf16's is wg::MAX_CHAIN_STEPS).
+extern "C" int rn_conv2d_wgrad(const void* x, const void* gz, void* part, void* out, void* split,
+                               int dtype, int H, int W, int B, int C, int co, int parts, int grid,
+                               int chain, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long M = static_cast<long long>(H) * W * B;
-  const long long steps = H * ((static_cast<long long>(W) * B + wg::BKP - 1) / wg::BKP);
-  if (C <= 0 || C % BM || co <= 0 || co % BN || M <= 0 || M >= (1LL << 31) ||
-      9LL * (C / BM) > 65535 || parts < 1 || parts > 65535 ||
-      (dtype != 0 && (parts > steps || grid < 2 || grid % 2)))
+  const long long steps = dtype == 0 ? H * ((W * ((B + 3LL) / 4 * 4) + tf::BKP - 1) / tf::BKP)
+                                     : H * ((static_cast<long long>(W) * B + wg::BKP - 1) / wg::BKP);
+  if (C <= 0 || C % 128 || co <= 0 || co % 128 || M <= 0 || M >= (1LL << 31) || parts < 1 ||
+      parts > steps || grid < 2 || grid % 2 || H > 65535 ||
+      (dtype == 0 && (!split || chain < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   const Geom g{H, W, B, C, co, static_cast<int>(M), parts};
   float* dst = static_cast<float*>(parts > 1 ? part : out);
   cudaError_t err;
   if (dtype == 0) {
-    err = cudaFuncSetAttribute(wgrad_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               f32::SMEM);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    wgrad_f32_kernel<<<dim3(co / BN, 9 * (C / BM), parts), NT, f32::SMEM, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(gz), dst, g);
-    err = cudaGetLastError();
+    const float *xf = static_cast<const float*>(x), *gf = static_cast<const float*>(gz);
+    float* sf = static_cast<float*>(split);
+    err = static_cast<cudaError_t>(co % 256 == 0
+                                       ? launch_tf32<256>(xf, gf, sf, dst, g, grid, chain, s)
+                                       : launch_tf32<128>(xf, gf, sf, dst, g, grid, chain, s));
   } else {
     err = static_cast<cudaError_t>(co % 256 == 0 ? launch_wgmma<256>(x, gz, dst, g, grid, s)
                                                  : launch_wgmma<128>(x, gz, dst, g, grid, s));

@@ -28,11 +28,16 @@ decides which convs take this route, so both packages route the same convs
 pick their own tiles and need only C % 32 == 0 and co % 128 == 0 (K5) or
 C % 128 == 0 (K5w).
 
-The bf16 kernels are persistent (one CTA per SM, in clusters of two that
-share one operand's loads); their schedules are planned here and tested on
-the CPU (``tests/test_torch_conv2d_layout.py``): :func:`conv2d_plan` and
-:func:`conv2d_tile` for K5's output tiles (128 pixels of one image row by
-128 or 256 output channels), :func:`wgrad_plan`, :func:`wgrad_item`,
+Both kernels are persistent wgmma GEMMs fed by TMA (one CTA per SM, in
+clusters of two that share one operand's loads), in bf16 and in fp32, where
+every product runs on the TF32 tensor cores as three passes (hi.hi + hi.lo
++ lo.hi of each operand's split hi = tf32(a), lo = tf32(a - hi), written by
+a pre-pass into scratch planes: :func:`split_floats`). Their schedules are
+planned here and tested on the CPU (``tests/test_torch_conv2d_layout.py``,
+the fp32 forms' arithmetic in ``tests/test_torch_tf32_split.py``):
+:func:`conv2d_plan`, :func:`conv2d_tile` and :func:`conv2d_chains` for K5's
+output tiles (128 pixels of one image row by 128 or 256 output channels)
+and fp32 accumulator chains, :func:`wgrad_plan`, :func:`wgrad_item`,
 :func:`wgrad_row_block` and :func:`wgrad_chains` for K5w's work items, its
 pixel parts and accumulator chains.
 """
@@ -51,6 +56,7 @@ from rendernet_tpu_torch.ops.conv_grad import flip_io
 __all__ = [
     "PRELU_SAVE_PRE",
     "conv2d_hwnc",
+    "conv2d_chains",
     "conv2d_plan",
     "conv2d_tile",
     "conv2d_hwnc_plain",
@@ -59,6 +65,7 @@ __all__ = [
     "hwnc_to_nhwc",
     "kernel_weights",
     "nhwc_to_hwnc",
+    "split_floats",
     "tile_n",
     "wc_conv2d",
     "wc_conv2d_hwnc",
@@ -66,10 +73,12 @@ __all__ = [
     "wc_conv2d_relu_hwnc",
     "wc_conv2d_res_hwnc",
     "wc_conv2d_supported",
+    "wgrad_batch_pitch",
     "wgrad_chains",
     "wgrad_item",
     "wgrad_plan",
     "wgrad_row_block",
+    "wgrad_row_pitch",
     "wgrad_steps",
 ]
 
@@ -187,132 +196,163 @@ def wc_conv2d_supported(x_shape, w_shape, stride, obufs=1) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the bf16 kernels' persistent schedules (csrc/conv2d.cu, csrc/conv2d_wgrad.cu)
+# the kernels' persistent schedules (csrc/conv2d.cu, csrc/conv2d_wgrad.cu)
 # ---------------------------------------------------------------------------
 TILE_M = 128  # K5: pixels per output tile, along one image row's W * B axis
-STEP_PIXELS = 64  # K5w: pixels per K step, along one image row
-MAX_CHAIN_STEPS = 8192 // STEP_PIXELS  # K5w: steps per fp32 accumulator chain
+TILE_N_F32 = 128  # K5 fp32: output channels per tile (accumulators and their chains' total)
+STEP_PIXELS = 64  # K5w bf16: pixels per K step, along one image row
+STEP_PIXELS_F32 = 32  # K5w fp32: one 128-byte row of fp32 pixels
+MAX_CHAIN_STEPS = 8192 // STEP_PIXELS  # K5w bf16: steps per fp32 accumulator chain
+# The fp32 forms' accumulator chains on the TF32 tensor cores, whose fp32
+# sums lose precision along a chain: K5's restart every CHAIN_STAGES_F32
+# stages of 32 channels of one tap (the chains summed in fp32 beside the
+# accumulators), K5w's every MAX_CHAIN_STEPS_F32 steps of 32 pixels (added
+# into the partial in memory). Lengths from chip_smoke.py's ``chains``
+# sweep of error and time against chain length.
+CHAIN_STAGES_F32 = 1
+MAX_CHAIN_STEPS_F32 = 1024 // STEP_PIXELS_F32
 MAX_PART_BYTES = 512 << 20  # K5w's workspace of partial sums, at most
-# One CTA's K step on a 132-SM H100 at the bf16 peak (989 TFLOP/s): the
-# cost model that sizes K5w's parts, in microseconds per output column.
+# One CTA's K step on a 132-SM H100 at the bf16 peak (989 TFLOP/s), and at
+# three TF32 passes (495 TFLOP/s) in fp32: the cost model that sizes K5w's
+# parts, in microseconds per output column.
 _STEP_US_PER_COLUMN = 2 * 128 * 64 / (989e6 / 132)
+_STEP_US_PER_COLUMN_F32 = 3 * 2 * 128 * STEP_PIXELS_F32 / (495e6 / 132)
 _HBM_BYTES_PER_US = 3.35e6
 
 
-def tile_n(co: int) -> int:
-    """The output channels of a bf16 tile: 256 where co allows it, else
-    128."""
+def _f32(dtype) -> bool:
+    return dtype == torch.float32
+
+
+def tile_n(co: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The output channels of a K5 tile: bf16 256 where co allows it, else
+    128; fp32 TILE_N_F32. K5w's: the bf16 rule in either dtype."""
+    if _f32(dtype):
+        return TILE_N_F32
     return 256 if co % 256 == 0 else 128
 
 
-def conv2d_plan(x_shape, co: int, n_sm: int):
-    """K5's bf16 schedule for HWNC ``x_shape``: ``(grid, bn, tiles_per_row,
+def conv2d_plan(x_shape, co: int, n_sm: int, dtype: torch.dtype = torch.bfloat16):
+    """K5's schedule for HWNC ``x_shape``: ``(grid, bn, tiles_per_row,
     pairs)``. A tile is TILE_M pixels of one image row h by ``bn`` output
-    channels; a row's W * B pixels take ``tiles_per_row`` tiles, the last
-    one masked on store. CTAs come in clusters of two that take tile pairs
-    (two pixel tiles, one output tile: they share the weight boxes), one
-    CTA per SM, never more pairs than there are: cluster k takes pairs k,
-    k + grid / 2, ... (the kernel cuts the grid further to the clusters the
-    card can hold at once)."""
+    channels (:func:`tile_n`); a row's W * B pixels take ``tiles_per_row``
+    tiles, the last one masked on store. CTAs come in clusters of two that
+    take tile pairs (two pixel tiles, one output tile: they share the weight
+    boxes), one CTA per SM, never more pairs than there are: cluster k takes
+    pairs k, k + grid / 2, ... (the kernel cuts the grid further to the
+    clusters the card can hold at once)."""
     h, w, b, _ = x_shape
-    bn = tile_n(co)
+    bn = tile_n(co, dtype)
     tiles_per_row = -(-(w * b) // TILE_M)
     pairs = -(-(h * tiles_per_row) // 2) * (co // bn)
     return 2 * min(pairs, max(n_sm // 2, 1)), bn, tiles_per_row, pairs
 
 
-def conv2d_tile(q: int, rank: int, x_shape, co: int):
+def conv2d_tile(q: int, rank: int, x_shape, co: int, dtype: torch.dtype = torch.bfloat16):
     """Tile pair q of :func:`conv2d_plan` as CTA ``rank`` (0 or 1) of a
     cluster takes it, as the kernel decodes it (``tile_of``): ``(h, m0,
     n0)``, the image row, its first pixel along W * B and the first output
     channel. The pair's pixel tiles are 2 (q // (co / bn)) + rank; the co /
     bn pairs of one pixel-tile pair are adjacent. Past the last pixel tile
     (an odd count) h is H: a tile of nothing."""
-    _, bn, tiles_per_row, _ = conv2d_plan(x_shape, co, 2)
+    _, bn, tiles_per_row, _ = conv2d_plan(x_shape, co, 2, dtype)
     mp, nt = divmod(q, co // bn)
     h, mt = divmod(2 * mp + rank, tiles_per_row)
     return h, mt * TILE_M, nt * bn
 
 
+def conv2d_chains(c: int, chain: int | None = None):
+    """K5 fp32's accumulator chains over one tile's stages (tap, 32-channel
+    chunk), ``9 * C / 32`` of them: ``[(first stage, end stage), ...]`` of
+    ``chain`` (CHAIN_STAGES_F32) stages each, the last one shorter where
+    they do not divide. The chains' sums are added in this order."""
+    chain = CHAIN_STAGES_F32 if chain is None else chain
+    nk = 9 * (c // 32)
+    return [(k0, min(k0 + chain, nk)) for k0 in range(0, nk, chain)]
+
+
 def kernel_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The weights as K5 reads them: ``[3, 3, C, co]`` (JAX's HWIO) in
-    ``dtype`` as a contiguous, 16-byte aligned ``[9, C, co]``, taps in (ky,
-    kx) order; the kernel's tensor map cuts it into boxes of 64 output x 64
-    input channels of one tap. A copy only where ``w`` is a strided view
-    (the data gradient's flipped, io-swapped weights) or of another
-    dtype."""
-    return _native.aligned(w.to(dtype)).reshape(9, w.shape[2], w.shape[3])
+    """The weights as K5 reads them, from ``[3, 3, C, co]`` (JAX's HWIO),
+    contiguous, 16-byte aligned, taps in (ky, kx) order: bf16 ``[9, C,
+    co]``, the MN-major operand (the kernel's tensor map cuts it into boxes
+    of 64 output x 64 input channels of one tap); fp32 K-major ``[9, co,
+    C]`` (C contiguous; TF32 wgmma has no transpose mode), which the kernel
+    splits into TF32 hi and lo planes and cuts into boxes of 32 input x 128
+    output channels. A copy only where ``w`` is a strided view or of another
+    dtype (the data gradient's flipped, io-swapped weights: in fp32 the
+    K-major form of those is the flip itself)."""
+    w9 = w.to(dtype).flatten(0, 1)
+    if _f32(dtype):
+        w9 = w9.transpose(1, 2)
+    return _native.aligned(w9)
 
 
-def wgrad_steps(x_shape) -> int:
-    """K5w's K steps over the whole image: STEP_PIXELS pixels of one row each,
-    a row's last step masked."""
+def wgrad_batch_pitch(b: int, dtype: torch.dtype = torch.bfloat16) -> int:
+    """The batch as K5w lays out a row's pixels (w * pitch + b): bf16 B;
+    fp32 B rounded up to 4, so that a tap's shift along the pixels, (kx -
+    1) * pitch fp32 values, falls on 16 bytes, as a TMA box's inner
+    coordinate must (the padded pixels are zeros)."""
+    return -(-b // 4) * 4 if _f32(dtype) else b
+
+
+def wgrad_steps(x_shape, dtype: torch.dtype = torch.bfloat16) -> int:
+    """K5w's K steps over the whole image: STEP_PIXELS (bf16) or
+    STEP_PIXELS_F32 pixels of one row (``W * wgrad_batch_pitch(B)``
+    pixels) each, a row's last step masked."""
     h, w, b, _ = x_shape
-    return h * -(-(w * b) // STEP_PIXELS)
-
-
-def _wgrad_chunks_fp32(x_shape, co: int) -> int:
-    """The fp32 kernel's pixel chunks: enough for ~4 blocks on each of 132
-    SMs over its (tap, 128 x 128) tiles, at least 1,024 and at most 8,192
-    pixels each, within MAX_PART_BYTES of partial sums."""
-    h, w, b, c = x_shape
-    m = h * w * b
-    tiles = 9 * (c // 128) * (co // 128)
-    n = min(-(-132 * 4 // tiles), m // 1024)
-    n = max(n, -(-m // 8192))
-    n = min(n, MAX_PART_BYTES // (9 * c * co * 4), 65535)
-    return max(n, 1)
+    step = STEP_PIXELS_F32 if _f32(dtype) else STEP_PIXELS
+    return h * -(-(w * wgrad_batch_pitch(b, dtype)) // step)
 
 
 @functools.lru_cache(maxsize=256)
 def wgrad_plan(dtype: torch.dtype, x_shape, co: int, n_sm: int):
     """K5w's ``(parts, grid)``: the pixel parts whose fp32 partial sums are
     added in part order (a workspace of ``parts * 9 * C * co`` floats when
-    ``parts > 1``), and the bf16 kernel's persistent CTAs.
+    ``parts > 1``), and the persistent CTAs.
 
-    bf16: a work item is (part, pair of row pairs, output tile), parts
-    outermost, taken by a cluster of two CTAs (one row pair each, sharing
-    the cotangent boxes); there are ``pairs = ceil(9 C / 256) * co / bn``
-    of them per part, and part p takes steps ``[S p / parts, S (p + 1) /
+    A work item is (part, pair of row pairs, output tile), parts outermost,
+    taken by a cluster of two CTAs (one row pair each, sharing the
+    cotangent boxes); there are ``pairs = ceil(9 C / 256) * co / bn`` of
+    them per part, and part p takes steps ``[S p / parts, S (p + 1) /
     parts)`` of the S = :func:`wgrad_steps`. ``parts`` minimises a cost
-    model on ``n_sm / 2`` clusters: waves of items x steps per item, plus
-    the reduction's bytes (the partials read once, the result written
-    once). fp32: :func:`_wgrad_chunks_fp32` and one block per (tap, 128 x
-    128 tile, chunk)."""
-    h, w, b, c = x_shape
-    if dtype != torch.bfloat16:
-        parts = _wgrad_chunks_fp32(x_shape, co)
-        return parts, 9 * (c // 128) * (co // 128) * parts
+    model on ``n_sm / 2`` clusters: waves of items x steps per item (a bf16
+    step at the bf16 peak, an fp32 one as three TF32 passes), plus the
+    partials' bytes: read once and the result written once (bf16, the
+    model its plans, and so its summation order, were set with), and in
+    fp32 also the partials' writes, which keep a tiny image in one part."""
+    c = x_shape[3]
     bn = tile_n(co)
     pairs = -(-(9 * c // 128) // 2) * (co // bn)
     clusters = max(n_sm // 2, 1)
-    steps = wgrad_steps(x_shape)
+    steps = wgrad_steps(x_shape, dtype)
+    step_us = _STEP_US_PER_COLUMN_F32 if _f32(dtype) else _STEP_US_PER_COLUMN
     ws = 9 * c * co * 4
     best = None
     for parts in range(1, min(steps, 64) + 1):
         if parts > 1 and parts * ws > MAX_PART_BYTES:
             break
-        cost = -(-pairs * parts // clusters) * -(-steps // parts) * _STEP_US_PER_COLUMN * bn
+        cost = -(-pairs * parts // clusters) * -(-steps // parts) * step_us * bn
         if parts > 1:
-            cost += (parts + 1) * ws / _HBM_BYTES_PER_US
+            cost += ((2 if _f32(dtype) else 1) * parts + 1) * ws / _HBM_BYTES_PER_US
         if best is None or cost < best[0]:
             best = (cost, parts)
     parts = best[1]
     return parts, 2 * min(pairs * parts, clusters)
 
 
-def wgrad_item(q: int, rank: int, x_shape, co: int, parts: int):
+def wgrad_item(q: int, rank: int, x_shape, co: int, parts: int,
+               dtype: torch.dtype = torch.bfloat16):
     """K5w's work item q as CTA ``rank`` (0 or 1) of a cluster takes it, as
     the kernel decodes it (``item_of``): ``(part, row pair, n0, first step,
     end step)``. The row pair is 2 (pair index) + rank; past the last row
     pair (an odd count, 9 C / 128) it is a pair of nothing, whose channels
     lie past C."""
-    h, w, b, c = x_shape
+    c = x_shape[3]
     bn = tile_n(co)
     per_part = -(-(9 * c // 128) // 2) * (co // bn)
     p, r = divmod(q, per_part)
     rpp, nt = divmod(r, co // bn)
-    steps = wgrad_steps(x_shape)
+    steps = wgrad_steps(x_shape, dtype)
     return p, 2 * rpp + rank, nt * bn, steps * p // parts, steps * (p + 1) // parts
 
 
@@ -323,13 +363,32 @@ def wgrad_row_block(rb: int):
     return rb % 9, rb // 9 * 64
 
 
-def wgrad_chains(s_begin: int, s_end: int):
+def wgrad_chains(s_begin: int, s_end: int, dtype: torch.dtype = torch.bfloat16):
     """The accumulator chains of one K5w work item: ``[(begin, end), ...]``,
-    as equal as can be and at most MAX_CHAIN_STEPS steps each. The first
-    chain's sums are stored, each later chain's added to them in order."""
+    as equal as can be and at most MAX_CHAIN_STEPS (bf16, 8,192 pixels) or
+    MAX_CHAIN_STEPS_F32 steps each. The first chain's sums are stored, each
+    later chain's added to them in order."""
     n = s_end - s_begin
-    k = -(-n // MAX_CHAIN_STEPS)
+    k = -(-n // (MAX_CHAIN_STEPS_F32 if _f32(dtype) else MAX_CHAIN_STEPS))
     return [(s_begin + n * i // k, s_begin + n * (i + 1) // k) for i in range(k)]
+
+
+def split_floats(x_shape, co: int, op: str) -> int:
+    """The fp32 forms' scratch of TF32 hi / lo planes, in floats: K5
+    (``op`` "conv2d") x's [2][H W B][C] and the weights' [2][9][co][C]; K5w
+    ("wgrad") x's and gz's channel-major [2][C + co][H][Rp]
+    (:func:`wgrad_row_pitch`)."""
+    h, w, b, c = x_shape
+    if op == "conv2d":
+        return 2 * (h * w * b * c + 9 * co * c)
+    return 2 * (c + co) * h * wgrad_row_pitch(x_shape)
+
+
+def wgrad_row_pitch(x_shape) -> int:
+    """K5w fp32's channel-major planes' row length: ``W * Bp``
+    (:func:`wgrad_batch_pitch`) rounded up to a whole 32-pixel step (the
+    pre-pass writes zeros past W * Bp, read as the SAME halo)."""
+    return -(-(x_shape[1] * wgrad_batch_pitch(x_shape[2], torch.float32)) // 32) * 32
 
 
 # ---------------------------------------------------------------------------
@@ -439,12 +498,16 @@ def conv2d_hwnc(xh, w, bias=None, alpha=None, res=None, act="none", emit_pre=Fal
     r = None if res is None else _native.aligned(res.to(x.dtype))
     y = torch.empty((h, wd, b, co), dtype=x.dtype, device=x.device)
     z = torch.empty_like(y) if emit_pre else None
-    grid = conv2d_plan(x.shape, co, _native.sm_count(x.device.index))[0]
+    f32 = _f32(x.dtype)
+    split = torch.empty(split_floats(x.shape, co, "conv2d") if f32 else 0, dtype=torch.float32,
+                        device=x.device)
+    grid = conv2d_plan(x.shape, co, _native.sm_count(x.device.index), x.dtype)[0]
     lib = _native.load("conv2d")
-    lib.rn_conv2d.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.rn_conv2d.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     rc = lib.rn_conv2d(x.data_ptr(), w9.data_ptr(), _ptr(vec[0]), _ptr(vec[1]), _ptr(r),
-                       y.data_ptr(), _ptr(z), _native.dtype_code(x.dtype), _ACTS[act],
-                       h, wd, b, c, co, grid, _native.stream_ptr(x))
+                       y.data_ptr(), _ptr(z), split.data_ptr() if f32 else None,
+                       _native.dtype_code(x.dtype), _ACTS[act], h, wd, b, c, co, grid,
+                       CHAIN_STAGES_F32, _native.stream_ptr(x))
     _native.check(lib, rc, "K5 conv2d")
     global launches
     launches += 1
@@ -472,11 +535,15 @@ def conv2d_wgrad(xh: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
     parts, grid = wgrad_plan(x.dtype, x.shape, co, _native.sm_count(x.device.index))
     part = torch.empty(parts * 9 * c * co if parts > 1 else 0, dtype=torch.float32,
                        device=x.device)
+    f32 = _f32(x.dtype)
+    split = torch.empty(split_floats(x.shape, co, "wgrad") if f32 else 0, dtype=torch.float32,
+                        device=x.device)
     out = torch.empty((3, 3, c, co), dtype=torch.float32, device=x.device)
     lib = _native.load("conv2d_wgrad")
-    lib.rn_conv2d_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.rn_conv2d_wgrad.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     rc = lib.rn_conv2d_wgrad(x.data_ptr(), g.data_ptr(), part.data_ptr(), out.data_ptr(),
-                             _native.dtype_code(x.dtype), h, wd, b, c, co, parts, grid,
+                             split.data_ptr() if f32 else None, _native.dtype_code(x.dtype), h,
+                             wd, b, c, co, parts, grid, MAX_CHAIN_STEPS_F32,
                              _native.stream_ptr(x))
     _native.check(lib, rc, "K5w conv2d weight gradient")
     global wgrad_launches

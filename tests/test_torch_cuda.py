@@ -341,6 +341,52 @@ def test_conv2d_wgrad_kernel(cuda, dtype, shape, co):
     _close(got, cuda_conv2d.conv2d_wgrad_plain(x, gz), torch.float32)
 
 
+# The fp32 forms' edges (TF32 wgmma on split planes): K5 with W * B not a
+# multiple of the 128-pixel tile, C % 64 == 32 (C = 96, 160: whole
+# 32-channel stages), co % 256 != 0 (three 128-channel tiles), its data
+# gradient (flipped weights, K-major as they lie); K5w with a ragged last
+# 32-pixel step (W * Bp = 36, 104, 200), batches padded to a multiple of 4
+# (3 -> 4) and not (8), 384 output channels (128-wide tiles), and one part
+# of several chains of one step each.
+K5_F32_EDGES = [((3, 50, 3, 96), 384), ((4, 33, 5, 160), 128), ((6, 20, 7, 256), 384)]
+K5W_F32_EDGES = [((5, 9, 3, 128), 256), ((4, 13, 8, 128), 128), ((3, 50, 3, 256), 384)]
+
+
+@pytest.mark.parametrize("epilogue", ["none", "prelu+pre", "res"])
+@pytest.mark.parametrize("shape,co", K5_F32_EDGES)
+def test_conv2d_fp32_edges(cuda, epilogue, shape, co):
+    """K5 fp32 at the TF32 kernel's edges against its plain version (1e-4
+    of max|y|), and, where C % 128 == 0 (the data gradient's output
+    channels), its data gradient's form (flipped, io-swapped weights)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x, w, kw = _k5_args(g, cuda, torch.float32, shape, co, epilogue)
+    got = cuda_conv2d.conv2d_hwnc(x, w, **kw)
+    want = cuda_conv2d.conv2d_hwnc_plain(x, w, **kw)
+    for a, b in zip(*((t,) if torch.is_tensor(t) else t for t in (got, want))):
+        _close(a, b, torch.float32)
+    if shape[-1] % 128 == 0:
+        gz = torch.randn(*shape[:3], co, generator=g, device=cuda)
+        wf = torch.flip(w, (0, 1)).transpose(2, 3)
+        _close(cuda_conv2d.conv2d_hwnc(gz, wf), cuda_conv2d.conv2d_hwnc_plain(gz, wf),
+               torch.float32)
+
+
+@pytest.mark.parametrize("chain", [None, 1])
+@pytest.mark.parametrize("shape,co", K5W_F32_EDGES)
+def test_conv2d_wgrad_fp32_edges(cuda, shape, co, chain, monkeypatch):
+    """K5w fp32 at the TF32 kernel's edges against its plain version (1e-4
+    of max|gw|), with its own chains and with chains of one step; run twice
+    for the same bits."""
+    if chain is not None:
+        monkeypatch.setattr(cuda_conv2d, "MAX_CHAIN_STEPS_F32", chain)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(*shape, generator=g, device=cuda)
+    gz = torch.randn(*shape[:3], co, generator=g, device=cuda)
+    got = cuda_conv2d.conv2d_wgrad(x, gz)
+    assert torch.equal(got, cuda_conv2d.conv2d_wgrad(x, gz))
+    _close(got, cuda_conv2d.conv2d_wgrad_plain(x, gz), torch.float32)
+
+
 def test_conv2d_wrappers_raise_outside_the_envelope(cuda):
     x = torch.zeros(4, 8, 2, 256, device=cuda)
     with pytest.raises(ValueError, match="envelope"):

@@ -1,4 +1,5 @@
-"""The arithmetic and the host side of K3's and K2's fp32 forms, on the CPU.
+"""The arithmetic and the host side of K3's, K2's, K5's and K5w's fp32
+forms, on the CPU.
 
 Both kernels run fp32 products on the TF32 tensor cores as three passes:
 each operand a is split into hi = tf32(a) (to nearest, ties away from zero,
@@ -13,7 +14,14 @@ their sums of |a| |b|, and one whole emulated conv of each kind to a tenth
 of ``chip_smoke.KERNEL_TOL["float32"]`` (1e-4 of max|y|) of the port's
 plain version and of JAX's function. K2's fp32 plan is held to covering
 every position once on its 4-wide rows, and its shared memory, from the
-kernel's compiled constants, to what a CTA may use.
+kernel's compiled constants, to what a CTA may use. K5 and K5w (the fused
+wide conv and its weight gradient) read both operands' splits from
+shared memory (a pre-pass writes them as planes) and restart their
+accumulator chains (K5 every 32-channel stage, summed in fp32; K5w every
+MAX_CHAIN_STEPS_F32 steps of 32 pixels, added into its partial): an
+emulation of each as built, chains and order included, stays within BOUND
+of each chain's sum of |a| |b| and within a tenth of KERNEL_TOL of the
+plain versions and of JAX's Pallas kernels (interpret mode).
 """
 from __future__ import annotations
 
@@ -25,8 +33,8 @@ import numpy as np
 import pytest
 import torch
 
-from rendernet_tpu.ops import pallas_conv3d, pallas_winograd
-from rendernet_tpu_torch.ops import cuda_conv3d, cuda_winograd
+from rendernet_tpu.ops import pallas_conv2d, pallas_conv3d, pallas_winograd
+from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_winograd
 from rendernet_tpu_torch.ops.winograd import _AT, input_transform, transform_weights
 
 KERNEL_TOL = 1e-4  # chip_smoke.KERNEL_TOL["float32"]: a kernel against its plain version
@@ -203,3 +211,170 @@ def test_tf32_plan_covers_every_position_once(x_shape, co):
                     b, wt = divmod(rest, -(-w_ // tw))
                     seen[sl, b, h, wt * tw:wt * tw + tw, dt * td:dt * td + td] += 1
         assert (seen == 1).all(), (x_shape, co, grid)
+
+
+# ---------------------------------------------------------------------------
+# K5 and K5w: both operands split into planes, chains restarted
+# ---------------------------------------------------------------------------
+K5_SHAPE, K5_CO = (4, 8, 2, 256), 256  # HWNC; NHWC [2, 4, 8, 256] is in JAX's envelope
+
+
+def _k5_operands():
+    rng = np.random.default_rng(9)
+    h, w, b, c = K5_SHAPE
+    return dict(x=rng.standard_normal(K5_SHAPE).astype(np.float32),
+                w=(rng.standard_normal((3, 3, c, K5_CO)) / (3 * np.sqrt(c))).astype(np.float32),
+                b=(rng.standard_normal(K5_CO) * 0.1).astype(np.float32),
+                al=rng.uniform(0.05, 0.3, K5_CO).astype(np.float32),
+                r=rng.standard_normal((h, w, b, K5_CO)).astype(np.float32),
+                gz=rng.standard_normal((h, w, b, K5_CO)).astype(np.float32))
+
+
+def _chain_sum(a, b, mags):
+    """One accumulator chain: the three-pass sum of a [M, K] @ b [K, N] in
+    float64 (the tensor cores' products are exact), held to BOUND of its
+    sum of |a| |b| (appended to ``mags`` with its error), rounded to fp32."""
+    got = _three_pass(a, b)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    mag = np.abs(a).astype(np.float64) @ np.abs(b).astype(np.float64)
+    mags.append(bool((np.abs(got - exact) <= BOUND * mag).all()))
+    return got.astype(np.float32)
+
+
+def _emulated_k5(x, w, mags):
+    """K5 fp32 as built: per tile row the stages (tap, 32-channel chunk),
+    chains of CHAIN_STAGES_F32 stages, each chain's three-pass sum rounded
+    to fp32 and the chains added in fp32 in stage order. [H, W, B, co]."""
+    h, wd, b, c = x.shape
+    co = w.shape[-1]
+    taps = [t.numpy().reshape(-1, c) for t in cuda_conv2d._taps(torch.from_numpy(x))]
+    wk = cuda_conv2d.kernel_weights(torch.from_numpy(w), torch.float32).numpy()  # [9, co, C]
+    nc = c // 32
+    tot = None
+    for k0, k1 in cuda_conv2d.conv2d_chains(c):
+        a = np.concatenate([taps[k // nc][:, k % nc * 32:k % nc * 32 + 32] for k in range(k0, k1)], 1)
+        bm = np.concatenate([wk[k // nc][:, k % nc * 32:k % nc * 32 + 32] for k in range(k0, k1)], 1)
+        part = _chain_sum(a, bm.T, mags)
+        tot = part if tot is None else tot + part
+    return tot.reshape(h, wd, b, co)
+
+
+def _epilogue(acc, d, epilogue):
+    """The kernels' epilogue in the TPU kernel's order, in fp32: + bias, z,
+    activation, + residual. Returns (y, z or None)."""
+    if epilogue == "none":
+        return acc, None
+    v = acc + d["b"]
+    z = v if epilogue == "prelu+pre" else None
+    if epilogue.startswith("prelu"):
+        v = np.where(v < 0, d["al"] * v, v)
+    elif epilogue == "relu":
+        v = np.where(v < 0, np.float32(0), v)
+    if epilogue == "res":
+        v = v + d["r"]
+    return v, z
+
+
+@pytest.mark.parametrize("epilogue", ["none", "prelu+pre", "relu", "res"])
+def test_emulated_fused_conv(epilogue):
+    """The whole fp32 K5 at [4, 8, 2, 256] -> 256, emulated (the split
+    planes, three passes, chains of CHAIN_STAGES_F32 stages) with each
+    epilogue, against ``conv2d_hwnc_plain`` and JAX's ``_wc_conv2d_padded``
+    (interpret mode): y and z within a tenth of KERNEL_TOL; every chain's
+    sum within BOUND of its sum of |a| |b|."""
+    d = _k5_operands()
+    mags = []
+    y, z = _epilogue(_emulated_k5(d["x"], d["w"], mags), d, epilogue)
+    assert mags and all(mags)
+    tkw, jkw = {}, {}
+    if epilogue != "none":
+        tkw["bias"], jkw["bias"] = torch.from_numpy(d["b"]), jnp.asarray(d["b"])
+    if epilogue.startswith("prelu"):
+        tkw.update(alpha=torch.from_numpy(d["al"]), act="prelu", emit_pre=True)
+        jkw.update(alpha=jnp.asarray(d["al"]), act="prelu", emit_pre=True)
+    if epilogue == "relu":
+        tkw["act"] = jkw["act"] = "relu"
+    if epilogue == "res":
+        tkw["res"], jkw["res"] = torch.from_numpy(d["r"]), jnp.asarray(d["r"])
+    plain = cuda_conv2d.conv2d_hwnc_plain(torch.from_numpy(d["x"]), torch.from_numpy(d["w"]), **tkw)
+    plain = [t.numpy() for t in (plain if isinstance(plain, tuple) else (plain,))]
+    obufs = 2 if jkw.get("emit_pre") or "res" in jkw else 1
+    jax_out = pallas_conv2d._wc_conv2d_padded(pallas_conv2d._pad_hw(jnp.asarray(d["x"])),
+                                              jnp.asarray(d["w"]), jnp.float32, obufs=obufs, **jkw)
+    jax_out = [np.asarray(t) for t in (jax_out if isinstance(jax_out, tuple) else (jax_out,))]
+    got = [y] + ([z] if epilogue.startswith("prelu") else [])
+    for want_set in (plain, jax_out):
+        assert len(want_set) == len(got)
+        for g, want in zip(got, want_set):
+            assert np.abs(g - want).max() <= 0.1 * KERNEL_TOL * np.abs(want).max()
+
+
+def _emulated_k5w(x, gz, mags):
+    """K5w fp32 as built: the channel-major planes (batch padded to a
+    multiple of 4), the plan's parts and items, each item's chains of at
+    most MAX_CHAIN_STEPS_F32 steps of 32 pixels (three-pass sums rounded to
+    fp32, the first stored, later ones added in fp32 in order), then the
+    parts added in part order. [3, 3, C, co] fp32."""
+    h, wd, b, c = x.shape
+    co = gz.shape[-1]
+    dt = torch.float32
+    bp, rp = cuda_conv2d.wgrad_batch_pitch(b, dt), cuda_conv2d.wgrad_row_pitch(x.shape)
+
+    def planes(a):
+        out = np.zeros((a.shape[-1], h, rp + 2 * 32), np.float32)  # room for the shifts
+        ab = np.zeros((h, wd, bp, a.shape[-1]), np.float32)
+        ab[:, :, :b] = a
+        out[:, :, 32:32 + wd * bp] = ab.reshape(h, wd * bp, -1).transpose(2, 0, 1)
+        return out
+
+    xp, gp = planes(x), planes(gz)
+    parts, _ = cuda_conv2d.wgrad_plan(dt, x.shape, co, 132)
+    bn = cuda_conv2d.tile_n(co)
+    rpairs = 9 * c // 128
+    per_part = -(-rpairs // 2) * (co // bn)
+    spr = cuda_conv2d.wgrad_steps(x.shape, dt) // h
+    part = np.zeros((parts, 9, c, co), np.float32)
+    for q in range(per_part * parts):
+        for rank in (0, 1):
+            p, rpair, n0, s0, s1 = cuda_conv2d.wgrad_item(q, rank, x.shape, co, parts, dt)
+            if rpair == rpairs:
+                continue
+            for rb in (2 * rpair, 2 * rpair + 1):
+                tap, c0 = cuda_conv2d.wgrad_row_block(rb)
+                ky, kx = divmod(tap, 3)
+                for k, (cb, ce) in enumerate(cuda_conv2d.wgrad_chains(s0, s1, dt)):
+                    xa, ga = [], []
+                    for st in range(cb, ce):
+                        hh, m0 = st // spr, st % spr * 32
+                        hs, m = hh + ky - 1, 32 + m0 + (kx - 1) * bp
+                        xa.append(xp[c0:c0 + 64, hs, m:m + 32] if 0 <= hs < h
+                                  else np.zeros((64, 32), np.float32))
+                        ga.append(gp[n0:n0 + bn, hh, 32 + m0:64 + m0])
+                    acc = _chain_sum(np.concatenate(xa, 1), np.concatenate(ga, 1).T, mags)
+                    blk = part[p, tap, c0:c0 + 64, n0:n0 + bn]
+                    part[p, tap, c0:c0 + 64, n0:n0 + bn] = acc if k == 0 else blk + acc
+    out = part[0].copy()
+    for i in range(1, parts):
+        out += part[i]
+    return out.reshape(3, 3, c, co)
+
+
+@pytest.mark.parametrize("chain", [None, 1])
+def test_emulated_fused_conv_wgrad(chain, monkeypatch):
+    """The whole fp32 K5w at [4, 8, 2, 256] -> 256 (batch 2 padded to 4),
+    emulated, with the kernels' chains and with a chain of one step each,
+    against ``conv2d_wgrad_plain`` and JAX's ``_wgrad`` (interpret mode):
+    within a tenth of KERNEL_TOL of max|gw|; every chain's sum within BOUND
+    of its sum of |a| |b|."""
+    if chain is not None:
+        monkeypatch.setattr(cuda_conv2d, "MAX_CHAIN_STEPS_F32", chain)
+    d = _k5_operands()
+    mags = []
+    got = _emulated_k5w(d["x"], d["gz"], mags)
+    assert mags and all(mags)
+    plain = cuda_conv2d.conv2d_wgrad_plain(torch.from_numpy(d["x"]),
+                                           torch.from_numpy(d["gz"])).numpy()
+    jax_gw = np.asarray(pallas_conv2d._wgrad(pallas_conv2d._pad_hw(jnp.asarray(d["x"])),
+                                             jnp.asarray(d["gz"]), K5_CO))
+    for want in (plain, jax_gw):
+        assert np.abs(got - want).max() <= 0.1 * KERNEL_TOL * np.abs(want).max()
