@@ -24,8 +24,8 @@ Phases, all of them on every run:
      and its backward ``grid_sampler_2d_backward`` for K4, whose errors
      against the plain version are printed, not gated: bf16 grids round
      the positions; the device kernels of cuDNN's fp32 K5w call at res2 by
-     name), then the fp32 K5 / K5w at several accumulator chain lengths
-     (``chains``: error and ms);
+     name), then the fp32 K5 / K5w and K2w at several accumulator chain
+     lengths (``chains``: error and ms);
   3. serving: run the render CLI (fp32, ``--fast --resample multipass
      --rotate --sweep_batch 8``: 72 frames, 9 batch-8 forwards) on a
      procedural voxel, then one bf16 ``shader_forward`` at batch 8, both at
@@ -37,7 +37,9 @@ Phases, all of them on every run:
      bf16, at patch 128 (the full grid) and at patch 64 (at fixed crop
      offsets, through K1's window-emitting passes), with the kernels and
      with every kernel replaced by its plain version, compared parameter
-     by parameter; (b) ``bench.py``'s two
+     by parameter, and a profile of the fp32 patch-128 step whose K2w
+     kernels must include ``conv3d_wgrad_tf32_kernel`` (phase 6's flag-on
+     check likewise); (b) ``bench.py``'s two
      configurations (batch 24, bf16, bf16 Adam moments, patch 128 and 64):
      a warm-up step, then 8 timed steps on one fixed batch; (c) the
      patch-128 step with ``WGRAD=True`` (K6, bf16 operands), ``WGRAD="fp32"``
@@ -84,7 +86,9 @@ Phases, all of them on every run:
      (``texture_loss``, batch 8, patch 128) in fp32 (TF32 off) and bf16
      against the all-plain step's: the trunk and heads per parameter by
      max (TEX_GRAD_TOL), the texture decoder by norm (TEX_DECODER_TOL),
-     with a control that halves K4's voxel cotangent and must fail; (c, d)
+     with a control that halves K4's voxel cotangent and must fail, and a
+     profile of the fp32 step whose K2w kernels must include its TF32
+     kernel (``conv3d_wgrad_tf32_kernel``, by name); (c, d)
      five timed bf16 steps at batch 24 per patch (128, 64), one step with
      ``WGRAD=True``, one with ``CUDA_CONV2D``, a profiled patch-128 step;
   8. the training CLIs on the card: ``make_synthetic_shader_tar`` renders
@@ -217,6 +221,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -317,16 +322,16 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 # The ops whose fp32 form runs every product as three TF32 passes (K2 at
-# C <= 32, every fp32 K2 case here; K3; K5 and its data gradient; K5w).
-TF32_OPS = ("conv3d", "conv3d_dgrad", "wino", "wino_dgrad", "conv2d", "conv2d_dgrad",
-            "conv2d_wgrad")
+# C <= 32, every fp32 K2 case here; K2w; K3; K5 and its data gradient; K5w).
+TF32_OPS = ("conv3d", "conv3d_dgrad", "conv3d_wgrad", "wino", "wino_dgrad", "conv2d",
+            "conv2d_dgrad", "conv2d_wgrad")
 
 
 def bound_dtype(op: str, dname: str) -> str:
     """The peak rate that bounds a case's operations: K4's fp32 CUDA-core
     math, K6's bf16 tensor-core passes (three for fp32 products), the TF32
-    tensor cores for fp32 K2, K3, K5 and K5w (three passes, counted in the
-    case's flops), else the storage dtype's."""
+    tensor cores for fp32 K2, K2w, K3, K5 and K5w (three passes, counted in
+    the case's flops), else the storage dtype's."""
     if dname == "float32" and op in TF32_OPS:
         return "tf32"
     return {"pass_bwd": "float32", "wino_wgrad": "bfloat16"}.get(op, dname)
@@ -734,7 +739,7 @@ def make_case(torch, op, spec, dtype, gen):
     xs, co = spec[0], spec[1]
     m = math.prod(xs[:-1])
     c = xs[-1]
-    # fp32 K2 / K3: three TF32 passes per product (bound_dtype)
+    # fp32 K2, K2w, K3: three TF32 passes per product (bound_dtype)
     passes = 3 if bound_dtype(op, str(dtype).split(".")[-1]) == "tf32" else 1
     if op == "conv3d":
         x = rnd(*xs)
@@ -759,7 +764,8 @@ def make_case(torch, op, spec, dtype, gen):
         return (lambda: cuda_conv3d.nc_conv3d_wgrad(x, gy),
                 lambda: cuda_conv3d.nc_conv3d_wgrad_plain(x, gy),
                 lambda: grad.conv3d_weight(cf(x), (co, c, 3, 3, 3), cf(gy), padding=1),
-                2.0 * m * 27 * c * co, item * (x.numel() + gy.numel()) + 4 * 27 * c * co, True)
+                passes * 2.0 * m * 27 * c * co, item * (x.numel() + gy.numel()) + 4 * 27 * c * co,
+                True)
     if op.startswith("conv2d"):
         return conv2d_case(torch, op, spec, dtype, rnd, m, c, passes)
     tiles = xs[0] * (xs[1] // 2) * (xs[2] // 2)
@@ -943,21 +949,25 @@ def run_kernel_checks(torch, failures):
     return rows
 
 
-# The fp32 K5 / K5w accumulator chains swept (cuda_conv2d.CHAIN_STAGES_F32,
-# stages of 32 channels of one tap; MAX_CHAIN_STEPS_F32, steps of 32
-# pixels): the first of each list is the kernels' own, the last one chain
-# over the whole sum (K5 at res2: 9 C / 32 = 288 stages).
+# The fp32 K5 / K5w / K2w accumulator chains swept (cuda_conv2d.
+# CHAIN_STAGES_F32, stages of 32 channels of one tap; MAX_CHAIN_STEPS_F32,
+# steps of 32 pixels; cuda_conv3d.WGRAD_CHAIN_ROWS_F32, rows of 128
+# positions): the first of each list is the kernels' own, the last one chain
+# over the whole sum (K5 at res2: 9 C / 32 = 288 stages; K2w: a CTA's rows,
+# ~62 at batch 8 and ~186 at batch 24).
 K5_CHAINS = (1, 2, 8, 288)
 K5W_CHAINS = (32, 8, 128, 1 << 20)
+K2W_CHAINS = (4, 1, 2, 8, 32, 1 << 20)
 
 
 def chain_sweep(torch) -> dict:
-    """The fp32 K5 (res2 prelu, batch 8) and K5w (res2, batch 8) at several
-    accumulator chain lengths: error against the plain version as a
-    fraction of max|plain|, and ms per call. The tensor cores' fp32 sums
-    lose precision along a chain; this is what the kernels' lengths were
-    chosen from."""
+    """The fp32 K5 (res2 prelu, batch 8), K5w (res2, batch 8) and K2w (res1
+    [8 / 24,64,64,32,32]->32) at several accumulator chain lengths: error
+    against the plain version as a fraction of max|plain|, and ms per call.
+    The tensor cores' fp32 sums lose precision along a chain; this is what
+    the kernels' lengths were chosen from."""
     from rendernet_tpu_torch.ops import cuda_conv2d as cc
+    from rendernet_tpu_torch.ops import cuda_conv3d
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     xs, c = (64, 64, 8, 1024), 1024
@@ -966,20 +976,26 @@ def chain_sweep(torch) -> dict:
     kw = dict(bias=torch.randn(c, generator=gen, device="cuda") * 0.1, act="prelu",
               alpha=torch.rand(c, generator=gen, device="cuda") * 0.3)
     gz = torch.randn(*xs[:3], c, generator=gen, device="cuda")
-    out = {"k5": [], "k5w": []}
-    sweeps = (("k5", "CHAIN_STAGES_F32", K5_CHAINS, lambda: cc.conv2d_hwnc(x, w, **kw),
+    x3 = {b: torch.randn(*X3[b], generator=gen, device="cuda") for b in (8, 24)}
+    gy3 = {b: torch.randn(*X3[b][:-1], 32, generator=gen, device="cuda") for b in (8, 24)}
+    out = {"k5": [], "k5w": [], "k2w": [], "k2w_b24": []}
+    sweeps = [(cc, "k5", "CHAIN_STAGES_F32", K5_CHAINS, lambda: cc.conv2d_hwnc(x, w, **kw),
                cc.conv2d_hwnc_plain(x, w, **kw)),
-              ("k5w", "MAX_CHAIN_STEPS_F32", K5W_CHAINS, lambda: cc.conv2d_wgrad(x, gz),
-               cc.conv2d_wgrad_plain(x, gz)))
-    for key, name, chains, fn, ref in sweeps:
-        own = getattr(cc, name)
+              (cc, "k5w", "MAX_CHAIN_STEPS_F32", K5W_CHAINS, lambda: cc.conv2d_wgrad(x, gz),
+               cc.conv2d_wgrad_plain(x, gz))]
+    sweeps += [(cuda_conv3d, key, "WGRAD_CHAIN_ROWS_F32", K2W_CHAINS,
+                lambda b=b: cuda_conv3d.nc_conv3d_wgrad(x3[b], gy3[b]),
+                cuda_conv3d.nc_conv3d_wgrad_plain(x3[b], gy3[b]))
+               for b, key in ((8, "k2w"), (24, "k2w_b24"))]
+    for mod, key, name, chains, fn, ref in sweeps:
+        own = getattr(mod, name)
         try:
             for chain in chains:
-                setattr(cc, name, chain)
+                setattr(mod, name, chain)
                 err = float((fn() - ref).abs().max()) / float(ref.abs().max())
                 out[key].append({"chain": chain, "err_rel": err, "ms": time_ms(torch, fn, 10)})
         finally:
-            setattr(cc, name, own)
+            setattr(mod, name, own)
     log("chains " + json.dumps(out))
     return out
 
@@ -1327,6 +1343,10 @@ def gradient_check(torch, np, failures, patches=(128, 64), conv2d=False, tag="gr
             totals, by_shape = read_counts()
             per_step = check_step_counts(failures, what, by_shape, 1,
                                          step_launches(8, patch, conv2d=conv2d))
+            prof = None
+            if dtype == torch.float32 and patch == 128:  # the fp32 step's K2w, by name
+                prof = profile_run(torch, lambda: grads(dtype, patch), run=f"{tag} float32 128")
+                check_profiled_names(failures, prof, "K2w", "conv3d_wgrad_tf32_kernel", what)
             with plain_kernels():
                 reset_counts()
                 loss_p, gp = grads(dtype, patch)
@@ -1344,6 +1364,8 @@ def gradient_check(torch, np, failures, patches=(128, 64), conv2d=False, tag="gr
                    "worst_rel_err": errs[worst], "tol": GRAD_TOL[dname],
                    "median_rel_err": sorted(errs.values())[len(errs) // 2],
                    "params": len(names), "launches": totals}
+            if prof is not None:
+                res["profile_K2w"] = prof["K2w"]
             out[dname, patch] = {"result": res, "per_step": per_step}
             log(f"{tag} {dname} " + json.dumps(res))
             if not errs[worst] <= GRAD_TOL[dname]:
@@ -2204,8 +2226,11 @@ def texture_gradient_check(torch, np, failures, per_step):
         torch.cuda.synchronize()
         totals, by_shape = read_counts()
         ps = check_step_counts(failures, what, by_shape, 1, texture_step_launches(8, 128))
+        prof = None
         if dname == "float32":
             per_step["texgrad32"] = ps
+            prof = profile_run(torch, grads, run="texgrad32")  # the fp32 step's K2w, by name
+            check_profiled_names(failures, prof, "K2w", "conv3d_wgrad_tf32_kernel", what)
         with plain_kernels():
             reset_counts()
             loss_p, gp = grads()
@@ -2232,6 +2257,8 @@ def texture_gradient_check(torch, np, failures, per_step):
                "control_k4_gv_half": {"decoder_least_norm_rel_err": [cn, ce],
                                       "net_worst_rel_err": worst(c_net)},
                "params": len(names), "launches": totals}
+        if prof is not None:
+            res["profile_K2w"] = prof["K2w"]
         out[dname] = res
         log(f"texgrad {dname} " + json.dumps(res))
         if not we <= TEX_GRAD_TOL[dname]:
@@ -4394,7 +4421,8 @@ def run_spatial_texture_recon(torch, failures, tmp):
 # Device kernels of each kernel id in a profile, by substrings of their
 # (demangled) names.
 PROFILED = {"K1": ("k1_pass",), "K4": ("k4_adjoint",),
-            "K2": ("conv3d_mma_kernel", "conv3d_core_kernel"), "K2w": ("conv3d_wgrad_",),
+            "K2": ("conv3d_mma_kernel", "conv3d_tf32_kernel", "conv3d_core_kernel"),
+            "K2w": ("conv3d_wgrad_",),
             "K3": ("k3_",), "K6": ("k6_",),
             "K5": ("conv2d_wgmma_kernel", "conv2d_tf32_kernel", "::tf32_split_kernel"),
             "K5w": ("wgrad_wgmma_kernel", "wgrad_tf32_kernel", "tf32_split_cmajor",
@@ -4431,7 +4459,24 @@ def _part(rows, names, busy_us):
     mine = [r for r in rows if any(n in r[0] for n in names)]
     us = sum(r[2] for r in mine)
     return {"ms": us / 1e3, "kernels": sum(r[1] for r in mine),
-            "busy_share": us / busy_us if busy_us else None}
+            "busy_share": us / busy_us if busy_us else None,
+            "names": sorted({_kernel_name(r[0]) for r in mine})}
+
+
+def _kernel_name(key: str) -> str:
+    """A device kernel's name without its namespaces and arguments, with its
+    template arguments (``conv3d_wgrad_tf32_kernel<32, 32, true>``)."""
+    name = re.sub(r"^void ", "", key.replace("(anonymous namespace)::", "").split("(")[0])
+    base, args = (name.split("<", 1) + [""])[:2]
+    return re.sub(r"^.*::", "", base) + ("<" + args if args else "")
+
+
+def check_profiled_names(failures, prof, kid, name, what):
+    """Fails unless ``kid``'s kernels in profile ``prof`` include ``name``:
+    the run went through that kernel."""
+    if not any(n.startswith(name) for n in prof[kid]["names"]):
+        failures.append(f"{what}: no {name} among {kid}'s profiled kernels "
+                        f"{prof[kid]['names']}")
 
 
 def profile_run(torch, fn, top: int = 12, run: str | None = None):

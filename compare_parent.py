@@ -36,13 +36,17 @@ sources, into that tree's ``_build``):
    chosen, with the flag on, the fp32 paths that run their fp32 forms: the
    fp32 batch-8 forward, the fp32 ``ReconConfig()`` step and the fp32
    batch-8 patch-128 training step (the gradient check's configuration;
-   two warm-up steps, then FP32_STEPS).
+   two warm-up steps, then FP32_STEPS); where K2w is chosen, the fp32 paths
+   that run its fp32 form: that fp32 batch-8 training step with the flag
+   off and on, and the fp32 texture step (``TextureFaceConfig()``, batch 8,
+   patch 128, the texture gradient check's configuration) with it off.
 
 Prints the card's ``nvidia-smi`` name and power limit, then one JSON line
 per kernel row of this tree (matched to the earlier revision's by kernel,
 label and dtype; null where that revision has no such row; ``same_bits``:
 all four turns' outputs have the same checksum, null without the earlier
-revision's row), one per end-to-end route,
+revision's row), a ``same_bits`` line (per kernel and dtype, whether every
+row of it had the same bits in all four turns), one per end-to-end route,
 each with the four turns' readings, and a ``sass_identical`` line: for
 each kernel library, whether both trees compiled the same SASS
 (``cuobjdump -sass``, with the anonymous namespaces' per-file names
@@ -122,9 +126,12 @@ def _timed_steps(torch, step, state, batch, n=E2E_STEPS):
         all(math.isfinite(x) for x in losses)
 
 
-def _e2e(torch, np, cs, conv2d: bool, wgrad: bool, fp32: bool) -> dict:
+def _e2e(torch, np, cs, conv2d: bool, wgrad: bool, fp32: bool, step32: bool = False,
+         tex32: bool = False) -> dict:
     """One route's end-to-end readings; ``fp32``: also the fp32 paths (with
-    the flag off where K2 or K3 is chosen, on where K5 or K5w is)."""
+    the flag off where K2 or K3 is chosen, on where K5 or K5w is);
+    ``step32``: the fp32 batch-8 step (also on where K5 or K5w is);
+    ``tex32``: the fp32 texture step."""
     from rendernet_tpu_torch.models.shader import ShaderConfig, init_shader_params, shader_forward
     from rendernet_tpu_torch.nn import layers
     from rendernet_tpu_torch.ops import cuda_winograd
@@ -167,13 +174,28 @@ def _e2e(torch, np, cs, conv2d: bool, wgrad: bool, fp32: bool) -> dict:
                 cuda_winograd.WGRAD = False
         del state, tx, batch
         torch.cuda.empty_cache()
-        if fp32 and conv2d:  # the fp32 gradient-check step's configuration, timed
+        if step32 or (fp32 and conv2d):  # the fp32 gradient-check step's configuration
             cfg32 = TrainConfig(batch_size=8, img_res=512, new_size=128, compute_dtype="float32",
                                 is_greyscale=True, e_eta=1e-5)
             batch = cs.bench_batch(torch, np, 8)
             state, tx = create_shader_state(0, mcfg, cfg32, device="cuda")
             step = make_shader_train_step(mcfg, cfg32, tx, 128)
             state, res["step32_128_ms"], res["step32_finite"] = _timed_steps(
+                torch, step, state, batch, n=FP32_STEPS)
+            del state, tx, batch
+            torch.cuda.empty_cache()
+        if tex32:  # the fp32 texture gradient check's configuration, timed
+            from rendernet_tpu_torch.models.texture_face import TextureFaceConfig
+            from rendernet_tpu_torch.train.steps import (create_texture_state,
+                                                         make_texture_train_step)
+
+            tcfg = TrainConfig(batch_size=8, img_res=512, new_size=128, compute_dtype="float32",
+                               is_greyscale=False, e_eta=1e-5, resample="multipass")
+            tmcfg = TextureFaceConfig()
+            batch = cs.texture_batch(torch, np, 8, seed=2)
+            state, tx = create_texture_state(0, tmcfg, tcfg, device="cuda")
+            step = make_texture_train_step(tmcfg, tcfg, tx, 128)
+            state, res["tex32_128_ms"], res["tex32_finite"] = _timed_steps(
                 torch, step, state, batch, n=FP32_STEPS)
             del state, tx, batch
             torch.cuda.empty_cache()
@@ -221,9 +243,11 @@ def run(tree: str, kids) -> None:
     _native.build_all()
     _kernel_rows(torch, cs, kids)
     fp32_on = bool({"K5", "K5w"} & set(kids))
-    for conv2d in (False, True) if fp32_on else (False,):
+    k2w = "K2w" in kids
+    for conv2d in (False, True) if fp32_on or k2w else (False,):
         fp32 = fp32_on if conv2d else bool({"K2", "K3"} & set(kids))
-        print("e2e " + json.dumps(_e2e(torch, np, cs, conv2d, "K6" in kids, fp32)), flush=True)
+        print("e2e " + json.dumps(_e2e(torch, np, cs, conv2d, "K6" in kids, fp32, step32=k2w,
+                                       tex32=k2w and not conv2d)), flush=True)
 
 
 def main() -> int:
@@ -263,6 +287,15 @@ def main() -> int:
                           "err_new": n0["err"], "tol": n0["tol"],
                           "same_bits": len(bits) == 1 if p0 and p1 else None, "ok": ok}),
               flush=True)
+    # per kernel and dtype: every row's bits the same in all four turns
+    # (null where a row has no earlier revision's)
+    same = {}
+    for key in kern[1]:
+        rows = [t.get(key) for t in kern]
+        same.setdefault(f"{key[0]} {key[2]}", []).append(
+            len({r["bits"] for r in rows}) == 1 if all(rows) else None)
+    print("same_bits " + json.dumps({k: None if None in v else all(v) for k, v in same.items()}),
+          flush=True)
     for rows in zip(*e2e):
         print("e2e " + json.dumps({"conv2d": rows[0]["conv2d"], "parent": [rows[0], rows[3]],
                                    "new": [rows[1], rows[2]]}), flush=True)

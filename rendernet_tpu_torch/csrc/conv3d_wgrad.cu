@@ -37,10 +37,44 @@
 // shapes take a grid of channel slices (C in 32s, co in 32s), each a
 // persistent set of CTAs over all positions.
 //
-// fp32: CUDA-core FMAs. A block owns one kh, 16 input channels and all co,
-// walks its chunk of position tiles (one (b, h), 4 W x 16 D) and keeps one
-// input channel x co / 16 outputs x the 9 taps of its kh in registers.
+// fp32: the same walk, warps and register-resident sums on the TF32 tensor
+// cores: mma.sync m16n8k8 with every product as three passes, hi.hi +
+// hi.lo + lo.hi (hi = tf32(v), lo = tf32(v - hi), both operands split in
+// registers: 3 * 2^-22 of each product), each rounding to nearest even
+// (rn::tf32_split_rn: one F2FP instruction, where K2's cvt.rna takes four,
+// and the splits are most of this kernel's instructions besides the mma).
+// Shared memory decides the tile:
+// the bf16 ring would double to 381 KB, so a row is F_TW = 4 W x 32 D
+// positions and the ring holds F_RING = 5 slots (the row's three planes and
+// two loading) of 6 x 34 x 32 + 4 x 32 x 32 fp32 values at 32 x 32 channels:
+// 213 KB. Operand fragments: TF32's A (x^T, 16 channels x 8 positions) and
+// B (gy, 8 positions x 8 channels) both run K along the positions while the
+// planes lie channel-minor, and ldmatrix.trans transposes 16-bit elements
+// only. So each lane loads its four A and two B values with scalar 32-bit
+// ld.shared from rows swizzled by swz32, which puts the 4 positions x 8
+// channels of one warp-wide load in 32 different banks at any row offset:
+// the kd shift stays one row, as in bf16. Planes staged position-minor
+// would give ldmatrix fragments, but its 16-byte row addresses cannot shift
+// by one 4-byte position; staged as hi / lo planes they would double every
+// slot, and no ring of four fits. So a value is split in registers (each A
+// fragment feeds NF n8 blocks x 3 passes, each B fragment 3 kd x MF m16
+// blocks). Per k8 slice of positions a warp issues 3 kd x MF x NF x 3 mma
+// (72 at 32 x 32), pass by pass so that MF x NF independent sums (8 at 32 x
+// 32) separate two products into one sum. Chains: the tensor cores' fp32 sums lose precision
+// with the length of a chain (K2 fp32, K5w), and a CTA's share of the
+// positions runs to ~8,000 at batch 8 and ~24,000 at batch 24. So each CTA
+// cuts its rows into chains of at most `chain` rows (a row is 128
+// positions; cuda_conv3d.WGRAD_CHAIN_ROWS_F32, chosen from chip_smoke.py's
+// `chains` line); at a chain's end the sums go into part[cta], stored by the
+// first chain and loaded, added and stored by each later one from the same
+// thread (chain order on every run), and restart from zero. That needs no
+// second set of sums in registers, and the workspace stays one [27, cpad,
+// co] block per CTA: a block per chain, added by the reduce kernel, would
+// multiply it by the chains (233 MB at batch 8 for chains of 4 rows).
+// Wider shapes take the bf16 path's channel slices.
+// Bound at res1 batch 8: 3 * 5.8e10 flops, 0.35 ms at 495 TFLOP/s TF32.
 #include "conv3d_tile.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -173,127 +207,235 @@ cudaError_t launch_mma(const bf16* x, const bf16* gy, float* part, const rn3::Ge
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA-core kernel
+// fp32: TF32 tensor-core kernel
 // ---------------------------------------------------------------------------
-constexpr int TW = 4, TD = 16;  // positions of a tile along W and D
-constexpr int HW = TW + 2, HD = TD + 2;
+constexpr int F_TW = 4;    // W positions of a row (rn3::TD along D)
+constexpr int F_HW = F_TW + 2;
+constexpr int F_RING = 5;  // ring slots: the row's three planes and two loading
 
-struct Geom {
-  int H, W, D, C, co, cpad;
-  long long ntiles;  // B * H * ceil(W / TW) * ceil(D / TD)
-  int nchunks;
-};
-
-__device__ __forceinline__ long long pix(const Geom& g, int b, int h, int w, int d) {
-  return ((static_cast<long long>(b) * g.H + h) * g.W + w) * g.D + d;
+template <int CS, int OS>
+__host__ __device__ constexpr int tf32_slot_bytes() {
+  return F_HW * rn3::HD * CS * 4 + F_TW * rn3::TD * OS * 4;
 }
 
-// Tile t -> (b, h, w0, d0).
-__device__ __forceinline__ void tile_origin(const Geom& g, long long t, int& b, int& h, int& w0,
-                                            int& d0) {
-  const int ndt = (g.D + TD - 1) / TD, nwt = (g.W + TW - 1) / TW;
-  d0 = static_cast<int>(t % ndt) * TD;
-  t /= ndt;
-  w0 = static_cast<int>(t % nwt) * TW;
-  t /= nwt;
-  h = static_cast<int>(t % g.H);
-  b = static_cast<int>(t / g.H);
+template <int CS, int OS>
+constexpr int tf32_smem_bytes() {
+  return 128 + F_RING * tf32_slot_bytes<CS, OS>();
+}
+static_assert(tf32_smem_bytes<32, 32>() <= 232448, "a CTA's shared memory");
+
+// Byte offset of 16-byte chunk `chunk` (4 fp32 channels) of row `row` in
+// rows of NCH chunks (4 or 8: 16 or 32 channels): each 8-channel pair of
+// chunks is XORed with the row's position among four (row % 4 at 8 chunks,
+// row / 2 % 2 with row % 2 picking the bank half at 4), so that the same 8
+// channels of any 4 consecutive rows (one scalar load of an mma fragment)
+// fall in 4 different groups of 8 banks.
+template <int NCH>
+__device__ __forceinline__ int swz32(int row, int chunk) {
+  return (row * NCH + (chunk ^ (((row / (8 / NCH)) & (NCH / 2 - 1)) << 1))) * 16;
 }
 
-// Stage the kh halo rows xs[HW][HD][CB] (zero outside the volume and past
-// C) and the gy tile gs[TW * TD][co] (zero past W and D), in 16-byte
-// vectors of 4 channels (x: when C % 4 == 0; gy always, since co is a
-// multiple of 16), else element by element.
-template <int CB>
-__device__ __forceinline__ void stage(const Geom& g, const float* __restrict__ x,
-                                      const float* __restrict__ gy, float* xs, float* gs, int b,
-                                      int h, int w0, int d0, int kh, int c0, int tid,
-                                      int nthreads) {
-  constexpr int V = 4;
-  const int hh = h + kh - 1;
-  const bool hin = hh >= 0 && hh < g.H;
-  if (g.C % V == 0) {
-    for (int i = tid; i < HW * HD * CB / V; i += nthreads) {
-      const int c = (i % (CB / V)) * V, p = i / (CB / V);
-      const int dd = p % HD, ww = p / HD;
-      const int wi = w0 + ww - 1, di = d0 + dd - 1;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (hin && wi >= 0 && wi < g.W && di >= 0 && di < g.D && c0 + c < g.C)
-        v = *reinterpret_cast<const float4*>(x + pix(g, b, hh, wi, di) * g.C + c0 + c);
-      *reinterpret_cast<float4*>(xs + p * CB + c) = v;
+__device__ __forceinline__ float lds(const unsigned char* p) {
+  return *reinterpret_cast<const float*>(p);
+}
+
+// One halo plane of channels [c0, c0 + 4 NCH) of x into a ring slot, laid
+// out [w'][d'][chunk] (swz32): plane q of column c, zeros outside the volume
+// and past C. VEC: C % 4 == 0, so each 16-byte chunk is wholly inside or
+// outside and goes by cp.async; otherwise element by element.
+template <int NCH, bool VEC>
+__device__ __forceinline__ void load_plane_f32(const float* __restrict__ x, const rn3::Geom& g,
+                                               const rn3::Column& c, int q, int c0,
+                                               uint32_t dst, unsigned char* dstp, int tid) {
+  const bool hin = q >= 0 && q < g.H;
+  if constexpr (VEC) {
+    for (int i = tid; i < F_HW * rn3::HD * NCH; i += MMA_THREADS) {
+      const int ch = i % NCH, p = i / NCH;
+      const int wi = c.w0 + p / rn3::HD - 1, di = c.d0 + p % rn3::HD - 1, cc = c0 + ch * 4;
+      const bool ok = hin && wi >= 0 && wi < g.W && di >= 0 && di < g.D && cc < g.C;
+      const float* src = ok ? x + rn3::pix(g, c.b, q, wi, di) * g.C + cc : x;
+      rn3::cp_async16(dst + swz32<NCH>(p, ch), src, ok ? 16 : 0);
     }
   } else {
-    for (int i = tid; i < HW * HD * CB; i += nthreads) {
-      const int c = i % CB, dd = (i / CB) % HD, ww = i / (CB * HD);
-      const int wi = w0 + ww - 1, di = d0 + dd - 1;
-      float v = 0.f;
-      if (hin && wi >= 0 && wi < g.W && di >= 0 && di < g.D && c0 + c < g.C)
-        v = x[pix(g, b, hh, wi, di) * g.C + c0 + c];
-      xs[i] = v;
+    for (int i = tid; i < F_HW * rn3::HD * NCH * 4; i += MMA_THREADS) {
+      const int e = i % (NCH * 4), p = i / (NCH * 4);
+      const int wi = c.w0 + p / rn3::HD - 1, di = c.d0 + p % rn3::HD - 1, cc = c0 + e;
+      const bool ok = hin && wi >= 0 && wi < g.W && di >= 0 && di < g.D && cc < g.C;
+      *reinterpret_cast<float*>(dstp + swz32<NCH>(p, e / 4) + (e % 4) * 4) =
+          ok ? x[rn3::pix(g, c.b, q, wi, di) * g.C + cc] : 0.f;
     }
   }
-  for (int i = tid; i < TW * TD * g.co / V; i += nthreads) {
-    const int o = (i % (g.co / V)) * V, p = i / (g.co / V);
-    const int dd = p % TD, ww = p / TD;
-    const int wo = w0 + ww, dO = d0 + dd;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (wo < g.W && dO < g.D)
-      v = *reinterpret_cast<const float4*>(gy + pix(g, b, h, wo, dO) * g.co + o);
-    *reinterpret_cast<float4*>(gs + p * g.co + o) = v;
-  }
 }
 
-// fp32 CUDA-core kernel: 256 threads = (channel c in 16) x (output group og
-// in 16); a thread owns outputs og + 16 j, j < co / 16, for all 9 taps.
-template <int CO>
-__global__ void __launch_bounds__(256)
-    conv3d_wgrad_f32_kernel(const float* __restrict__ x, const float* __restrict__ gy,
-                            float* __restrict__ part, Geom g) {
-  constexpr int CB = 16, NO = CO / 16;
-  __shared__ __align__(16) float xs[HW * HD * CB];
-  __shared__ __align__(16) float gs[TW * TD * CO];
-  const int chunk = blockIdx.x, kh = blockIdx.y, c0 = blockIdx.z * CB;
-  const int tid = threadIdx.x, c = tid % CB, og = tid / CB;
+// fp32 TF32 tensor-core kernel. Grid (parts, C slices of CS, co slices of
+// OS), warp (kh, kw) owning taps (kh, kw, 0..2); part[blockIdx.x][27][cpad]
+// [co] receives this CTA's sums for its slices, over its rows cut into
+// chains of at most `chain` rows.
+template <int CS, int OS, bool VEC>
+__global__ void __launch_bounds__(MMA_THREADS, 1)
+    conv3d_wgrad_tf32_kernel(const float* __restrict__ x, const float* __restrict__ gy,
+                             float* __restrict__ part, rn3::Geom g, int co, int cpad, int parts,
+                             int chain) {
+  constexpr int NX = CS / 4, NG = OS / 4;    // 16-byte chunks per plane row, gy row
+  constexpr int XB = NX * 16, GB = NG * 16;  // bytes per plane row, gy row
+  constexpr int XBYTES = F_HW * rn3::HD * XB, SLOT = tf32_slot_bytes<CS, OS>();
+  constexpr int MF = CS / 16, NF = OS / 8;   // m16 channel blocks of x^T, n8 blocks of gy
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((128 - (rn3::smem_u32(smem_raw) & 127)) & 127);
+  const uint32_t ring_u = rn3::smem_u32(ring);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gq = lane / 4, tq = lane % 4;  // fragment row group, thread in group
+  const int kh = warp / 3, kw = warp % 3;
+  const int c0 = blockIdx.y * CS, o0 = blockIdx.z * OS;
 
-  float acc[9][NO];
+  float acc[3][MF][NF][4];
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap)
+  for (int kd = 0; kd < 3; ++kd)
 #pragma unroll
-    for (int j = 0; j < NO; ++j) acc[tap][j] = 0.f;
+    for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+      for (int nf = 0; nf < NF; ++nf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[kd][mf][nf][e] = 0.f;
 
-  const long long t0 = g.ntiles * chunk / g.nchunks, t1 = g.ntiles * (chunk + 1) / g.nchunks;
-  for (long long t = t0; t < t1; ++t) {
-    int b, h, w0, d0;
-    tile_origin(g, t, b, h, w0, d0);
-    stage<CB>(g, x, gy, xs, gs, b, h, w0, d0, kh, c0, tid, 256);
-    __syncthreads();
-#pragma unroll 1
-    for (int wi = 0; wi < TW; ++wi)
-#pragma unroll 2
-      for (int dd = 0; dd < TD; ++dd) {
-        float gv[NO];
+  // B fragments: this lane's values of n8 block nf are gy rows 8 k + tq and
+  // 8 k + tq + 4 of a row block, channel 8 nf + gq. A row block starts at a
+  // multiple of 4, where both swizzles repeat, so the offsets hold for all.
+  int boff[NF];
 #pragma unroll
-        for (int j = 0; j < NO; ++j) gv[j] = gs[(wi * TD + dd) * CO + og + 16 * j];
-#pragma unroll
-        for (int kw = 0; kw < 3; ++kw)
-#pragma unroll
-          for (int kd = 0; kd < 3; ++kd) {
-            const float xv = xs[((wi + kw) * HD + dd + kd) * CB + c];
-#pragma unroll
-            for (int j = 0; j < NO; ++j) acc[kw * 3 + kd][j] = fmaf(xv, gv[j], acc[kw * 3 + kd][j]);
-          }
+  for (int nf = 0; nf < NF; ++nf) boff[nf] = swz32<NG>(tq, 2 * nf) + 4 * gq;
+
+  auto issue = [&](rn3::PlaneSeq& seq, int slot) {
+    long long col;
+    int q;
+    bool own;
+    if (!seq.next(col, q, own)) return false;
+    const rn3::Column c = rn3::column<F_TW>(g, col);
+    load_plane_f32<NX, VEC>(x, g, c, q, c0, ring_u + slot * SLOT, ring + slot * SLOT, tid);
+    if (own) {
+      const uint32_t dst = ring_u + slot * SLOT + XBYTES;
+      for (int i = tid; i < F_TW * rn3::TD * NG; i += MMA_THREADS) {
+        const int ch = i % NG, p = i / NG;
+        const int wo = c.w0 + p / rn3::TD, dO = c.d0 + p % rn3::TD;
+        const bool ok = wo < g.W && dO < g.D;
+        const float* src = ok ? gy + rn3::pix(g, c.b, q, wo, dO) * co + o0 + ch * 4 : gy;
+        rn3::cp_async16(dst + swz32<NG>(p, ch), src, ok ? 16 : 0);
       }
-    __syncthreads();
-  }
+    }
+    rn::cp_async_commit();
+    return true;
+  };
+
+  // A chain's sums into part[blockIdx.x]: the first chain of the CTA stores
+  // them, each later one loads, adds and stores (one thread per value, one
+  // tap kd at a time, loads before stores), so they add in chain order on
+  // every run; then the sums restart from zero. Fragment rows: channels c0
+  // + 16 mf + gq (+ 8); columns: outputs o0 + 8 nf + 2 tq (+ 1).
+  float* const pw = part + static_cast<long long>(blockIdx.x) * 27 * cpad * co;
+  auto flush = [&](bool first) {
 #pragma unroll
-  for (int tap = 0; tap < 9; ++tap)
+    for (int kd = 0; kd < 3; ++kd) {
+      float2* dst[MF][2];
 #pragma unroll
-    for (int j = 0; j < NO; ++j)
-      part[((static_cast<long long>(chunk) * 27 + kh * 9 + tap) * g.cpad + c0 + c) * CO + og +
-           16 * j] = acc[tap][j];
+      for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          dst[mf][half] = reinterpret_cast<float2*>(
+              pw + (static_cast<long long>((kh * 3 + kw) * 3 + kd) * cpad + c0 + mf * 16 +
+                    half * 8 + gq) * co + o0 + 2 * tq);
+      float2 old[MF][2][NF];
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int nf = 0; nf < NF; ++nf)
+            old[mf][half][nf] = first ? make_float2(0.f, 0.f) : dst[mf][half][4 * nf];
+#pragma unroll
+      for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+#pragma unroll
+          for (int nf = 0; nf < NF; ++nf) {
+            const float v0 = acc[kd][mf][nf][2 * half], v1 = acc[kd][mf][nf][2 * half + 1];
+            dst[mf][half][4 * nf] = first ? make_float2(v0, v1)
+                                          : make_float2(old[mf][half][nf].x + v0,
+                                                        old[mf][half][nf].y + v1);
+            acc[kd][mf][nf][2 * half] = acc[kd][mf][nf][2 * half + 1] = 0.f;
+          }
+    }
+  };
+
+  const long long r0 = g.rows * blockIdx.x / parts, r1 = g.rows * (blockIdx.x + 1) / parts;
+  auto row = [&](long long col, int h, int m) {
+    const rn3::Column c = rn3::column<F_TW>(g, col);
+    const unsigned char* xp = ring + ((m - 2 + kh) % F_RING) * SLOT;
+    const unsigned char* gp = ring + ((m - 1) % F_RING) * SLOT + XBYTES;
+#pragma unroll 1
+    for (int wi = 0; wi < F_TW && c.w0 + wi < g.W; ++wi) {
+#pragma unroll 1
+      for (int dk = 0; dk < rn3::TD / 8 && c.d0 + 8 * dk < g.D; ++dk) {
+        // B = gy: positions (wi, 8 dk + tq (+ 4)), output channels 8 nf + gq
+        const unsigned char* gr = gp + (wi * rn3::TD + 8 * dk) * GB;
+        uint32_t bh[NF][2], bl[NF][2];
+#pragma unroll
+        for (int nf = 0; nf < NF; ++nf) {
+          rn::tf32_split_rn(lds(gr + boff[nf]), bh[nf][0], bl[nf][0]);
+          rn::tf32_split_rn(lds(gr + boff[nf] + 4 * GB), bh[nf][1], bl[nf][1]);
+        }
+#pragma unroll
+        for (int kd = 0; kd < 3; ++kd) {
+          // A = x^T: channels 16 mf + gq (+ 8), positions at plane row
+          // (wi + kw, 8 dk + kd + tq (+ 4)), swizzled as swz32
+          const int r = (wi + kw) * rn3::HD + 8 * dk + kd + tq;
+          const int sw = ((r / (8 / NX)) & (NX / 2 - 1)) << 1;
+          const unsigned char* xr = xp + r * XB + 4 * gq;
+          uint32_t ah[MF][4], al[MF][4];
+#pragma unroll
+          for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)  // e: (+ 8 channels) e % 2, (+ 4 positions) e / 2
+              rn::tf32_split_rn(lds(xr + (e / 2) * 4 * XB + (((4 * mf + 2 * (e % 2)) ^ sw) << 4)),
+                             ah[mf][e], al[mf][e]);
+          // pass by pass over all blocks: MF NF independent sums between two
+          // products into one
+#pragma unroll
+          for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+            for (int nf = 0; nf < NF; ++nf) rn::mma_tf32(acc[kd][mf][nf], ah[mf], bh[nf]);
+#pragma unroll
+          for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+            for (int nf = 0; nf < NF; ++nf) rn::mma_tf32(acc[kd][mf][nf], ah[mf], bl[nf]);
+#pragma unroll
+          for (int mf = 0; mf < MF; ++mf)
+#pragma unroll
+            for (int nf = 0; nf < NF; ++nf) rn::mma_tf32(acc[kd][mf][nf], al[mf], bh[nf]);
+        }
+      }
+    }
+    const long long r = col * g.H + h;  // chains [r0 + k chain, r0 + (k + 1) chain)
+    if ((r + 1 - r0) % chain == 0 || r + 1 == r1) flush(r - r0 < chain);
+  };
+
+  rn3::walk_rows<F_RING, F_RING - 3>(r0, r1, g.H, issue, row);
 }
 
-// out[tap][c][o] = sum over chunks, in chunk order, of part[chunk][tap][c][o]
+template <int CS, int OS>
+cudaError_t launch_tf32(const float* x, const float* gy, float* part, const rn3::Geom& g, int co,
+                        int cpad, int parts, int chain, cudaStream_t s) {
+  constexpr int smem = tf32_smem_bytes<CS, OS>();
+  auto kernel = g.C % 4 == 0 ? &conv3d_wgrad_tf32_kernel<CS, OS, true>
+                             : &conv3d_wgrad_tf32_kernel<CS, OS, false>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(parts, cpad / CS, co / OS);
+  kernel<<<grid, MMA_THREADS, smem, s>>>(x, gy, part, g, co, cpad, parts, chain);
+  return cudaGetLastError();
+}
+
+// out[tap][c][o] = sum over parts, in part order, of part[k][tap][c][o]
 // for c < C.
 __global__ void conv3d_wgrad_reduce_kernel(const float* __restrict__ part,
                                            float* __restrict__ out, int C, int cpad, int co,
@@ -315,31 +457,31 @@ __global__ void conv3d_wgrad_reduce_kernel(const float* __restrict__ part,
 
 // x [B, H, W, D, C], gy [B, H, W, D, co] (one storage type, 16-byte
 // aligned); out [27, C, co] fp32; part: the workspace, parts * 27 * cpad *
-// co floats, with (parts, cpad) from cuda_conv3d.wgrad_plan: bf16, the
-// persistent CTAs per slice and C rounded up to the slice width (16 for
-// C <= 16, else 32); fp32, the position chunks and C rounded up to 16.
+// co floats, with (parts, cpad) from cuda_conv3d.wgrad_plan: the persistent
+// CTAs per slice and C rounded up to the slice width (16 for C <= 16, else
+// 32); chain: fp32's accumulator chains, in rows (bf16 ignores it).
 extern "C" int rn_conv3d_wgrad(const void* x, const void* gy, void* part, void* out, int dtype,
                                int B, int H, int W, int D, int C, int co, int parts, int cpad,
-                               void* stream) {
+                               int chain, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (co != 16 && co != 32 && co != 64) return static_cast<int>(cudaErrorInvalidValue);
   float* pf = static_cast<float*>(part);
   cudaError_t err = cudaErrorInvalidValue;
+  const int cs = C <= 16 ? 16 : 32;
   if (dtype == 0) {
-    const Geom g{H, W, D, C, co, cpad,
-                 static_cast<long long>(B) * H * ((W + TW - 1) / TW) * ((D + TD - 1) / TD),
-                 parts};
-    if (cpad != (C + 15) / 16 * 16 || parts < 1) return static_cast<int>(cudaErrorInvalidValue);
-    const dim3 grid(parts, 3, cpad / 16);
+    const rn3::Geom g = rn3::make_geom<F_TW>(B, H, W, D, C);
+    if (cpad != (C + cs - 1) / cs * cs || parts < 1 || parts > g.rows || chain < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
     auto xf = static_cast<const float*>(x);
     auto gf = static_cast<const float*>(gy);
-    if (co == 16) conv3d_wgrad_f32_kernel<16><<<grid, 256, 0, s>>>(xf, gf, pf, g);
-    if (co == 32) conv3d_wgrad_f32_kernel<32><<<grid, 256, 0, s>>>(xf, gf, pf, g);
-    if (co == 64) conv3d_wgrad_f32_kernel<64><<<grid, 256, 0, s>>>(xf, gf, pf, g);
-    err = cudaGetLastError();
+    if (cs == 16)
+      err = co == 16 ? launch_tf32<16, 16>(xf, gf, pf, g, co, cpad, parts, chain, s)
+                     : launch_tf32<16, 32>(xf, gf, pf, g, co, cpad, parts, chain, s);
+    else
+      err = co == 16 ? launch_tf32<32, 16>(xf, gf, pf, g, co, cpad, parts, chain, s)
+                     : launch_tf32<32, 32>(xf, gf, pf, g, co, cpad, parts, chain, s);
   } else {
     const rn3::Geom g = rn3::make_geom(B, H, W, D, C);
-    const int cs = C <= 16 ? 16 : 32;
     if (cpad != (C + cs - 1) / cs * cs || parts < 1 || parts > g.rows)
       return static_cast<int>(cudaErrorInvalidValue);
     auto xb = static_cast<const bf16*>(x);

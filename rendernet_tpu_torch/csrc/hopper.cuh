@@ -7,10 +7,10 @@
 // descriptors for 128-byte-
 // swizzled tiles in both majorities, the wgmma instructions themselves, and
 // the host-side tensor-map encoder, reached through the runtime's driver
-// entry point so that nothing links libcuda. The fp32 forms of K3 and K2
-// (conv3d.cu) take its TF32 pieces: the hi / lo split, the TF32 wgmma and
-// mma.sync, and the 32-bit fragment load; the fp32 forms of K5 and K5w its
-// TF32 wgmma with both operands in shared memory.
+// entry point so that nothing links libcuda. The fp32 forms of K3, K2
+// (conv3d.cu) and K2w (conv3d_wgrad.cu) take its TF32 pieces: the hi / lo
+// split, the TF32 wgmma and mma.sync, and the 32-bit fragment load; the fp32
+// forms of K5 and K5w its TF32 wgmma with both operands in shared memory.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
@@ -343,6 +343,15 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da, uint64_t d
 __device__ __forceinline__ void tf32_split(float a, uint32_t& hi, uint32_t& lo) {
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(a));
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(a - __uint_as_float(hi)));
+}
+
+// tf32_split with both roundings to nearest, ties to even (cvt.rn.tf32.f32,
+// sm_90): one F2FP instruction each, where cvt.rna takes four (an add, a
+// test for inf / NaN, a select and a mask), and as close (within 2^-11 of
+// the value). K2w's fp32 form, which splits every x value 27 times, takes it.
+__device__ __forceinline__ void tf32_split_rn(float a, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rn.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(a));
+  asm("cvt.rn.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(a - __uint_as_float(hi)));
 }
 
 // Four 8 x 4 tiles of 32-bit values from shared memory (ldmatrix's 8 x 8

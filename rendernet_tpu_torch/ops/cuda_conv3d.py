@@ -93,7 +93,8 @@ def nc_conv3d_wgrad_plain(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
 TILE_W, TILE_D = 8, 32
 # K2's fp32 tensor-core kernel (csrc/conv3d.cu: F_TW, F_RING, F_CO): rows of
 # TILE_W_F32 x TILE_D positions, a ring of RING_F32 halo planes, at most
-# CO_F32 output channels' weights per CTA (co = 64 runs two slices).
+# CO_F32 output channels' weights per CTA (co = 64 runs two slices). K2w's
+# fp32 kernel (csrc/conv3d_wgrad.cu) walks the same rows.
 TILE_W_F32, RING_F32, CO_F32 = 4, 4, 32
 SMEM_PER_SM = 233472  # an H100 SM's shared memory; 1 KB of it is reserved per CTA
 
@@ -134,19 +135,30 @@ def wgrad_plan(dtype: torch.dtype, x_shape, co: int, n_sm: int):
     """K2w's partial sums: ``(parts, cpad)``, the workspace being ``parts *
     27 * cpad * co`` fp32 values and ``parts`` the CTAs over positions.
 
-    bf16: a CTA owns a slice of up to 32 input x 32 output channels (16 x 16
+    A CTA owns a slice of up to 32 input x 32 output channels (16 x 16
     where C or co is 16); ``cpad`` is C rounded up to the slice width, and
-    the ``n_sm`` CTAs, one per SM, are shared among the slices. fp32: the
-    CUDA-core kernel's chunks of position tiles (4 W x 16 D of one (b, h)),
-    sized for ~8 blocks per SM over 3 kh x the 16-channel slices."""
-    b, h, w, d, c = x_shape
-    if dtype == torch.bfloat16:
-        cs, os_ = (16 if c <= 16 else 32), (16 if co == 16 else 32)
-        slices = -(-c // cs) * (co // os_)
-        return max(1, min(conv3d_rows(x_shape), n_sm // slices)), -(-c // cs) * cs
-    nslices = -(-c // 16)
-    ntiles = b * h * -(-w // 4) * -(-d // 16)
-    return max(1, min(ntiles, -(-8 * n_sm // (3 * nslices)))), nslices * 16
+    the ``n_sm`` CTAs, one per SM, are shared among the slices, never more
+    than the rows of the dtype's walk (bf16 8 W x 32 D, fp32 4 W x 32 D)."""
+    c = x_shape[-1]
+    cs, os_ = (16 if c <= 16 else 32), (16 if co == 16 else 32)
+    slices = -(-c // cs) * (co // os_)
+    return max(1, min(conv3d_rows(x_shape, dtype), n_sm // slices)), -(-c // cs) * cs
+
+
+# fp32 K2w's accumulator chains: a CTA's rows are cut into chains of at most
+# this many rows (128 positions each), each summed from zero and added into
+# the CTA's partial. ``chip_smoke.py``'s ``chains`` line gives the error and
+# ms per length at res1, batches 8 and 24; one chain per CTA misses the 1e-4
+# gate at batch 24.
+WGRAD_CHAIN_ROWS_F32 = 4
+
+
+def wgrad_chains(r0: int, r1: int):
+    """fp32 K2w's chains of a CTA's rows ``[r0, r1)``: ``[r0 + k L, min(r0 +
+    (k + 1) L, r1))`` in order, L = :data:`WGRAD_CHAIN_ROWS_F32`. The first
+    is stored into the CTA's partial, each later one added to it."""
+    return [(a, min(a + WGRAD_CHAIN_ROWS_F32, r1))
+            for a in range(r0, r1, WGRAD_CHAIN_ROWS_F32)]
 
 
 def kernel_weights(w: torch.Tensor) -> torch.Tensor:
@@ -216,10 +228,10 @@ def nc_conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     part = torch.empty(parts * 27 * cpad * co, dtype=torch.float32, device=x.device)
     out = torch.empty((3, 3, 3, c, co), dtype=torch.float32, device=x.device)
     lib = _native.load("conv3d_wgrad")
-    lib.rn_conv3d_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.rn_conv3d_wgrad.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     rc = lib.rn_conv3d_wgrad(x.data_ptr(), gy.data_ptr(), part.data_ptr(), out.data_ptr(),
                              _native.dtype_code(x.dtype), b, h, wd, d, c, co, parts, cpad,
-                             _native.stream_ptr(x))
+                             WGRAD_CHAIN_ROWS_F32, _native.stream_ptr(x))
     _native.check(lib, rc, "K2w conv3d weight gradient")
     global wgrad_launches
     wgrad_launches += 1

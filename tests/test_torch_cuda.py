@@ -54,8 +54,8 @@ def test_resample_pass_kernel(cuda, dtype):
 # K2 / K2w cases: every (C, co) of C in {16, 24, 32} and co in {16, 32, 64};
 # batches 1, 5 and 24 (24 at the res1 training shape); W and D that are not
 # multiples of the bf16 kernels' 8 x 32 tile (or fp32's 4 x 32); C % 8 != 0
-# (the bf16 planes staged element by element); C = 8 and C > 32 (the
-# CUDA-core kernel in either dtype).
+# (the bf16 planes staged element by element); C = 8 and C > 32 (K2's
+# CUDA-core kernel in either dtype, K2w's two channel slices).
 CONV3D_CASES = [((1, 4, 8, 32, c), co) for c in (16, 24, 32) for co in (16, 32, 64)] + [
     ((5, 8, 8, 32, 32), 32), ((24, 64, 64, 32, 32), 32), ((2, 5, 10, 24, 24), 64),
     ((2, 4, 8, 20, 32), 32), ((2, 4, 8, 16, 20), 32), ((1, 4, 8, 8, 16), 16),
@@ -219,6 +219,29 @@ def test_conv3d_wgrad_kernel(cuda, dtype, xs, co):
     g = torch.Generator(device=cuda).manual_seed(3)
     x = torch.randn(*xs, generator=g, device=cuda).to(dtype)
     gy = torch.randn(*xs[:-1], co, generator=g, device=cuda).to(dtype)
+    before = cuda_conv3d.wgrad_launches_by_shape[tuple(xs), co]
+    got = cuda_conv3d.nc_conv3d_wgrad(x, gy)
+    again = cuda_conv3d.nc_conv3d_wgrad(x, gy)
+    assert cuda_conv3d.wgrad_launches_by_shape[tuple(xs), co] == before + 2
+    assert torch.equal(got, again)
+    _close(got, cuda_conv3d.nc_conv3d_wgrad_plain(x, gy), torch.float32)
+
+
+# fp32 K2w at its TF32 kernel's edges: W and D not whole 4 x 32 rows, C = 24
+# (a 32-channel slice, 8 of it zero) and 48 (two slices), co = 64 (two
+# slices), C % 4 != 0 (planes staged element by element); with the kernel's
+# accumulator chains and with chains of one row.
+@pytest.mark.parametrize("chain", [None, 1])
+@pytest.mark.parametrize("xs,co", [((2, 5, 6, 40, 24), 64), ((3, 7, 10, 24, 24), 64),
+                                   ((2, 3, 6, 48, 48), 32), ((1, 4, 8, 32, 18), 32)])
+def test_conv3d_wgrad_f32_edges(cuda, xs, co, chain, monkeypatch):
+    """fp32 K2w against its plain version, twice for the same bits."""
+    if chain is not None:
+        monkeypatch.setattr(cuda_conv3d, "WGRAD_CHAIN_ROWS_F32", chain)
+    assert cuda_conv3d.nc_conv3d_supported(xs, (3, 3, 3, xs[-1], co), (1, 1, 1))
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(*xs, generator=g, device=cuda)
+    gy = torch.randn(*xs[:-1], co, generator=g, device=cuda)
     before = cuda_conv3d.wgrad_launches_by_shape[tuple(xs), co]
     got = cuda_conv3d.nc_conv3d_wgrad(x, gy)
     again = cuda_conv3d.nc_conv3d_wgrad(x, gy)

@@ -378,3 +378,135 @@ def test_emulated_fused_conv_wgrad(chain, monkeypatch):
                                              jnp.asarray(d["gz"]), K5_CO))
     for want in (plain, jax_gw):
         assert np.abs(got - want).max() <= 0.1 * KERNEL_TOL * np.abs(want).max()
+
+
+# ---------------------------------------------------------------------------
+# K2w: both operands split in registers (rounded to nearest even), chains
+# of rows added into each CTA's partial
+# ---------------------------------------------------------------------------
+def _tf32_rn(a):
+    """``cvt.rn.tf32.f32``: the magnitude rounded to 10 stored mantissa
+    bits, half to even, sign kept (finite values)."""
+    u = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    mag = u & np.uint32(0x7FFFFFFF)
+    mag = (mag + np.uint32(0xFFF) + ((mag >> np.uint32(13)) & np.uint32(1))) & np.uint32(0x7FFFE000)
+    return (mag | (u & np.uint32(0x80000000))).view(np.float32)
+
+
+def _three_pass_rn(a, b):
+    """hi.hi + hi.lo + lo.hi as ``_three_pass``, with K2w's split
+    (``rn::tf32_split_rn``: both roundings to nearest even)."""
+    def split(v):
+        v = np.asarray(v, np.float32)
+        hi = _tf32_rn(v)
+        return hi.astype(np.float64), _tf32_rn(v - hi).astype(np.float64)
+
+    (ah, al), (bh, bl) = split(a), split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def test_tf32_rn_rounding_and_products():
+    """The emulated cvt.rn: ties to even, each value within 2^-11 of itself;
+    each three-pass product of the rn split within BOUND of |a b|."""
+    ulp = 2.0 ** -10
+    a = np.array([1 + ulp / 2, 1 + 1.5 * ulp, -(1 + 1.5 * ulp), 1 + ulp / 2 + 2.0 ** -23, 0.0],
+                 np.float32)
+    np.testing.assert_array_equal(_tf32_rn(a), np.array([1, 1 + 2 * ulp, -(1 + 2 * ulp),
+                                                         1 + ulp, 0], np.float32))
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(4096).astype(np.float32)
+    y = rng.standard_normal(4096).astype(np.float32)
+    assert not (_tf32_rn(x).view(np.uint32) & 0x1FFF).any()
+    assert (np.abs(_tf32_rn(x) - x) <= 2.0 ** -11 * np.abs(x)).all()
+    got = _three_pass_rn(x[:, None, None], y[:, None, None])[:, 0, 0]
+    exact = x.astype(np.float64) * y
+    assert (np.abs(got - exact) <= BOUND * np.abs(exact)).all()
+
+
+def _k2w_rows(x_shape, r0, r1):
+    """The positions of rows [r0, r1) of fp32 K2w's walk (4 W x 32 D of one
+    (b, h), decoded as ``column<F_TW>``), as index arrays (b, h, w, d)."""
+    b_, h_, w_, d_, _ = x_shape
+    tw, td = cuda_conv3d.TILE_W_F32, cuda_conv3d.TILE_D
+    idx = []
+    for r in range(r0, r1):
+        col, h = divmod(r, h_)
+        rest, dt = divmod(col, -(-d_ // td))
+        b, wt = divmod(rest, -(-w_ // tw))
+        w, d = np.meshgrid(np.arange(wt * tw, min(wt * tw + tw, w_)),
+                           np.arange(dt * td, min(dt * td + td, d_)), indexing="ij")
+        idx.append(np.stack([np.full(w.size, b), np.full(w.size, h), w.ravel(), d.ravel()]))
+    return tuple(np.concatenate(idx, axis=1))
+
+
+def _emulated_k2w(x, gy, n_sm, mags):
+    """K2w fp32 as built: the plan's parts (CTAs over the 4 W x 32 D rows),
+    each part's chains of rows (``wgrad_chains``), each chain's three-pass
+    sums (rn split) rounded to fp32, stored by the first chain and added in
+    fp32 by each later one, then the parts added in part order (the reduce
+    kernel's). Every channel slice sums its channels in this same order.
+    [3, 3, 3, C, co] fp32."""
+    b, h, wd, d, c = x.shape
+    co = gy.shape[-1]
+    parts, _ = cuda_conv3d.wgrad_plan(torch.float32, x.shape, co, n_sm)
+    rows = cuda_conv3d.conv3d_rows(x.shape, torch.float32)
+    xp = np.pad(x, ((0, 0), (1, 1), (1, 1), (1, 1), (0, 0)))
+    part = np.zeros((parts, 27, c, co), np.float32)
+    for i in range(parts):
+        for k, (c0, c1) in enumerate(cuda_conv3d.wgrad_chains(rows * i // parts,
+                                                              rows * (i + 1) // parts)):
+            pb, ph, pw, pd = _k2w_rows(x.shape, c0, c1)
+            a = np.stack([xp[pb, ph + kh, pw + kw, pd + kd].T
+                          for kh in range(3) for kw in range(3) for kd in range(3)])
+            g = gy[pb, ph, pw, pd]
+            got = _three_pass_rn(a, g)
+            exact = a.astype(np.float64) @ g.astype(np.float64)
+            mag = np.abs(a).astype(np.float64) @ np.abs(g).astype(np.float64)
+            mags.append(bool((np.abs(got - exact) <= BOUND * mag).all()))
+            part[i] = got.astype(np.float32) if k == 0 else part[i] + got.astype(np.float32)
+    out = part[0].copy()
+    for i in range(1, parts):
+        out += part[i]
+    return out.reshape(3, 3, 3, c, co)
+
+
+# A res1-like and a texture-like (16 -> 16) shape, on 2 SMs: two parts of 8
+# rows each, so that the kernel's chains (4 rows) and chains of one row differ.
+K2W_SHAPES = [((2, 4, 8, 32, 32), 32), ((2, 4, 8, 32, 16), 16)]
+
+
+@pytest.fixture(scope="module")
+def k2w_refs():
+    """Per shape: x, gy, the plain version and JAX's weight cotangent of
+    ``pallas_conv3d.nc_conv3d`` (``jax.vjp``; its Pallas kernels in
+    interpret mode), each computed once."""
+    import jax
+
+    out = {}
+    for xs, co in K2W_SHAPES:
+        rng = np.random.default_rng(12)
+        x = rng.standard_normal(xs).astype(np.float32)
+        gy = rng.standard_normal(xs[:-1] + (co,)).astype(np.float32)
+        plain = cuda_conv3d.nc_conv3d_wgrad_plain(torch.from_numpy(x), torch.from_numpy(gy))
+        w = jnp.zeros((3, 3, 3, xs[-1], co), jnp.float32)
+        _, vjp = jax.vjp(pallas_conv3d.nc_conv3d, jnp.asarray(x), w)
+        out[xs, co] = x, gy, plain.numpy(), np.asarray(vjp(jnp.asarray(gy))[1])
+    return out
+
+
+@pytest.mark.parametrize("chain", [None, 1])
+@pytest.mark.parametrize("xs,co", K2W_SHAPES)
+def test_emulated_conv3d_wgrad(xs, co, chain, k2w_refs, monkeypatch):
+    """The whole fp32 K2w, emulated with the kernel's chains and with chains
+    of one row, against ``nc_conv3d_wgrad_plain`` and JAX's weight
+    cotangent: within a tenth of KERNEL_TOL of max|gw|; every chain's sum
+    within BOUND of its sum of |a| |b|."""
+    if chain is not None:
+        monkeypatch.setattr(cuda_conv3d, "WGRAD_CHAIN_ROWS_F32", chain)
+    x, gy, plain, jax_gw = k2w_refs[xs, co]
+    assert cuda_conv3d.wgrad_plan(torch.float32, xs, co, 2)[0] == 2
+    mags = []
+    got = _emulated_k2w(x, gy, 2, mags)
+    assert len(mags) == 2 * -(-8 // cuda_conv3d.WGRAD_CHAIN_ROWS_F32) and all(mags)
+    for want in (plain, jax_gw):
+        assert np.abs(got - want).max() <= 0.1 * KERNEL_TOL * np.abs(want).max()
