@@ -1020,17 +1020,18 @@ def _counters():
 
 def reset_counts():
     for mod, p in _counters().values():
-        setattr(mod, p + "launches", 0)
+        if hasattr(mod, p + "launches"):
+            setattr(mod, p + "launches", 0)
         getattr(mod, p + "launches_by_shape").clear()
     for kid in ("K1", "K4"):
         path_counter(kid).clear()
 
 
 def read_counts():
-    """({kernel id: launches}, {kernel id: {shape key: launches}})."""
-    c = _counters()
-    return ({k: getattr(m, p + "launches") for k, (m, p) in c.items()},
-            {k: dict(getattr(m, p + "launches_by_shape")) for k, (m, p) in c.items()})
+    """({kernel id: launches}, {kernel id: {shape key: launches}}); the
+    totals are the sums of the counts by shape."""
+    by_shape = {k: dict(getattr(m, p + "launches_by_shape")) for k, (m, p) in _counters().items()}
+    return {k: sum(v.values()) for k, v in by_shape.items()}, by_shape
 
 
 def check_counts(failures, what, by_shape, n_fwd):

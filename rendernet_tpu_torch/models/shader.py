@@ -41,6 +41,7 @@ from rendernet_tpu_torch.ops.resample import (
     rotate_resample_camera_patch,
     rotate_resample_to_camera,
 )
+from rendernet_tpu_torch.utils.spans import span
 
 __all__ = ["ShaderConfig", "ShaderRenderNet", "shader_forward", "init_shader_params",
            "INPUT_HALO", "slab_rows", "camera_warp"]
@@ -164,17 +165,21 @@ class ShaderRenderNet(nn.Module):
             return dropout(e[name](x, shard=shard, **kw), cfg.keep_prob, generator, train,
                            shard=shard)
 
-        x = unit("e_conv1", vox, **({"extended": True} if extended else {}))
-        x = unit("e_conv3", unit("e_conv2", x))
         pre = cfg.preact_policy
-        x = self._stack("res1", cfg.res1_blocks, x, cfg.remat or cfg.remat_3d, pre, shard)
-        x = e["projection_unit"](x)  # a 1x1 conv over (depth, channel): local in the rows
-        x = self._stack("res2", cfg.res2_blocks, x, cfg.remat, pre, shard)
-        x = unit("e_conv5", x)
-        x = self._stack("res3", cfg.res3_blocks, x, cfg.remat, pre, shard)
-        for name in ("e_conv6", "e_conv7", "e_conv7_1", "e_conv8", "e_conv9", "e_conv10"):
-            x = unit(name, x)
-        return torch.sigmoid(e["e_conv11"](x, shard=shard).float())
+        with span("encoder3d"):
+            x = unit("e_conv1", vox, **({"extended": True} if extended else {}))
+            x = unit("e_conv3", unit("e_conv2", x))
+            x = self._stack("res1", cfg.res1_blocks, x, cfg.remat or cfg.remat_3d, pre, shard)
+        with span("projection"):
+            x = e["projection_unit"](x)  # a 1x1 conv over (depth, channel): local in the rows
+        with span("stack2d"):
+            x = self._stack("res2", cfg.res2_blocks, x, cfg.remat, pre, shard)
+            x = unit("e_conv5", x)
+            x = self._stack("res3", cfg.res3_blocks, x, cfg.remat, pre, shard)
+        with span("heads"):
+            for name in ("e_conv6", "e_conv7", "e_conv7_1", "e_conv8", "e_conv9", "e_conv10"):
+                x = unit(name, x)
+            return torch.sigmoid(e["e_conv11"](x, shard=shard).float())
 
 
 def slab_rows(shard: RowShard, patch: int) -> tuple:
@@ -201,17 +206,18 @@ def camera_warp(grid: torch.Tensor, view_params: torch.Tensor, new_size: int,
     rows)."""
     if resample not in ("exact", "multipass"):
         raise ValueError(f"resample must be 'exact' or 'multipass', got {resample!r}")
-    if shard is not None:
-        args = (grid, view_params, (0, 0), new_size)
-        rows = slab_rows(shard, new_size)
+    with span("warp"):
+        if shard is not None:
+            args = (grid, view_params, (0, 0), new_size)
+            rows = slab_rows(shard, new_size)
+            if resample == "multipass":
+                return rotate_resample_camera_patch_multipass(
+                    *args, new_size=new_size, compute_dtype=compute_dtype, rows=rows)
+            return rotate_resample_camera_patch(*args, new_size=new_size, rows=rows)
         if resample == "multipass":
-            return rotate_resample_camera_patch_multipass(
-                *args, new_size=new_size, compute_dtype=compute_dtype, rows=rows)
-        return rotate_resample_camera_patch(*args, new_size=new_size, rows=rows)
-    if resample == "multipass":
-        return rotate_resample_to_camera_multipass(grid, view_params, new_size=new_size,
-                                                   compute_dtype=compute_dtype)
-    return rotate_resample_to_camera(grid, view_params, new_size=new_size)
+            return rotate_resample_to_camera_multipass(grid, view_params, new_size=new_size,
+                                                       compute_dtype=compute_dtype)
+        return rotate_resample_to_camera(grid, view_params, new_size=new_size)
 
 
 def shader_forward(
@@ -243,15 +249,17 @@ def shader_forward(
     image rows, or with ``gather`` the whole image (every rank)."""
     from rendernet_tpu_torch.train.distributed import spatial_sharding
 
-    shard = None
-    if mesh is not None and mesh.shape["model"] > 1:
-        shard = spatial_sharding(mesh, 5)
-        voxels = shard.gather(voxels)
-    with torch.no_grad():
-        cam = camera_warp(voxels, view_params, net.cfg.new_size, resample, compute_dtype, shard)
-    out = net(cam.to(compute_dtype), train=train, generator=dropout_generator, shard=shard,
-              extended=shard is not None)
-    return shard.gather(out) if gather and shard is not None else out
+    with span("render"):
+        shard = None
+        if mesh is not None and mesh.shape["model"] > 1:
+            shard = spatial_sharding(mesh, 5)
+            voxels = shard.gather(voxels)
+        with torch.no_grad():
+            cam = camera_warp(voxels, view_params, net.cfg.new_size, resample, compute_dtype,
+                              shard)
+        out = net(cam.to(compute_dtype), train=train, generator=dropout_generator, shard=shard,
+                  extended=shard is not None)
+        return shard.gather(out) if gather and shard is not None else out
 
 
 def init_shader_params(seed, cfg: ShaderConfig, device=None) -> ShaderRenderNet:

@@ -53,6 +53,7 @@ from rendernet_tpu_torch.nn.layers import (
 )
 from rendernet_tpu_torch.models.shader import camera_warp
 from rendernet_tpu_torch.ops.halo import RowShard
+from rendernet_tpu_torch.utils.spans import span
 
 __all__ = [
     "TextureFaceConfig",
@@ -178,10 +179,11 @@ class TextureFaceRenderNet(nn.Module):
               shard: RowShard | None) -> torch.Tensor:
         h = self.encoder[head]
         x = trunk
-        for n in (6, 7, 8, 9):
-            x = unit(h[f"e_conv{n}{sfx}"], x)
-        last = next(iter(h[f"e_conv10{sfx}"].values()))
-        return torch.sigmoid((last(x) if shard is None else last(x, shard=shard)).float())
+        with span("heads"):
+            for n in (6, 7, 8, 9):
+                x = unit(h[f"e_conv{n}{sfx}"], x)
+            last = next(iter(h[f"e_conv10{sfx}"].values()))
+            return torch.sigmoid((last(x) if shard is None else last(x, shard=shard)).float())
 
     def forward(self, vox: torch.Tensor, train: bool = False,
                 generator: torch.Generator | None = None,
@@ -204,15 +206,18 @@ class TextureFaceRenderNet(nn.Module):
             y = mod(x) if shard is None else mod(x, shard=shard, **kw)
             return dropout(y, cfg.keep_prob, generator, train, shard=shard)
 
-        x = unit(e["e_conv1"], vox, **({"extended": True} if extended else {}))
-        for name in ("e_conv2", "e_conv3"):
-            x = unit(e[name], x)
         pre = cfg.preact_policy
-        x = self._stack("res1", cfg.res1_blocks, x, cfg.remat, pre, shard)
-        x = e["projection_unit"](x)  # a 1x1 conv over (depth, channel): local in the rows
-        x = self._stack("res2", cfg.res2_blocks, x, cfg.remat, pre, shard)
-        x = unit(e["e_conv5"], x)
-        trunk = self._stack("res3", cfg.res3_blocks, x, cfg.remat, pre, shard)
+        with span("encoder3d"):
+            x = unit(e["e_conv1"], vox, **({"extended": True} if extended else {}))
+            for name in ("e_conv2", "e_conv3"):
+                x = unit(e[name], x)
+            x = self._stack("res1", cfg.res1_blocks, x, cfg.remat, pre, shard)
+        with span("projection"):
+            x = e["projection_unit"](x)  # a 1x1 conv over (depth, channel): local in the rows
+        with span("stack2d"):
+            x = self._stack("res2", cfg.res2_blocks, x, cfg.remat, pre, shard)
+            x = unit(e["e_conv5"], x)
+            trunk = self._stack("res3", cfg.res3_blocks, x, cfg.remat, pre, shard)
         return (self._head("Image", "_1", trunk, unit, shard),
                 self._head("Normal", "_2", trunk, unit, shard))
 
@@ -224,10 +229,11 @@ def texture_decoder(net: TextureFaceRenderNet, z: torch.Tensor) -> torch.Tensor:
     after each."""
     g = net.cfg.tex_base
     e = net.texture_encoder
-    x = e["e_tex_fc1"](z).reshape(z.shape[0], g, g, g, 4)
-    for name in list(e)[1:]:
-        x = e[name](x)
-    return x
+    with span("decoder"):
+        x = e["e_tex_fc1"](z).reshape(z.shape[0], g, g, g, 4)
+        for name in list(e)[1:]:
+            x = e[name](x)
+        return x
 
 
 def texture_face_forward(
@@ -258,21 +264,22 @@ def texture_face_forward(
     from rendernet_tpu_torch.train.distributed import spatial_sharding
 
     cfg = net.cfg
-    shard = None
-    if mesh is not None and mesh.shape["model"] > 1:
-        shard = spatial_sharding(mesh, 5)
-        voxels = shard.gather(voxels)
-    tex = texture_decoder(net, texture_code.to(compute_dtype))
-    shape_cam = camera_warp(voxels.to(torch.float32), view_params, cfg.new_size, resample,
-                            compute_dtype, shard)
-    tex_cam = camera_warp(tex.to(torch.float32), view_params, cfg.new_size, resample,
-                          compute_dtype, shard)
-    both = torch.cat([shape_cam.to(compute_dtype), tex_cam.to(compute_dtype)], dim=4)
-    albedo, normal = net(both, train=train, generator=dropout_generator, shard=shard,
-                         extended=shard is not None)
-    if gather and shard is not None:
-        return shard.gather(albedo), shard.gather(normal)
-    return albedo, normal
+    with span("render"):
+        shard = None
+        if mesh is not None and mesh.shape["model"] > 1:
+            shard = spatial_sharding(mesh, 5)
+            voxels = shard.gather(voxels)
+        tex = texture_decoder(net, texture_code.to(compute_dtype))
+        shape_cam = camera_warp(voxels.to(torch.float32), view_params, cfg.new_size, resample,
+                                compute_dtype, shard)
+        tex_cam = camera_warp(tex.to(torch.float32), view_params, cfg.new_size, resample,
+                              compute_dtype, shard)
+        both = torch.cat([shape_cam.to(compute_dtype), tex_cam.to(compute_dtype)], dim=4)
+        albedo, normal = net(both, train=train, generator=dropout_generator, shard=shard,
+                             extended=shard is not None)
+        if gather and shard is not None:
+            return shard.gather(albedo), shard.gather(normal)
+        return albedo, normal
 
 
 def init_texture_face_params(seed, cfg: TextureFaceConfig, device=None) -> TextureFaceRenderNet:

@@ -61,6 +61,7 @@ from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_winograd, pha
 from rendernet_tpu_torch.ops.conv_grad import (conv_wgrad, flip_io, gather_taps, plain_conv,
                                                plain_conv_wgrad, same_pads)
 from rendernet_tpu_torch.ops.halo import RowShard, exchange
+from rendernet_tpu_torch.utils.spans import span
 
 __all__ = [
     "CUDA_CONV2D",
@@ -171,7 +172,9 @@ def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
     as ``jnp.maximum`` / ``jnp.minimum``'s does, where ``clamp_min`` /
     ``clamp_max`` would pass all of it to both terms."""
     zero = x.new_zeros(())
-    return torch.maximum(x, zero) + alpha.to(x.dtype) * torch.minimum(x, zero)
+    with span("weights"):
+        alpha = alpha.to(x.dtype)
+    return torch.maximum(x, zero) + alpha * torch.minimum(x, zero)
 
 
 def _plain_conv(x: torch.Tensor, w: torch.Tensor, stride, ndim: int) -> torch.Tensor:
@@ -583,9 +586,10 @@ class Conv(nn.Module):
     def forward(self, x: torch.Tensor, shard: RowShard | None = None,
                 extended: bool = False) -> torch.Tensor:
         """``shard``, ``extended``: :func:`conv_slab`."""
-        w = to_jax_layout(self.weight).to(x.dtype)
-        return conv_slab(x, w, self.stride, len(self.stride), shard, extended) \
-            + self.bias.to(x.dtype)
+        with span("weights"):
+            w = to_jax_layout(self.weight).to(x.dtype)
+            b = self.bias.to(x.dtype)
+        return conv_slab(x, w, self.stride, len(self.stride), shard, extended) + b
 
 
 class ConvTranspose(nn.Module):
@@ -603,7 +607,9 @@ class ConvTranspose(nn.Module):
     def forward(self, x: torch.Tensor, shard: RowShard | None = None) -> torch.Tensor:
         """``shard``: this rank's rows, extended by :func:`deconv_halo`; its
         output rows are ``stride`` x its input rows."""
-        w = to_jax_layout(self.weight).to(x.dtype)
+        with span("weights"):
+            w = to_jax_layout(self.weight).to(x.dtype)
+            b = self.bias.to(x.dtype)
         ndim = len(self.stride)
         if shard is None:
             y = conv_transpose_op(x, w, self.stride, ndim)
@@ -611,7 +617,7 @@ class ConvTranspose(nn.Module):
             s = self.stride[0]
             y = on_slab(lambda xe: conv_transpose_op(xe, w, self.stride, ndim), x, shard,
                         deconv_halo(w.shape[0], s), up=s)
-        return y + self.bias.to(x.dtype)
+        return y + b
 
 
 class FullyConnected(nn.Module):
@@ -625,7 +631,9 @@ class FullyConnected(nn.Module):
         self.bias = nn.Parameter(init.constant((out_size,), 0.001))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.weight.to(x.dtype).t()) + self.bias.to(x.dtype)
+        with span("weights"):
+            w, b = self.weight.to(x.dtype).t(), self.bias.to(x.dtype)
+        return torch.matmul(x, w) + b
 
 
 class ConvUnit(nn.Module):
@@ -677,8 +685,9 @@ class ResBlock(nn.Module):
             net = self.conv2_3x3(torch.maximum(net, net.new_zeros(())), shard=shard)
         elif preact:
             c2 = self.conv2_3x3
-            args = (self.alpha.to(net.dtype), to_jax_layout(c2.weight).to(net.dtype),
-                    c2.bias.to(net.dtype), self.ndim)
+            with span("weights"):
+                args = (self.alpha.to(net.dtype), to_jax_layout(c2.weight).to(net.dtype),
+                        c2.bias.to(net.dtype), self.ndim)
             if shard is None:
                 net = act_conv(net, *args)
             else:
@@ -696,14 +705,16 @@ class ResBlock(nn.Module):
         row each side; the residual is the first op's extended input."""
         dt = xh.dtype
         c1, c2 = self.con1_3X3, self.conv2_3x3
-        w1, b1 = to_jax_layout(c1.weight).to(dt), c1.bias.to(dt)
-        if self.activation == "prelu":
+        with span("weights"):
+            w1, b1 = to_jax_layout(c1.weight).to(dt), c1.bias.to(dt)
+            w2, b2 = to_jax_layout(c2.weight).to(dt), c2.bias.to(dt)
+            alpha = self.alpha.to(dt) if self.activation == "prelu" else None
+        if alpha is not None:
             def first(x):
-                return cuda_conv2d.wc_conv2d_prelu_hwnc(x, w1, b1, self.alpha.to(dt))
+                return cuda_conv2d.wc_conv2d_prelu_hwnc(x, w1, b1, alpha)
         else:
             def first(x):
                 return cuda_conv2d.wc_conv2d_relu_hwnc(x, w1, b1)
-        w2, b2 = to_jax_layout(c2.weight).to(dt), c2.bias.to(dt)
         if shard is None:
             return cuda_conv2d.wc_conv2d_res_hwnc(first(xh), w2, b2, xh)
         xe = exchange(xh, 1, 1, shard, 0)

@@ -88,13 +88,13 @@ __all__ = [
 # call.
 PRELU_SAVE_PRE = True
 
-# Launches since the last reset, in all and by key: K5 (``launches``;
-# forward convs, data gradients and z recomputes alike) by (input shape,
-# output channels, epilogue); K5w (``wgrad_launches``) by (input shape,
-# output channels). Shapes are HWNC. The CPU path launches none.
+# Launches since the last reset: K5 in all (``launches``) and by (input
+# shape, output channels, epilogue) (forward convs, data gradients and z
+# recomputes alike), K5w by (input shape, output channels)
+# (``wgrad_launches_by_shape``). Shapes are HWNC. The CPU path launches
+# none.
 launches = 0
 launches_by_shape: Counter = Counter()
-wgrad_launches = 0
 wgrad_launches_by_shape: Counter = Counter()
 
 _ACTS = {"none": 0, "prelu": 1, "relu": 2}
@@ -546,8 +546,6 @@ def conv2d_wgrad(xh: torch.Tensor, gz: torch.Tensor) -> torch.Tensor:
                              wd, b, c, co, parts, grid, MAX_CHAIN_STEPS_F32,
                              _native.stream_ptr(x))
     _native.check(lib, rc, "K5w conv2d weight gradient")
-    global wgrad_launches
-    wgrad_launches += 1
     wgrad_launches_by_shape[(h, wd, b, c), co] += 1
     return out
 

@@ -28,12 +28,12 @@ __all__ = [
     "nc_conv3d_wgrad_plain",
 ]
 
-# Launches since the last reset, in all and by (input shape, output
-# channels): K2 (``launches``; forward convs and data gradients alike) and
-# K2w (``wgrad_launches``). The CPU path launches none.
+# Launches since the last reset: K2 in all (``launches``) and by (input
+# shape, output channels) (forward convs and data gradients alike), K2w by
+# (input shape, output channels) (``wgrad_launches_by_shape``). The CPU
+# path launches none.
 launches = 0
 launches_by_shape: Counter = Counter()
-wgrad_launches = 0
 wgrad_launches_by_shape: Counter = Counter()
 
 
@@ -233,8 +233,6 @@ def nc_conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
                              _native.dtype_code(x.dtype), b, h, wd, d, c, co, parts, cpad,
                              WGRAD_CHAIN_ROWS_F32, _native.stream_ptr(x))
     _native.check(lib, rc, "K2w conv3d weight gradient")
-    global wgrad_launches
-    wgrad_launches += 1
     wgrad_launches_by_shape[(b, h, wd, d, c), co] += 1
     return out
 

@@ -55,12 +55,12 @@ __all__ = [
 #            planes, hi and lo, and the GEMM adds three bf16 products).
 WGRAD = False
 
-# Launches since the last reset, in all and by (input shape, output
-# channels): K3 (``launches``; forward convs and data gradients alike) and
-# K6 (``wgrad_launches``). The CPU path launches none.
+# Launches since the last reset: K3 in all (``launches``) and by (input
+# shape, output channels) (forward convs and data gradients alike), K6 by
+# (input shape, output channels) (``wgrad_launches_by_shape``). The CPU
+# path launches none.
 launches = 0
 launches_by_shape: Counter = Counter()
-wgrad_launches = 0
 wgrad_launches_by_shape: Counter = Counter()
 
 wino_conv2d_plain = winograd3x3
@@ -363,8 +363,6 @@ def wino_wgrad(x: torch.Tensor, gy: torch.Tensor, fp32_operands: bool | None = N
                            c, k, parts, _items_per_part(c, k) * parts, grid,
                            _native.stream_ptr(x))
     _native.check(lib, rc, "K6 winograd weight gradient")
-    global wgrad_launches
-    wgrad_launches += 1
     wgrad_launches_by_shape[(b, h, wd, c), k] += 1
     return out
 

@@ -72,7 +72,8 @@ class TrainConfig:
     tensorboard: bool = True
     # Profiling: when profile_dir is set, a profiler trace of steps
     # [profile_start_step, profile_start_step + profile_steps) is written
-    # there (the training loop's option).
+    # there as trace.json (the training loop's option), with the port's
+    # spans (utils/spans.py) as rn.<span> ranges naming each layer.
     profile_dir: str = ""
     profile_start_step: int = 10
     profile_steps: int = 5

@@ -58,6 +58,7 @@ from rendernet_tpu_torch.train.steps import (
     make_shader_train_step,
     make_texture_train_step,
 )
+from rendernet_tpu_torch.utils import spans
 from rendernet_tpu_torch.utils.image import save_image, to_uint8
 
 __all__ = ["train_shader", "train_texture"]
@@ -115,10 +116,12 @@ def _guard_loss(cfg: TrainConfig, run, state, global_step: int, epoch: int,
 class _ProfileWindow:
     """A ``torch.profiler`` trace of steps ``[profile_start_step,
     profile_start_step + profile_steps)``, written as a Chrome trace into
-    ``cfg.profile_dir`` (JAX's ``_profile_window``)."""
+    ``cfg.profile_dir`` (JAX's ``_profile_window``). The port's spans
+    (``utils/spans.py``) are recorded inside the window, so the trace
+    names each layer as a ``rn.<span>`` range."""
 
     def __init__(self, cfg: TrainConfig):
-        self.cfg, self.prof = cfg, None
+        self.cfg, self.prof, self.recording = cfg, None, None
 
     def __call__(self, global_step: int) -> None:
         cfg = self.cfg
@@ -132,12 +135,16 @@ class _ProfileWindow:
                 acts.append(ProfilerActivity.CUDA)
             self.prof = profile(activities=acts)
             self.prof.__enter__()
+            self.recording = spans.recording()
+            self.recording.__enter__()
         elif global_step == cfg.profile_start_step + cfg.profile_steps and self.prof is not None:
             self.stop()
 
     def stop(self) -> None:
         if self.prof is not None:
             prof, self.prof = self.prof, None
+            rec, self.recording = self.recording, None
+            rec.__exit__(None, None, None)
             prof.__exit__(None, None, None)
             os.makedirs(self.cfg.profile_dir, exist_ok=True)
             prof.export_chrome_trace(os.path.join(self.cfg.profile_dir, "trace.json"))

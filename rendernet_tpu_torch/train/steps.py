@@ -72,6 +72,7 @@ from rendernet_tpu_torch.ops.resample import (
 from rendernet_tpu_torch.train import distributed
 from rendernet_tpu_torch.train.config import TrainConfig
 from rendernet_tpu_torch.train.optim import GradientTransformation, apply_updates, make_optimizer
+from rendernet_tpu_torch.utils.spans import span
 
 __all__ = [
     "TrainState",
@@ -122,11 +123,12 @@ def _resample_method(cfg: TrainConfig, device: torch.device) -> str:
 def _resample_full(voxels, poses, cfg: TrainConfig):
     """Full camera-aligned grid via the configured resample (differentiable
     where grad mode is on)."""
-    if _resample_method(cfg, voxels.device) == "multipass":
-        return rotate_resample_to_camera_multipass(
-            voxels, poses, new_size=cfg.new_size, max_scale=cfg.pose_scale_limit,
-            compute_dtype=_dtype(cfg.compute_dtype))
-    return rotate_resample_to_camera(voxels, poses, new_size=cfg.new_size)
+    with span("warp"):
+        if _resample_method(cfg, voxels.device) == "multipass":
+            return rotate_resample_to_camera_multipass(
+                voxels, poses, new_size=cfg.new_size, max_scale=cfg.pose_scale_limit,
+                compute_dtype=_dtype(cfg.compute_dtype))
+        return rotate_resample_to_camera(voxels, poses, new_size=cfg.new_size)
 
 
 def _resample_patch(voxels, poses, offsets, patch_size: int, cfg: TrainConfig, rows=None):
@@ -134,12 +136,14 @@ def _resample_patch(voxels, poses, offsets, patch_size: int, cfg: TrainConfig, r
     resample (the exact path gathers only the window; the multipass path's
     last pass of each cropped axis emits only the window). ``rows``: only
     those rows of the patch (a rank's slab and halo)."""
-    if _resample_method(cfg, voxels.device) == "multipass":
-        return rotate_resample_camera_patch_multipass(
-            voxels, poses, offsets, patch_size, new_size=cfg.new_size,
-            max_scale=cfg.pose_scale_limit, compute_dtype=_dtype(cfg.compute_dtype), rows=rows)
-    return rotate_resample_camera_patch(voxels, poses, offsets, patch_size,
-                                        new_size=cfg.new_size, rows=rows)
+    with span("warp"):
+        if _resample_method(cfg, voxels.device) == "multipass":
+            return rotate_resample_camera_patch_multipass(
+                voxels, poses, offsets, patch_size, new_size=cfg.new_size,
+                max_scale=cfg.pose_scale_limit, compute_dtype=_dtype(cfg.compute_dtype),
+                rows=rows)
+        return rotate_resample_camera_patch(voxels, poses, offsets, patch_size,
+                                            new_size=cfg.new_size, rows=rows)
 
 
 def _as_f32_image(images: torch.Tensor) -> torch.Tensor:
@@ -226,7 +230,8 @@ def _apply_step(state: TrainState, tx: GradientTransformation, batch: int, accum
     loss_sum, grad_sum = None, None
     for i in range(accum):
         loss = micro_loss(slice(i * mb, (i + 1) * mb))
-        grads = torch.autograd.grad(loss, list(params.values()))
+        with span("backward"):
+            grads = torch.autograd.grad(loss, list(params.values()))
         if accum == 1:
             loss_sum, grad_sum = loss.detach(), grads
             break
@@ -245,8 +250,9 @@ def _apply_step(state: TrainState, tx: GradientTransformation, batch: int, accum
     if mesh is not None and mesh.shape["data"] > 1:
         grad_sum = distributed.all_reduce_mean(grad_sum, mesh, _dtype(allreduce_dtype))
         loss_sum = distributed.all_reduce_mean([loss_sum], mesh)[0]
-    updates, opt_state = tx.update(dict(zip(params, grad_sum)), state.opt_state, params)
-    apply_updates(params, updates)
+    with span("update"):
+        updates, opt_state = tx.update(dict(zip(params, grad_sum)), state.opt_state, params)
+        apply_updates(params, updates)
     return TrainState(net, opt_state, state.step + 1), loss_sum
 
 
@@ -279,7 +285,8 @@ def make_shader_train_step(model_cfg: ShaderConfig, cfg: TrainConfig,
 
     def loss_fn(net, voxels, images, poses, offsets, drop_seed):
         voxels = voxels.to(torch.float32)
-        images = _as_f32_image(images)
+        with span("loss"):
+            images = _as_f32_image(images)
         with torch.no_grad():
             if shard is not None:
                 voxels, images = shard.gather(voxels), shard.gather(images)
@@ -299,17 +306,20 @@ def make_shader_train_step(model_cfg: ShaderConfig, cfg: TrainConfig,
             gen = torch.Generator(device=voxels.device).manual_seed(drop_seed)
         pred = net(vox_c.to(cdt), train=True, generator=gen, cfg=model_cfg, shard=shard,
                    extended=shard is not None)
-        loss = shader_loss_from_images(pred, img_c, greyscale)
-        if shard is not None and not greyscale:
-            loss = loss / shard.size  # the rank's share of the whole image's mean
+        with span("loss"):
+            loss = shader_loss_from_images(pred, img_c, greyscale)
+            if shard is not None and not greyscale:
+                loss = loss / shard.size  # the rank's share of the whole image's mean
         return loss
 
     def step(state: TrainState, voxels, images, poses, rng: int,
              offsets: Optional[Sequence[int]] = None):
-        offsets, drop_seed = _step_offsets(state, rng, patch_size, cfg, offsets, mesh)
-        return _apply_step(state, tx, voxels.shape[0], cfg.grad_accum_steps,
-                           lambda sl: loss_fn(state.params, voxels[sl], images[sl], poses[sl],
-                                              offsets, drop_seed), mesh, cfg.allreduce_dtype)
+        with span("train_step"):
+            offsets, drop_seed = _step_offsets(state, rng, patch_size, cfg, offsets, mesh)
+            return _apply_step(state, tx, voxels.shape[0], cfg.grad_accum_steps,
+                               lambda sl: loss_fn(state.params, voxels[sl], images[sl],
+                                                  poses[sl], offsets, drop_seed),
+                               mesh, cfg.allreduce_dtype)
 
     return step
 
@@ -367,8 +377,9 @@ def texture_loss(net: TextureFaceRenderNet, model_cfg: TextureFaceConfig, cfg: T
     gradients once per rank)."""
     cdt = _dtype(cfg.compute_dtype)
     voxels = voxels.to(torch.float32)
-    images = _as_f32_image(images)
-    normals = _as_f32_image(normals)
+    with span("loss"):
+        images = _as_f32_image(images)
+        normals = _as_f32_image(normals)
     rows = None
     if shard is not None:
         voxels, images, normals = (shard.gather(t) for t in (voxels, images, normals))
@@ -400,9 +411,10 @@ def texture_loss(net: TextureFaceRenderNet, model_cfg: TextureFaceConfig, cfg: T
         gen = torch.Generator(device=voxels.device).manual_seed(drop_seed)
     albedo, normal = net(both_c.to(cdt), train=True, generator=gen, cfg=model_cfg, shard=shard,
                          extended=shard is not None)
-    loss = (shader_loss_from_images(albedo, img_c, greyscale=False)
-            + shader_loss_from_images(normal, nrm_c, greyscale=False))
-    return loss if shard is None else loss / shard.size  # the rank's share of the means
+    with span("loss"):
+        loss = (shader_loss_from_images(albedo, img_c, greyscale=False)
+                + shader_loss_from_images(normal, nrm_c, greyscale=False))
+        return loss if shard is None else loss / shard.size  # the rank's share of the means
 
 
 def make_texture_train_step(model_cfg: TextureFaceConfig, cfg: TrainConfig,
@@ -427,11 +439,12 @@ def make_texture_train_step(model_cfg: TextureFaceConfig, cfg: TrainConfig,
 
     def step(state: TrainState, voxels, images, normals, textures, poses, rng: int,
              offsets: Optional[Sequence[int]] = None):
-        offsets, drop_seed = _step_offsets(state, rng, patch_size, cfg, offsets, mesh)
-        return _apply_step(
-            state, tx, voxels.shape[0], cfg.grad_accum_steps,
-            lambda sl: texture_loss(state.params, model_cfg, cfg, patch_size, voxels[sl],
-                                    images[sl], normals[sl], textures[sl], poses[sl],
-                                    offsets, drop_seed, shard), mesh, cfg.allreduce_dtype)
+        with span("train_step"):
+            offsets, drop_seed = _step_offsets(state, rng, patch_size, cfg, offsets, mesh)
+            return _apply_step(
+                state, tx, voxels.shape[0], cfg.grad_accum_steps,
+                lambda sl: texture_loss(state.params, model_cfg, cfg, patch_size, voxels[sl],
+                                        images[sl], normals[sl], textures[sl], poses[sl],
+                                        offsets, drop_seed, shard), mesh, cfg.allreduce_dtype)
 
     return step

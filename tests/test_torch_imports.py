@@ -49,7 +49,7 @@ def test_importing_every_module_pulls_in_no_jax():
                 "ops.halo",
                 "ops.resample", "ops.transforms", "ops.winograd", "train.config",
                 "ops.phase_conv", "compat.frozen", "compat.pb_import", "cli.convert",
-                "train.optim", "train.steps", "utils.image", "train.distributed",
+                "train.optim", "train.steps", "utils.image", "utils.spans", "train.distributed",
                 "graft_entry"):
         assert f"rendernet_tpu_torch.{mod}" in res["modules"]
 
