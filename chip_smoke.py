@@ -25,7 +25,13 @@ Phases, all of them on every run:
      against the plain version are printed, not gated: bf16 grids round
      the positions; the device kernels of cuDNN's fp32 K5w call at res2 by
      name), then the fp32 K5 / K5w and K2w at several accumulator chain
-     lengths (``chains``: error and ms);
+     lengths (``chains``: error and ms), then the fused Adam update (no TPU
+     kernel) at the shader's and texface's parameter sets (``adam``
+     lines: bit-equal to its plain version, its ms, the plain version's
+     and ``torch.optim.Adam(fused=True)``'s, and its SASS: 128-bit loads,
+     no local memory; every training step below is checked for one Adam
+     launch, and the kernels line takes its launches from the patch-64
+     train runs of phases 4 and 7);
   3. serving: run the render CLI (fp32, ``--fast --resample multipass
      --rotate --sweep_batch 8``: 72 frames, 9 batch-8 forwards) on a
      procedural voxel, then one bf16 ``shader_forward`` at batch 8, both at
@@ -293,7 +299,7 @@ COUNTERS = {"K1": ("cuda_resample", ""), "K4": ("cuda_resample", "bwd_"),
             "K2": ("cuda_conv3d", ""),
             "K2w": ("cuda_conv3d", "wgrad_"), "K3": ("cuda_winograd", ""),
             "K6": ("cuda_winograd", "wgrad_"), "K5": ("cuda_conv2d", ""),
-            "K5w": ("cuda_conv2d", "wgrad_")}
+            "K5w": ("cuda_conv2d", "wgrad_"), "Adam": ("cuda_adam", "")}
 
 
 def log(msg: str) -> None:
@@ -1011,10 +1017,16 @@ def path_counter(kid):
 
 
 def _counters():
-    from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_resample, cuda_winograd
+    from rendernet_tpu_torch.ops import (
+        cuda_adam,
+        cuda_conv2d,
+        cuda_conv3d,
+        cuda_resample,
+        cuda_winograd,
+    )
 
     mods = {"cuda_resample": cuda_resample, "cuda_conv3d": cuda_conv3d,
-            "cuda_winograd": cuda_winograd, "cuda_conv2d": cuda_conv2d}
+            "cuda_winograd": cuda_winograd, "cuda_conv2d": cuda_conv2d, "cuda_adam": cuda_adam}
     return {kid: (mods[m], p) for kid, (m, p) in COUNTERS.items()}
 
 
@@ -1242,6 +1254,13 @@ def step_launches(b, patch, wgrad=False, remat=False, conv2d=False, save_pre=Tru
     }
 
 
+def adam_launches(net) -> dict:
+    """The optimizer's launches a training step: the fused Adam kernel
+    once, over every parameter tensor of ``net`` (keyed by the tensors a
+    launch takes)."""
+    return {"Adam": {len(list(net.parameters())): 1}}
+
+
 def check_step_counts(failures, what, by_shape, n_steps, expected):
     """Every kernel's launches over ``n_steps`` steps at each shape equal the
     per-step expectation times ``n_steps``; returns the launches per step
@@ -1386,9 +1405,10 @@ def timed_steps(torch, failures, state, step, batch, n, expected, what, tag, inf
     """A warm-up step, then ``n`` timed steps of ``step`` on one batch
     (synchronize to synchronize; each step's time, and their median, from
     CUDA events recorded between the steps), with peak memory, launch
-    counts checked against ``expected`` per step, every loss finite and
-    every parameter finite and moved. Returns (state, result, launches per
-    step)."""
+    counts checked against ``expected`` and one Adam launch per step, every
+    loss finite and every parameter finite and moved. Returns (state,
+    result, launches per step)."""
+    expected = {**expected, **adam_launches(state.params)}
     before = {k: p.detach().clone() for k, p in state.params.named_parameters()}
     torch.cuda.reset_peak_memory_stats()
     state, loss = step(state, *batch, 1)  # warm-up
@@ -3014,15 +3034,21 @@ def free_port() -> int:
 
 
 def recording(tx, sink: list):
-    """``tx`` whose update appends (a clone of) the gradients it is given to
-    ``sink``: on a data-parallel step, the all-reduced ones."""
+    """``tx`` whose update, and in-place apply where it has one, append (a
+    clone of) the gradients they are given to ``sink``: on a data-parallel
+    step, the all-reduced ones. The step still takes ``tx``'s fused
+    update."""
     from rendernet_tpu_torch.train.optim import GradientTransformation
 
-    def update(grads, state, params):
-        sink.append({k: g.detach().clone() for k, g in grads.items()})
-        return tx.update(grads, state, params)
+    def record(fn):
+        def run(grads, state, params):
+            sink.append({k: g.detach().clone() for k, g in grads.items()})
+            return fn(grads, state, params)
 
-    return GradientTransformation(tx.init, update)
+        return run
+
+    return GradientTransformation(tx.init, record(tx.update),
+                                  None if tx.apply is None else record(tx.apply))
 
 
 def bench_config(dtype="float32"):
@@ -3153,7 +3179,7 @@ def dist_world1(torch, np, failures, tmp):
             _, losses, ms, params = stepped(torch, step, fresh(), batch, DIST_STEPS)
             _, by_shape = read_counts()
             check_step_counts(failures, f"phase 10 (a) {name} steps", by_shape, DIST_STEPS,
-                              step_launches(24, 128))
+                              {**step_launches(24, 128), **adam_launches(net)})
             runs[name] = {"losses": losses, "step_ms": ms, "params": params, "grads": grads}
         ref = runs["plain"]
         torch.save({"grads": {k: g.cpu() for k, g in ref["grads"][0].items()},
@@ -3207,7 +3233,7 @@ def dist_world1(torch, np, failures, tmp):
             _, losses, ms, params = stepped(torch, step, tfresh(), tbatch, 1)
             _, by_shape = read_counts()
             check_step_counts(failures, f"phase 10 (a) texture {name} step", by_shape, 1,
-                              texture_step_launches(24, 128))
+                              {**texture_step_launches(24, 128), **adam_launches(tnet)})
             tex[name] = (losses, ms, params[0])
         equal = (tex["plain"][0] == tex["mesh_fp32"][0]
                  and all(torch.equal(tex["plain"][2][k], tex["mesh_fp32"][2][k])
@@ -3296,7 +3322,7 @@ def dist_rank(rank: int, tmp: str) -> None:
             res["step_ms"] = [a.elapsed_time(b) for a, b in marks]
             _, by_shape = read_counts()
             check_step_counts(failures, f"rank {rank} {dname} steps", by_shape, DIST_STEPS,
-                              step_launches(local, 128))
+                              {**step_launches(local, 128), **adam_launches(net)})
             res["allreduce_ms"], _ = allreduce_ms(torch, grads[-1], mesh, getattr(torch, dname),
                                                   reps=2)
             out[dname] = res
@@ -3752,7 +3778,7 @@ def sp_rank(rank: int, tmp: str) -> None:
                  "halo_received_bytes": halo.received_bytes // 2}
         per_run["sp_train"] = check_step_counts(
             failures, f"phase 11 (b) rank {rank} steps", by_shape, 2,
-            sharded_launches(8, 128, rank, grad=True))
+            {**sharded_launches(8, 128, rank, grad=True), **adam_launches(net)})
         train["loss_rel_err"] = abs(losses[0] - ref["loss"]) / abs(ref["loss"])
         train["grad_worst"] = sp_grad_errors(torch, grads[0], ref["grads"])
         sums = [zlib.crc32(p.detach().reshape(-1).view(torch.uint8).cpu().numpy())
@@ -4222,7 +4248,8 @@ def sp12_texture(torch, np, failures, rank, mesh, shard, ref, per_run):
     torch.cuda.synchronize()
     _, by_shape = read_counts()
     per_run["sp_tex"] = check_step_counts(failures, f"{what} step", by_shape, 1,
-                                          sharded_texture_launches(8, rank, grad=True))
+                                          {**sharded_texture_launches(8, rank, grad=True),
+                                           **adam_launches(net)})
     names = [n for n, _ in net.named_parameters()]
 
     def grad_errs(got):
@@ -4569,9 +4596,16 @@ class plain_kernels:
     """Route every kernel wrapper to its plain version (on the card)."""
 
     def __enter__(self):
-        from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_resample, cuda_winograd
+        from rendernet_tpu_torch.ops import (
+            cuda_adam,
+            cuda_conv2d,
+            cuda_conv3d,
+            cuda_resample,
+            cuda_winograd,
+        )
 
-        swaps = [(cuda_conv2d, "conv2d_hwnc", cuda_conv2d.conv2d_hwnc_plain),
+        swaps = [(cuda_adam, "adam_", cuda_adam.adam_plain),
+                 (cuda_conv2d, "conv2d_hwnc", cuda_conv2d.conv2d_hwnc_plain),
                  (cuda_conv2d, "conv2d_wgrad", cuda_conv2d.conv2d_wgrad_plain),
                  (cuda_resample, "interp_pass_fwd", cuda_resample.interp_pass_plain),
                  (cuda_resample, "interp_pass_bwd", cuda_resample.interp_pass_bwd_plain),
@@ -4629,6 +4663,103 @@ def kernel_sass(failures) -> None:
             failures.append(f"{name}'s library issues no bulk copy (UBLKCP)")
 
 
+# ---------------------------------------------------------------------------
+# Adam (no TPU kernel: the JAX package leaves it to optax and XLA)
+# ---------------------------------------------------------------------------
+ADAM_REPS = 20
+
+
+def adam_sass(failures) -> dict:
+    """The Adam library's 128-bit loads and stores (its vector path; the
+    table's pointers are generic, so they may be LD / ST as well as LDG /
+    STG) and local memory accesses (none: the gradient pointers are read
+    from the launch's parameters, not copied to the stack)."""
+    from rendernet_tpu_torch.ops import _native
+
+    tool = os.path.join(os.path.dirname(_native._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_native._target("adam"))], capture_output=True,
+                          text=True).stdout
+    counts = {"ld128": len(re.findall(r"\bLDG?\.E\.128\b", sass)),
+              "st128": len(re.findall(r"\bSTG?\.E\.128\b", sass)),
+              "local": len(re.findall(r"\b(?:LDL|STL)\b", sass))}
+    if not counts["ld128"] or not counts["st128"] or counts["local"]:
+        failures.append(f"adam's SASS: {counts} (wanted 128-bit loads and stores, no local memory)")
+    return counts
+
+
+def run_adam(torch, failures) -> list:
+    """The fused Adam update at the shader's and texface's parameter sets,
+    fp32 gradients and moments: two updates of the kernel against two of
+    its plain version on clones (bit for bit), then the ms of the kernel,
+    of the plain version and of ``torch.optim.Adam(fused=True)`` on the same
+    tensors (the one-call yardstick, ``library_ms``; the port never calls
+    it), and the bound: 28 bytes a parameter at 3.35 TB/s. Prints an
+    ``adam`` line a set; returns the kernels line's rows, each with the
+    training run (``run``) whose launches per step the kernels line
+    reports."""
+    from rendernet_tpu_torch.models import param_shapes
+    from rendernet_tpu_torch.models.shader import ShaderConfig
+    from rendernet_tpu_torch.models.texture_face import TextureFaceConfig
+    from rendernet_tpu_torch.ops import cuda_adam
+    from rendernet_tpu_torch.train import optim
+
+    dev = torch.device("cuda")
+    sass = adam_sass(failures)
+    hyper = dict(b1=0.5, b2=0.999, eps=1e-8)
+    rows = []
+    for kind, cfg, run in (("shader", ShaderConfig(preact_policy=True), "train64"),
+                           ("texface", TextureFaceConfig(), "tex64")):
+        shapes = param_shapes(cfg)
+        gen = torch.Generator(device=dev).manual_seed(22)
+        names = list(shapes)
+        params = [torch.randn(shapes[k], generator=gen, device=dev) for k in names]
+        grads = [torch.randn(shapes[k], generator=gen, device=dev) * 1e-3 for k in names]
+        mu = [torch.zeros_like(p) for p in params]
+        nu = [torch.zeros_like(p) for p in params]
+        ref = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+        _, bc1, bc2 = optim._bias_corrections(torch.zeros((), dtype=torch.int32, device=dev),
+                                              0.5, 0.999)
+        lr = -optim.exponential_staircase(1e-3, 2, 0.96)(torch.ones((), dtype=torch.int32,
+                                                                     device=dev))
+        for _ in range(2):
+            cuda_adam.adam_(params, grads, mu, nu, bc1, bc2, lr, **hyper)
+            cuda_adam.adam_plain(ref[0], grads, ref[1], ref[2], bc1, bc2, lr, **hyper)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max()) for ts, rs in zip((params, mu, nu), ref)
+                  for a, b in zip(ts, rs))
+        same = all(torch.equal(a, b) for ts, rs in zip((params, mu, nu), ref)
+                   for a, b in zip(ts, rs))
+        if not same:
+            failures.append(f"adam {kind}: the kernel differs from its plain version "
+                            f"(max abs {err:.3e})")
+        del ref
+        ms = time_ms(torch, lambda: cuda_adam.adam_(params, grads, mu, nu, bc1, bc2, lr,
+                                                    **hyper), ADAM_REPS)
+        plain_ms = time_ms(torch, lambda: cuda_adam.adam_plain(params, grads, mu, nu, bc1, bc2,
+                                                               lr, **hyper), 5)
+        leaves = [p.detach().clone().requires_grad_() for p in params]
+        for leaf, g in zip(leaves, grads):
+            leaf.grad = g
+        lib = torch.optim.Adam(leaves, lr=1e-3, betas=(0.5, 0.999), eps=1e-8, fused=True)
+        library_ms = time_ms(torch, lib.step, ADAM_REPS)
+        del lib, leaves
+        n = sum(p.numel() for p in params)
+        bound_ms = 28 * n / PEAK_BYTES * 1e3
+        row = {"name": f"Adam {kind} [{len(names)} tensors, {n} params] float32",
+               "route": "cuda", "source": "rendernet_tpu_torch/csrc/adam.cu",
+               "replaces": "none (the JAX package leaves Adam to optax / XLA)",
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": library_ms}
+        log("adam " + json.dumps({**row, "share": bound_ms / ms, "bit_equal": same,
+                                  "sass": sass}))
+        rows.append({**row, "run": run})
+        del params, grads, mu, nu
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -4665,6 +4796,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows = run_kernel_checks(torch, failures)
     chain_sweep(torch)
+    adam_rows = run_adam(torch, failures)
     torch.cuda.empty_cache()
     log(f"phase 2 (kernels) took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -4732,6 +4864,11 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    for r in adam_rows:  # launches a step of the run's training step
+        launches = sum(per_step[r.pop("run")].get("Adam", {}).values())
+        if launches != 1:
+            failures.append(f"{r['name']}: {launches} launches a step in its training run")
+        kernels.append({**r, "launches": launches})
     print(smi)
     print("main_path " + json.dumps(main_out))
     if failures:

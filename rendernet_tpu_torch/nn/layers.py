@@ -72,6 +72,7 @@ __all__ = [
     "WINOGRAD_2D",
     "to_jax_layout",
     "to_torch_layout",
+    "jax_layout_weight",
     "prelu",
     "conv_op",
     "conv_transpose_op",
@@ -163,6 +164,31 @@ def to_torch_layout(w: torch.Tensor) -> torch.Tensor:
     """Inverse of :func:`to_jax_layout`."""
     n = w.dim()
     return w.permute(n - 1, n - 2, *range(n - 2))
+
+
+class _CastToJaxLayout(torch.autograd.Function):
+    """``to_jax_layout(w).to(dtype)`` whose gradient comes back contiguous
+    in ``w``'s layout and dtype, in the one copy that casts it back."""
+
+    @staticmethod
+    def forward(ctx, w, dtype):
+        ctx.w_dtype = w.dtype
+        return to_jax_layout(w).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return to_torch_layout(g).to(ctx.w_dtype, memory_format=torch.contiguous_format), None
+
+
+def jax_layout_weight(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``to_jax_layout(w).to(dtype)``. Where the cast differentiates ``w``,
+    its gradient is made contiguous in the cast back (autograd's own would
+    keep the layout the backward produced, a permuted view of ``w``'s, and
+    the optimizer's fused update would copy it again: it takes contiguous
+    tensors); the values are the same either way."""
+    if dtype == w.dtype or not (w.requires_grad and torch.is_grad_enabled()):
+        return to_jax_layout(w).to(dtype)
+    return _CastToJaxLayout.apply(w, dtype)
 
 
 def prelu(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -587,7 +613,7 @@ class Conv(nn.Module):
                 extended: bool = False) -> torch.Tensor:
         """``shard``, ``extended``: :func:`conv_slab`."""
         with span("weights"):
-            w = to_jax_layout(self.weight).to(x.dtype)
+            w = jax_layout_weight(self.weight, x.dtype)
             b = self.bias.to(x.dtype)
         return conv_slab(x, w, self.stride, len(self.stride), shard, extended) + b
 
@@ -608,7 +634,7 @@ class ConvTranspose(nn.Module):
         """``shard``: this rank's rows, extended by :func:`deconv_halo`; its
         output rows are ``stride`` x its input rows."""
         with span("weights"):
-            w = to_jax_layout(self.weight).to(x.dtype)
+            w = jax_layout_weight(self.weight, x.dtype)
             b = self.bias.to(x.dtype)
         ndim = len(self.stride)
         if shard is None:
@@ -632,7 +658,7 @@ class FullyConnected(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("weights"):
-            w, b = self.weight.to(x.dtype).t(), self.bias.to(x.dtype)
+            w, b = jax_layout_weight(self.weight, x.dtype), self.bias.to(x.dtype)
         return torch.matmul(x, w) + b
 
 
@@ -686,7 +712,7 @@ class ResBlock(nn.Module):
         elif preact:
             c2 = self.conv2_3x3
             with span("weights"):
-                args = (self.alpha.to(net.dtype), to_jax_layout(c2.weight).to(net.dtype),
+                args = (self.alpha.to(net.dtype), jax_layout_weight(c2.weight, net.dtype),
                         c2.bias.to(net.dtype), self.ndim)
             if shard is None:
                 net = act_conv(net, *args)
@@ -706,8 +732,8 @@ class ResBlock(nn.Module):
         dt = xh.dtype
         c1, c2 = self.con1_3X3, self.conv2_3x3
         with span("weights"):
-            w1, b1 = to_jax_layout(c1.weight).to(dt), c1.bias.to(dt)
-            w2, b2 = to_jax_layout(c2.weight).to(dt), c2.bias.to(dt)
+            w1, b1 = jax_layout_weight(c1.weight, dt), c1.bias.to(dt)
+            w2, b2 = jax_layout_weight(c2.weight, dt), c2.bias.to(dt)
             alpha = self.alpha.to(dt) if self.activation == "prelu" else None
         if alpha is not None:
             def first(x):

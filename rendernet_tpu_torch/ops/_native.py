@@ -32,7 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("resample", "resample_bwd", "conv3d", "conv3d_wgrad", "winograd", "winograd_wgrad",
-           "conv2d", "conv2d_wgrad")
+           "conv2d", "conv2d_wgrad", "adam")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

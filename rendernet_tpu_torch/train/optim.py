@@ -9,14 +9,21 @@ module keeps optax's shape so the two compare step by step: a
 ``update(grads, state, params) -> (updates, state)`` over dicts of tensors,
 and :func:`apply_updates` adds the updates to the parameters. The port
 updates the parameters in place (``torch.no_grad``), where JAX returns new
-arrays; the moments are replaced by new tensors each step.
+arrays. ``tx.update`` replaces the moments by new tensors each step.
+:func:`update_and_apply`, the training steps' entry, runs ``tx.apply``
+where a transformation has one and its parameters lie on the card: that of
+:func:`make_optimizer`'s Adam without :func:`reject_nonfinite` is one launch
+of ``ops/cuda_adam.py``'s kernel, which updates the parameters and both
+moments in place.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+
+from rendernet_tpu_torch.ops import cuda_adam
 
 __all__ = [
     "GradientTransformation",
@@ -30,6 +37,7 @@ __all__ = [
     "reject_nonfinite",
     "make_optimizer",
     "apply_updates",
+    "update_and_apply",
 ]
 
 Tensors = Dict[str, torch.Tensor]
@@ -38,6 +46,9 @@ Tensors = Dict[str, torch.Tensor]
 class GradientTransformation(NamedTuple):
     init: Callable
     update: Callable
+    # ``update`` and :func:`apply_updates` in one, in place on the card:
+    # ``apply(grads, state, params) -> state``; None where they run apart.
+    apply: Optional[Callable] = None
 
 
 class AdamState(NamedTuple):
@@ -96,22 +107,24 @@ def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                          {k: zeros(p) for k, p in params.items()})
 
     def update(grads: Tensors, state: AdamState, params=None):
-        count = state.count + 1
-        c = count.to(torch.float32)
-        bc1 = 1.0 - torch.pow(b1, c)
-        bc2 = 1.0 - torch.pow(b2, c)
+        count, bc1, bc2 = _bias_corrections(state.count, b1, b2)
         updates, mu, nu = {}, {}, {}
         for k, g in grads.items():
-            g32 = g.to(torch.float32)
-            m32 = (1 - b1) * g32 + b1 * state.mu[k].to(torch.float32)
-            v32 = (1 - b2) * (g32 * g32) + b2 * state.nu[k].to(torch.float32)
-            step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
-            updates[k] = step.to(g.dtype)
+            updates[k], m32, v32 = cuda_adam.adam_moments(g, state.mu[k], state.nu[k], bc1, bc2,
+                                                          b1, b2, eps)
             mu[k] = m32.to(state.mu[k].dtype)
             nu[k] = v32.to(state.nu[k].dtype)
         return updates, AdamState(count, mu, nu)
 
     return GradientTransformation(init, update)
+
+
+def _bias_corrections(count: torch.Tensor, b1: float, b2: float):
+    """(count + 1, 1 - b1^(count + 1), 1 - b2^(count + 1)) on the count's
+    device."""
+    count = count + 1
+    c = count.to(torch.float32)
+    return count, 1.0 - torch.pow(b1, c), 1.0 - torch.pow(b2, c)
 
 
 def scale_by_learning_rate(schedule: Callable) -> GradientTransformation:
@@ -187,7 +200,8 @@ def make_optimizer(e_eta: float, decay_steps: int, decay_rate: float = 0.96,
     """The reference Adam (``optim.py:make_optimizer``): Adam(b1, b2, eps)
     scaled by the staircase schedule; ``moment_dtype="bfloat16"`` stores the
     moments in bf16; ``skip_nonfinite > 0`` adds :func:`reject_nonfinite`
-    (the count is the training loop's halt threshold)."""
+    (the count is the training loop's halt threshold), whose rejected step
+    keeps the old state, so it has no in-place ``apply``."""
     if moment_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"moment_dtype must be 'float32' or 'bfloat16', got {moment_dtype!r}")
     schedule = exponential_staircase(e_eta, decay_steps, decay_rate)
@@ -195,8 +209,8 @@ def make_optimizer(e_eta: float, decay_steps: int, decay_rate: float = 0.96,
     tx = chain(scale_by_adam(b1=b1, b2=b2, eps=eps, moment_dtype=mdt),
                scale_by_learning_rate(schedule))
     if skip_nonfinite > 0:
-        tx = reject_nonfinite(tx)
-    return tx
+        return reject_nonfinite(tx)
+    return tx._replace(apply=_fused_adam(b1, b2, eps, schedule))
 
 
 @torch.no_grad()
@@ -204,3 +218,35 @@ def apply_updates(params: Tensors, updates: Tensors) -> None:
     """``params[k] += updates[k]``, in place."""
     for k, p in params.items():
         p.add_(updates[k].to(p.dtype))
+
+
+def _fused_adam(b1: float, b2: float, eps: float, schedule: Callable) -> Callable:
+    """``apply`` of ``chain(scale_by_adam(b1, b2, eps), scale_by_learning_rate(
+    schedule))`` on the card: the whole update in one launch of the fused
+    kernel (``ops/cuda_adam.py``), bit for bit the same, with the parameters
+    and both moments updated in place; the returned state holds the same
+    moment tensors as ``state``."""
+
+    def apply(grads: Tensors, state, params: Tensors):
+        adam, sched = state
+        count, bc1, bc2 = _bias_corrections(adam.count, b1, b2)
+        lr = -schedule(sched.count)
+        names = list(params)
+        cuda_adam.adam_([params[k] for k in names], [grads[k].contiguous() for k in names],
+                        [adam.mu[k] for k in names], [adam.nu[k] for k in names], bc1, bc2, lr,
+                        b1=b1, b2=b2, eps=eps)
+        return AdamState(count, adam.mu, adam.nu), ScheduleState(sched.count + 1)
+
+    return apply
+
+
+def update_and_apply(tx: GradientTransformation, grads: Tensors, state, params: Tensors):
+    """``tx.update`` then :func:`apply_updates`; returns the new state. Where
+    ``tx`` has an ``apply`` and the parameters lie on the card, that runs
+    instead (:func:`make_optimizer`'s Adam: one launch, in place); on the
+    CPU, and for any other transformation, the two run as they are."""
+    if tx.apply is not None and next(iter(params.values())).device.type == "cuda":
+        return tx.apply(grads, state, params)
+    updates, state = tx.update(grads, state, params)
+    apply_updates(params, updates)
+    return state

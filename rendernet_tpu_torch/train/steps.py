@@ -8,13 +8,13 @@ MSE(normal) (RenderNet_Texture_Face_Normal.py:182-183).
 
 The JAX package jits one pure step per patch size and donates the state.
 Here a step is eager PyTorch: the parameters are the network's own tensors,
-updated in place, and the optimizer state is replaced each step; nothing in
-a step reads the device from the host, so consecutive steps queue on the
-card. The shape grid's resample runs outside autograd (no step
-differentiates voxels or pose), and at a patch size below ``new_size`` the
-crop is fused into it as in JAX. The texture step's decoded texture grid is
-warped under autograd, so its gradient reaches the decoder through K4's
-voxel cotangent.
+updated in place, as are Adam's moments on the card
+(``optim.update_and_apply``); nothing in a step reads the device from the
+host, so consecutive steps queue on the card. The shape grid's resample
+runs outside autograd (no step differentiates voxels or pose), and at a
+patch size below ``new_size`` the crop is fused into it as in JAX. The
+texture step's decoded texture grid is warped under autograd, so its
+gradient reaches the decoder through K4's voxel cotangent.
 
 Data parallelism: a step built with a ``mesh`` whose data axis is above 1
 (``train.distributed.make_mesh``) runs on each rank on that rank's rows and
@@ -71,7 +71,11 @@ from rendernet_tpu_torch.ops.resample import (
 )
 from rendernet_tpu_torch.train import distributed
 from rendernet_tpu_torch.train.config import TrainConfig
-from rendernet_tpu_torch.train.optim import GradientTransformation, apply_updates, make_optimizer
+from rendernet_tpu_torch.train.optim import (
+    GradientTransformation,
+    make_optimizer,
+    update_and_apply,
+)
 from rendernet_tpu_torch.utils.spans import span
 
 __all__ = [
@@ -251,8 +255,7 @@ def _apply_step(state: TrainState, tx: GradientTransformation, batch: int, accum
         grad_sum = distributed.all_reduce_mean(grad_sum, mesh, _dtype(allreduce_dtype))
         loss_sum = distributed.all_reduce_mean([loss_sum], mesh)[0]
     with span("update"):
-        updates, opt_state = tx.update(dict(zip(params, grad_sum)), state.opt_state, params)
-        apply_updates(params, updates)
+        opt_state = update_and_apply(tx, dict(zip(params, grad_sum)), state.opt_state, params)
     return TrainState(net, opt_state, state.step + 1), loss_sum
 
 

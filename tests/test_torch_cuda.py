@@ -7,14 +7,27 @@ they run with ``python -m pytest tests/test_torch_cuda.py -q``;
 paths' shapes. Tolerances: fp32 results may differ by summation order (1e-4
 of max|y|); bf16 results by one output rounding (2^-7 of max|y|, two bf16
 ulps); the weight gradients (K2w, K6, K5w) are fp32 sums of exact
-products in either dtype (1e-4 of max|gw|).
+products in either dtype (1e-4 of max|gw|). The fused Adam update repeats
+the per-tensor form's arithmetic and is held to it bit for bit.
 """
 from __future__ import annotations
+
+import math
 
 import pytest
 import torch
 
-from rendernet_tpu_torch.ops import cuda_conv2d, cuda_conv3d, cuda_resample, cuda_winograd
+from rendernet_tpu_torch.ops import (
+    cuda_adam,
+    cuda_conv2d,
+    cuda_conv3d,
+    cuda_resample,
+    cuda_winograd,
+)
+from rendernet_tpu_torch.models import param_shapes
+from rendernet_tpu_torch.models.shader import ShaderConfig
+from rendernet_tpu_torch.models.texture_face import TextureFaceConfig
+from rendernet_tpu_torch.train import optim
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}
 
@@ -454,3 +467,90 @@ def test_conv2d_ops_gradients_match_plain(cuda, save_pre, monkeypatch):
     monkeypatch.setattr(cuda_conv2d, "conv2d_wgrad", cuda_conv2d.conv2d_wgrad_plain)
     for a, b in zip(got, grads()):
         _close(a, b, torch.float32)
+
+
+# Tensors of 1, 3, 5 and 4097 elements and larger ones, laid out as views
+# into one flat buffer, tensor i at (phase0 + i) % 4 elements past a
+# multiple of four: parameters (phase0 1) and gradients (phase0 3) lie at
+# every 16-byte phase, and differ from each other tensor by tensor.
+RAGGED = {"a": (1,), "b": (3,), "c": (5,), "d": (4097,), "e": (17, 31), "f": (3, 3, 64, 33)}
+
+
+def _views(shapes, phase0, g, dev, dtype=torch.float32):
+    numels = [math.prod(s) for s in shapes.values()]
+    flat = torch.randn(sum(numels) + 8 * len(numels), generator=g, device=dev).to(dtype)
+    out, end = {}, 0
+    for i, ((k, s), n) in enumerate(zip(shapes.items(), numels)):
+        off = -(-end // 4) * 4 + (phase0 + i) % 4
+        out[k] = flat[off:off + n].view(s)
+        end = off + n
+    return out
+
+
+@pytest.mark.parametrize("case,gdt,mdt", [
+    ("shader", torch.float32, torch.float32), ("texface", torch.float32, torch.float32),
+    ("shader", torch.float32, torch.bfloat16), ("ragged", torch.float32, torch.float32),
+    ("ragged", torch.bfloat16, torch.float32), ("ragged", torch.float32, torch.bfloat16),
+    ("ragged", torch.bfloat16, torch.bfloat16)])
+def test_adam_kernel_bit_equal(cuda, case, gdt, mdt):
+    """optim.update_and_apply on the card (one launch of the fused kernel a
+    step) against tx.update + apply_updates: parameters, both moments and
+    both counts bit for bit over 6 steps, with a staircase that halves the
+    learning rate every 2 steps; at the shader's and texface's parameter
+    shapes and on a ragged set of views at odd offsets into flat buffers."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    tx = optim.make_optimizer(1e-3, 2, 0.5, b1=0.5, b2=0.999, eps=1e-8,
+                              moment_dtype=str(mdt).split(".")[-1])
+    if case == "ragged":
+        shapes = RAGGED
+        fused = _views(shapes, 1, g, cuda)
+        ref = {k: t.clone() for k, t in fused.items()}
+    else:
+        shapes = param_shapes(ShaderConfig() if case == "shader" else TextureFaceConfig())
+        fused = {k: torch.randn(s, generator=g, device=cuda) for k, s in shapes.items()}
+        ref = {k: t.clone() for k, t in fused.items()}
+    sf, sr = tx.init(fused), tx.init(ref)
+    for step in range(6):
+        if case == "ragged":
+            grads = _views(shapes, 3, g, cuda, gdt)
+        else:
+            grads = {k: torch.randn(s, generator=g, device=cuda).to(gdt)
+                     for k, s in shapes.items()}
+        before = cuda_adam.launches, cuda_adam.tensors
+        sf = optim.update_and_apply(tx, grads, sf, fused)
+        assert (cuda_adam.launches, cuda_adam.tensors) == (before[0] + 1,
+                                                           before[1] + len(shapes))
+        updates, sr = tx.update(grads, sr, ref)
+        optim.apply_updates(ref, updates)
+        torch.cuda.synchronize()
+        for k in shapes:
+            for a, b in ((fused[k], ref[k]), (sf[0].mu[k], sr[0].mu[k]),
+                         (sf[0].nu[k], sr[0].nu[k])):
+                assert a.dtype == b.dtype and torch.equal(a, b), (step, k)
+        assert int(sf[0].count) == int(sr[0].count) == step + 1
+        assert int(sf[1].count) == int(sr[1].count) == step + 1
+
+
+def test_adam_wrapper_raises_outside_the_envelope(cuda):
+    """fp16 gradients, bf16 parameters, non-contiguous tensors and scalars
+    off the card raise before any launch."""
+    p = [torch.zeros(8, 4, device=cuda)]
+    grads = [torch.zeros(8, 4, device=cuda)]
+    m, v = [torch.zeros(8, 4, device=cuda)], [torch.zeros(8, 4, device=cuda)]
+    one = torch.ones((), device=cuda)
+    before = cuda_adam.launches
+    hyper = dict(b1=0.5, b2=0.999, eps=1e-8)
+    with pytest.raises(TypeError):
+        cuda_adam.adam_(p, [grads[0].half()], m, v, one, one, one, **hyper)
+    with pytest.raises(TypeError):
+        cuda_adam.adam_([p[0].bfloat16()], grads, m, v, one, one, one, **hyper)
+    with pytest.raises(ValueError):
+        cuda_adam.adam_(p, [torch.zeros(4, 8, device=cuda).t()], m, v, one, one, one, **hyper)
+    with pytest.raises(ValueError):
+        cuda_adam.adam_([torch.zeros(4, 8, device=cuda).t()], grads, m, v, one, one, one,
+                        **hyper)
+    with pytest.raises(ValueError):
+        cuda_adam.adam_(p, grads, m, v, one.cpu(), one, one, **hyper)
+    assert cuda_adam.launches == before
+    cuda_adam.adam_(p, grads, m, v, one, one, -one, **hyper)
+    assert cuda_adam.launches == before + 1
